@@ -1,0 +1,154 @@
+"""Weight bridge: JAX parameter pytrees -> the port's modules.
+
+The JAX package keeps parameters as nested dicts of arrays in its own
+layouts (pointwise ``w`` [Cin, Cout], conv ``w`` [k, Cin, Cout], depthwise
+``w`` [k, C], down conv ``w`` [r*Cin, Cout], up conv ``w`` [Cin, r*Cout]).
+The port's modules hold the reference's state-dict names and layouts, so the
+bridge rewrites a pytree (any array type numpy can read) into a reference
+state dict and loads it with ``load_state_dict(strict=True)``.  The layout
+rules are this package's own copy of the JAX package's
+``compat/torch_export.py``; either a reference checkpoint or a bridged JAX
+pytree loads the same way.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+from alivevc_tpu_torch.config import DecoderConfig
+
+StateDict = Dict[str, np.ndarray]
+
+
+def _np(x) -> np.ndarray:
+    return np.asarray(x)
+
+
+def lin_state(sd: StateDict, prefix: str, p) -> None:
+    sd[f"{prefix}.weight"] = _np(p["w"]).T[:, :, None]      # [out, in, 1]
+    sd[f"{prefix}.bias"] = _np(p["b"])
+
+
+def conv_state(sd: StateDict, prefix: str, p) -> None:
+    sd[f"{prefix}.weight"] = np.transpose(_np(p["w"]), (2, 1, 0))   # [out, in, k]
+    sd[f"{prefix}.bias"] = _np(p["b"])
+
+
+def dw_state(sd: StateDict, prefix: str, p) -> None:
+    sd[f"{prefix}.weight"] = np.transpose(_np(p["w"])[:, None, :], (2, 1, 0))   # [C, 1, k]
+    sd[f"{prefix}.bias"] = _np(p["b"])
+
+
+def norm_state(sd: StateDict, prefix: str, p) -> None:
+    sd[f"{prefix}.scale"] = _np(p["scale"])[None, :, None]
+    sd[f"{prefix}.shift"] = _np(p["shift"])[None, :, None]
+
+
+def convnext_state(sd: StateDict, prefix: str, p) -> None:
+    dw_state(sd, f"{prefix}.dw_conv", p["dw_conv"])
+    norm_state(sd, f"{prefix}.norm", p["norm"])
+    lin_state(sd, f"{prefix}.pw_conv1", p["pw_conv1"])
+    lin_state(sd, f"{prefix}.pw_conv2", p["pw_conv2"])
+    sd[f"{prefix}.scale"] = _np(p["scale"])[None, :, None]
+
+
+def adaptive_convnext_state(sd: StateDict, prefix: str, p) -> None:
+    dw_state(sd, f"{prefix}.dw_conv", p["dw_conv"])
+    lin_state(sd, f"{prefix}.norm.scale", p["norm"]["scale"])
+    lin_state(sd, f"{prefix}.norm.shift", p["norm"]["shift"])
+    lin_state(sd, f"{prefix}.pw_conv1", p["pw_conv1"])
+    lin_state(sd, f"{prefix}.pw_conv2", p["pw_conv2"])
+    sd[f"{prefix}.scale"] = _np(p["scale"])[None, :, None]
+
+
+def content_encoder_state(params) -> StateDict:
+    sd: StateDict = {}
+    lin_state(sd, "input_layer", params["input_layer"])
+    for i, blk in enumerate(params["mid_layers"]):
+        convnext_state(sd, f"mid_layers.{i}", blk)
+    lin_state(sd, "output_layer", params["output_layer"])
+    return sd
+
+
+def f0_estimator_state(params) -> StateDict:
+    sd: StateDict = {}
+    lin_state(sd, "input_layer", params["input_layer"])
+    for i, blk in enumerate(params["mid_layers"]):
+        convnext_state(sd, f"mid_layers.{i}", blk)
+    norm_state(sd, "last_norm", params["last_norm"])
+    lin_state(sd, "output_layer", params["output_layer"])
+    return sd
+
+
+def filter_block_state(sd: StateDict, prefix: str, blk) -> None:
+    lin_state(sd, f"{prefix}.input_conv", blk["input_conv"])
+    for d, rb in enumerate(blk["blocks"]):
+        for name in ("c1", "c2"):
+            mc = rb[name]
+            conv_state(sd, f"{prefix}.blocks.{d}.{name}.conv.conv", mc["conv"])
+            lin_state(sd, f"{prefix}.blocks.{d}.{name}.to_scale", mc["to_scale"])
+            lin_state(sd, f"{prefix}.blocks.{d}.{name}.to_shift", mc["to_shift"])
+
+
+def up_state(sd: StateDict, prefix: str, up, c_prev: int, c: int, r: int) -> None:
+    w = _np(up["w"]).reshape(c_prev, r, c)                   # [cin, r, cout]
+    sd[f"{prefix}.weight"] = np.transpose(w, (0, 2, 1))       # [cin, cout, r]
+    sd[f"{prefix}.bias"] = _np(up["b"])
+
+
+def decoder_state(params, cfg: DecoderConfig = DecoderConfig()) -> StateDict:
+    sd: StateDict = {}
+    fe = params["feature_extractor"]
+    lin_state(sd, "feature_extractor.input_layer", fe["input_layer"])
+    lin_state(sd, "feature_extractor.f0_enc.c1", fe["f0_enc"]["c1"])
+    lin_state(sd, "feature_extractor.f0_enc.c2", fe["f0_enc"]["c2"])
+    for i, blk in enumerate(fe["mid_layers"]):
+        adaptive_convnext_state(sd, f"feature_extractor.mid_layers.{i}", blk)
+    lin_state(sd, "harmonic_oscillator.to_amps", params["harmonic_oscillator"]["to_amps"])
+
+    filt = params["filter"]
+    conv_state(sd, "filter.source_in", filt["source_in"])
+    chans = list(cfg.filter_channels)
+    chan_nexts = chans[1:] + [chans[-1]]
+    for i, (dp, c, c_next, r) in enumerate(zip(filt["downs"], chans, chan_nexts, cfg.filter_rates)):
+        w = _np(dp["w"]).reshape(r, c, c_next)               # [r, cin, cout]
+        sd[f"filter.downs.{i}.weight"] = np.transpose(w, (2, 1, 0))
+        sd[f"filter.downs.{i}.bias"] = _np(dp["b"])
+    conv_state(sd, "filter.mid_conv.conv", filt["mid_conv"])
+    rchans = list(reversed(chans))
+    chan_prevs = [rchans[0]] + rchans[:-1]
+    for i, (up, c, c_prev, r) in enumerate(
+        zip(filt["ups"], rchans, chan_prevs, reversed(list(cfg.filter_rates)))
+    ):
+        up_state(sd, f"filter.ups.{i}", up, c_prev, c, r)
+    for i, blk in enumerate(filt["blocks"]):
+        filter_block_state(sd, f"filter.blocks.{i}", blk)
+    conv_state(sd, "filter.source_out", filt["source_out"])
+    return sd
+
+
+def load_state(module: nn.Module, sd: Mapping[str, np.ndarray]) -> nn.Module:
+    """Load a reference-format state dict (numpy or torch values) with
+    strict key matching, keeping the module's device and dtype."""
+    p = next(module.parameters())
+    module.load_state_dict(
+        {k: torch.from_numpy(np.array(v)).to(p.device, p.dtype) for k, v in sd.items()},
+        strict=True,
+    )
+    return module
+
+
+def load_content_encoder(module: nn.Module, params) -> nn.Module:
+    return load_state(module, content_encoder_state(params))
+
+
+def load_f0_estimator(module: nn.Module, params) -> nn.Module:
+    return load_state(module, f0_estimator_state(params))
+
+
+def load_decoder(module: nn.Module, params, cfg: DecoderConfig = DecoderConfig()) -> nn.Module:
+    return load_state(module, decoder_state(params, cfg))

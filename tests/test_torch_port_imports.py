@@ -1,0 +1,51 @@
+"""The PyTorch port stands alone: importing every module of
+``alivevc_tpu_torch`` (and ``chip_smoke.py``) in a fresh interpreter leaves
+``jax`` and the JAX package ``alivevc_tpu`` out of ``sys.modules``, and no
+source file of the port names either in an import."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PKG = ROOT / "alivevc_tpu_torch"
+
+_PROBE = r"""
+import importlib, pkgutil, sys, runpy
+import alivevc_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(alivevc_tpu_torch.__path__, "alivevc_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+runpy.run_path(sys.argv[1], run_name="chip_smoke_probe")
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "alivevc_tpu" or m.startswith("alivevc_tpu."))
+print(len(names), bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_importing_the_port_loads_no_jax():
+    proc = subprocess.run([sys.executable, "-c", _PROBE, str(ROOT / "chip_smoke.py")],
+                          cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    n_modules = int(proc.stdout.split()[0])
+    assert n_modules >= 15
+
+
+def _imports(path: pathlib.Path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def test_no_source_file_imports_jax_or_the_jax_package():
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) >= 15
+    for path in files:
+        for mod in _imports(path):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "alivevc_tpu"), f"{path}: imports {mod}"

@@ -1,0 +1,86 @@
+"""Shared set-up of the PyTorch-port parity tests (tests/test_torch_port_*.py),
+and the check that the port's own copy of the configuration matches the JAX
+package's.
+
+Small configurations (narrow widths, two layers) keep the CPU run short.
+JAX parameters come from the JAX package's ``init_*`` functions and are
+carried into the port by ``alivevc_tpu_torch.compat.weights``; inputs come
+from numpy seeds and reach both sides as numpy arrays.  TF32 plays no part here
+(the CPU has none); tests/test_torch_port_gpu.py and chip_smoke.py set
+``torch.backends.cuda.matmul.allow_tf32`` and ``torch.backends.cudnn.allow_tf32``
+to False on the card.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+import jax
+
+CE_KW = dict(internal_channels=32, hidden_channels=64, output_channels=64, num_layers=2)
+F0_KW = dict(internal_channels=32, hidden_channels=64, num_layers=2)
+DEC_KW = dict(content_channels=64, channels=32, hidden_channels=64, num_layers=2,
+              num_harmonics=16)
+
+
+def jax_models(seed: int = 0):
+    """(ce, f0, dec) JAX parameter pytrees and (ce, f0, dec) JAX configs."""
+    from alivevc_tpu import config as jc
+    from alivevc_tpu.models.content_encoder import init_content_encoder
+    from alivevc_tpu.models.decoder import init_decoder
+    from alivevc_tpu.models.f0_estimator import init_f0_estimator
+
+    cfgs = (jc.ContentEncoderConfig(**CE_KW), jc.F0EstimatorConfig(**F0_KW),
+            jc.DecoderConfig(**DEC_KW))
+    k1, k2, k3 = jax.random.split(jax.random.PRNGKey(seed), 3)
+    params = (init_content_encoder(k1, cfgs[0]), init_f0_estimator(k2, cfgs[1]),
+              init_decoder(k3, cfgs[2]))
+    return params, cfgs
+
+
+def port_models(params):
+    """The port's (ce, f0, dec) modules on the CPU, loaded from JAX params."""
+    from alivevc_tpu_torch import config as tc
+    from alivevc_tpu_torch.compat import weights
+    from alivevc_tpu_torch.models.content_encoder import ContentEncoder
+    from alivevc_tpu_torch.models.decoder import Decoder
+    from alivevc_tpu_torch.models.f0_estimator import F0Estimator
+
+    dcfg = tc.DecoderConfig(**DEC_KW)
+    ce = weights.load_content_encoder(ContentEncoder(tc.ContentEncoderConfig(**CE_KW)), params[0])
+    f0 = weights.load_f0_estimator(F0Estimator(tc.F0EstimatorConfig(**F0_KW)), params[1])
+    dec = weights.load_decoder(Decoder(dcfg), params[2], dcfg)
+    for m in (ce, f0, dec):
+        m.eval().requires_grad_(False)
+    return ce, f0, dec
+
+
+def t(x) -> torch.Tensor:
+    """numpy/JAX array -> float32 CPU tensor (a copy)."""
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def n(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().cpu().numpy()
+    return np.asarray(x, dtype=np.float32)
+
+
+def max_err(a, b) -> float:
+    return float(np.abs(n(a) - n(b)).max())
+
+
+def test_config_copies_match_the_jax_package():
+    """The port keeps its own config.py: every dataclass it copies has the
+    JAX package's fields and defaults."""
+    import dataclasses
+
+    from alivevc_tpu import config as jc
+    from alivevc_tpu_torch import config as tc
+
+    for name in ("AudioConfig", "ContentEncoderConfig", "F0EstimatorConfig", "DecoderConfig",
+                 "KNNConfig", "InferenceConfig"):
+        assert dataclasses.asdict(getattr(tc, name)()) == dataclasses.asdict(getattr(jc, name)()), name
+    assert tc.AudioConfig().n_bins == jc.AudioConfig().n_bins == 641
+    assert tc.ContentEncoderConfig().input_channels == 641
