@@ -13,8 +13,24 @@
 // float32 by the wrapper) and, for precision 'default', rounded to bf16.
 // Scores: bf16 operands on the tensor cores (WMMA 16x16x16, float32
 // accumulation) for 'default'; float32 FMA for 'high'/'highest', so the
-// ranking is that of float32 scores.  Ties go to the smallest library index;
-// rows at index >= lr never win.
+// ranking is that of float32 scores.  Ties go to the smallest library index.
+//
+// Row exclusion (the sharded path's shard padding): rows at index >=
+// min(lr, valid_rows) are never loaded and never win, in every mode; the
+// count may live on the device (read by the kernel, no host sync).  An
+// optional float32 penalty[l] is added to each score after the product
+// (JAX appends it as an operand column, knn_twopass.py:238-242, so its
+// 'default' mode rounds it to bf16).  With fewer valid rows than k the
+// missing places keep the sentinel (-inf, 0x7fffffff).
+//
+// Packed extraction (PACKED, 'default' only, no exclusion; replaces
+// knn_pallas.py:_knn_kernel_fast / _pack_topk :51-135): each score s is
+// ranked as bits(s + 2) with the low 7 mantissa bits replaced by 127 - c,
+// c its column in the 128-aligned score tile, so within a 128-column
+// subtile no two keys tie and the key of s is within 127 ulps (3.1e-5) of
+// s + 2.  The block's register top-k orders keys by (key desc, global index
+// asc), which is the TPU kernel's per-subtile extraction followed by its
+// exact merge; the winners' keys minus 2 (exact in float32) are written.
 //
 // What bounds it on an H100: operations.  At the conversion path's shape
 // (7 200 queries x 100 352 rows x 768) the score products are 1.11 TFLOP
@@ -66,7 +82,7 @@ __device__ __forceinline__ void insert(float (&v)[K], int (&id)[K], float nv, in
 __device__ __forceinline__ void scores_bf16(const __nv_bfloat16* __restrict__ src,
                                             const __nv_bfloat16* __restrict__ lib,
                                             int ls, int lr, int d, int q0, int l0,
-                                            unsigned char* smem) {
+                                            unsigned char* smem) {  // rows >= lr read as 0
   __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);  // [QT][BKP]
   __nv_bfloat16* Bs = As + QT * BKP;                            // [LT][BKP]
   float* Sc = reinterpret_cast<float*>(smem);                   // aliases As/Bs
@@ -164,9 +180,16 @@ __device__ __forceinline__ void scores_f32(const float* __restrict__ src,
     for (int j = 0; j < 8; ++j) Sc[(ty * 4 + i) * SC_LD + tx * 8 + j] = acc[i][j];
 }
 
-template <int K, bool BF16>
+// The ranking key of the packed extraction (see the header).
+__device__ __forceinline__ float packed_key(float s, int c) {
+  const unsigned bits = __float_as_uint(s + 2.0f);
+  return __uint_as_float((bits & ~127u) | (127u - (unsigned)c));
+}
+
+template <int K, bool BF16, bool PACKED>
 __global__ void __launch_bounds__(256)
 knn_tile_kernel(const void* __restrict__ src, const void* __restrict__ lib,
+                const float* __restrict__ penalty, const int* __restrict__ valid_rows,
                 float* __restrict__ cand_v, int* __restrict__ cand_i,
                 int ls, int lr, int d, int rows_per_chunk) {
   __shared__ __align__(128) unsigned char smem[QT * SC_LD * sizeof(float)];
@@ -180,18 +203,25 @@ knn_tile_kernel(const void* __restrict__ src, const void* __restrict__ lib,
 #pragma unroll
   for (int s = 0; s < K; ++s) { v[s] = -INFINITY; id[s] = 0x7fffffff; }
 
+  // rows at index >= lv are excluded
+  const int lv = valid_rows ? min(lr, max(0, *valid_rows)) : lr;
   const int l_begin = chunk * rows_per_chunk;
-  const int l_end = min(lr, l_begin + rows_per_chunk);
+  const int l_end = min(lv, l_begin + rows_per_chunk);
   for (int l0 = l_begin; l0 < l_end; l0 += LT) {
     if (BF16)
       scores_bf16(static_cast<const __nv_bfloat16*>(src), static_cast<const __nv_bfloat16*>(lib),
-                  ls, lr, d, q0, l0, smem);
+                  ls, lv, d, q0, l0, smem);
     else
       scores_f32(static_cast<const float*>(src), static_cast<const float*>(lib),
-                 ls, lr, d, q0, l0, smem);
+                 ls, lv, d, q0, l0, smem);
     __syncthreads();
     const int n_valid = min(LT, l_end - l0);
-    for (int c = part; c < n_valid; c += 4) insert<K>(v, id, Sc[row * SC_LD + c], l0 + c);
+    for (int c = part; c < n_valid; c += 4) {
+      float sc = Sc[row * SC_LD + c];
+      if (penalty) sc += penalty[l0 + c];
+      if (PACKED) sc = packed_key(sc, c);
+      insert<K>(v, id, sc, l0 + c);
+    }
     __syncthreads();
   }
 
@@ -212,7 +242,11 @@ knn_tile_kernel(const void* __restrict__ src, const void* __restrict__ lib,
   if (part == 0 && q < ls) {
     const size_t base = ((size_t)chunk * ls + q) * K;
 #pragma unroll
-    for (int s = 0; s < K; ++s) { cand_v[base + s] = v[s]; cand_i[base + s] = id[s]; }
+    for (int s = 0; s < K; ++s) {
+      // key - 2 is exact, so the merge keeps the packed order
+      cand_v[base + s] = PACKED ? v[s] - 2.0f : v[s];
+      cand_i[base + s] = id[s];
+    }
   }
 }
 
@@ -236,17 +270,20 @@ knn_merge_kernel(const float* __restrict__ cand_v, const int* __restrict__ cand_
 }
 
 template <int K>
-int launch(const void* src, const void* lib, float* cand_v, int* cand_i, float* out_v,
-           int* out_i, int ls, int lr, int d, int bf16, int rows_per_chunk,
-           cudaStream_t stream) {
+int launch(const void* src, const void* lib, const float* penalty, const int* valid_rows,
+           float* cand_v, int* cand_i, float* out_v, int* out_i, int ls, int lr, int d,
+           int bf16, int packed, int rows_per_chunk, cudaStream_t stream) {
   const int n_chunks = (lr + rows_per_chunk - 1) / rows_per_chunk;
   dim3 grid(n_chunks, (ls + QT - 1) / QT);
-  if (bf16)
-    knn_tile_kernel<K, true><<<grid, 256, 0, stream>>>(src, lib, cand_v, cand_i, ls, lr, d,
-                                                        rows_per_chunk);
+  if (bf16 && packed)
+    knn_tile_kernel<K, true, true><<<grid, 256, 0, stream>>>(src, lib, penalty, valid_rows, cand_v,
+                                                             cand_i, ls, lr, d, rows_per_chunk);
+  else if (bf16)
+    knn_tile_kernel<K, true, false><<<grid, 256, 0, stream>>>(src, lib, penalty, valid_rows, cand_v,
+                                                              cand_i, ls, lr, d, rows_per_chunk);
   else
-    knn_tile_kernel<K, false><<<grid, 256, 0, stream>>>(src, lib, cand_v, cand_i, ls, lr, d,
-                                                         rows_per_chunk);
+    knn_tile_kernel<K, false, false><<<grid, 256, 0, stream>>>(src, lib, penalty, valid_rows, cand_v,
+                                                               cand_i, ls, lr, d, rows_per_chunk);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   knn_merge_kernel<K><<<(ls + 255) / 256, 256, 0, stream>>>(cand_v, cand_i, out_v, out_i, ls,
@@ -257,18 +294,27 @@ int launch(const void* src, const void* lib, float* cand_v, int* cand_i, float* 
 }  // namespace
 
 // src [ls, d], lib [lr, d]: bf16 when bf16 != 0, else float32; d a multiple
-// of 32.  cand_v/cand_i [ceil(lr / rows_per_chunk), ls, kk], out_v/out_i
-// [ls, kk] with kk = 4 or 8 (the caller keeps the first k columns);
-// rows_per_chunk a multiple of 128.
-extern "C" int knn_topk(const void* src, const void* lib, void* cand_v, void* cand_i,
-                        void* out_v, void* out_i, int ls, int lr, int d, int kk, int bf16,
+// of 32.  penalty: float32 [lr] or null.  valid_rows: one int32 on the
+// device or null (rows >= min(lr, *valid_rows) are excluded).  packed != 0
+// (bf16 only) selects the packed extraction.  cand_v/cand_i
+// [ceil(lr / rows_per_chunk), ls, kk], out_v/out_i [ls, kk] with kk = 4 or
+// 8 (the caller keeps the first k columns); rows_per_chunk a multiple of
+// 128.
+extern "C" int knn_topk(const void* src, const void* lib, const void* penalty,
+                        const void* valid_rows, void* cand_v, void* cand_i, void* out_v,
+                        void* out_i, int ls, int lr, int d, int kk, int bf16, int packed,
                         int rows_per_chunk, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* pen = static_cast<const float*>(penalty);
+  const int* vr = static_cast<const int*>(valid_rows);
   float* cv = static_cast<float*>(cand_v);
   int* ci = static_cast<int*>(cand_i);
   float* ov = static_cast<float*>(out_v);
   int* oi = static_cast<int*>(out_i);
-  if (kk == 4) return launch<4>(src, lib, cv, ci, ov, oi, ls, lr, d, bf16, rows_per_chunk, s);
-  if (kk == 8) return launch<8>(src, lib, cv, ci, ov, oi, ls, lr, d, bf16, rows_per_chunk, s);
+  if (packed && !bf16) return static_cast<int>(cudaErrorInvalidValue);
+  if (kk == 4)
+    return launch<4>(src, lib, pen, vr, cv, ci, ov, oi, ls, lr, d, bf16, packed, rows_per_chunk, s);
+  if (kk == 8)
+    return launch<8>(src, lib, pen, vr, cv, ci, ov, oi, ls, lr, d, bf16, packed, rows_per_chunk, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -38,7 +38,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-LAUNCHES: Dict[str, int] = {"stft": 0, "knn": 0, "oscillator": 0, "filter_level": 0}
+LAUNCHES: Dict[str, int] = {"stft": 0, "knn": 0, "oscillator": 0, "filter_level": 0,
+                            "knn_packed": 0, "oscillator_formants": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FNS: Dict[tuple, object] = {}

@@ -14,6 +14,25 @@ Precision modes (the JAX names):
 Normalisation is ``x * rsqrt(max(sum x^2, 1e-30))`` in float32 before the
 mode cast (``knn_twopass.py:230-234``).  Ties go to the smallest library
 index.
+
+Row exclusion, in every mode (the sharded path's shard padding):
+  * ``valid_rows`` (an int, or a 0-d integer tensor on the source's device):
+    rows at index >= min(Lr, valid_rows) never win.  Unlike the JAX
+    package's ``knn_topk_twopass``, which applies it only to its packed
+    'default' path, the exact modes honour it too.
+  * ``penalty`` (float32 [Lr]): added to the float32 score after the
+    product.  JAX appends it as an operand column (``knn_twopass.py:238-242``),
+    so its 'default' mode rounds it to bf16; penalties exact in bf16 (0, -4,
+    -10) give the same ranking in both.
+With fewer than k rows left, the missing places hold value -inf and index
+``SENTINEL``.
+
+``extraction='packed'`` (``knn_pallas.py:_knn_kernel_fast``/``_pack_topk``)
+applies only to 'default' with no exclusion and k <= 8, and falls back to
+the exact extraction otherwise, as ``knn_pallas.py:323-329`` does.  Scores
+are ranked by ``bits(s + 2)`` with the low 7 mantissa bits replaced by
+``127 - (column % 128)``, ties to the smaller index, and returned as that
+key minus 2 (within 3.1e-5 of the score).  'auto' is the exact extraction.
 """
 
 from __future__ import annotations
@@ -26,7 +45,10 @@ import torch.nn.functional as F
 from alivevc_tpu_torch.kernels import _lib
 
 PRECISIONS = ("default", "high", "highest")
+EXTRACTIONS = ("auto", "exact", "packed")
+SENTINEL = 2**31 - 1         # index of a place no valid row filled
 _ROWS_PER_CHUNK = 16 * 128   # library rows one block scans (csrc/knn.cu)
+_SUB = 128                   # packed extraction's subtile width (7 index bits)
 
 
 def normalize_rows(x: torch.Tensor) -> torch.Tensor:
@@ -62,27 +84,63 @@ def topk_exact(sims: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.cat(vals, dim=1), torch.cat(idxs, dim=1)
 
 
+def uses_packed(precision: str, k: int, valid_rows, penalty, extraction: str) -> bool:
+    """Whether ``extraction`` resolves to the packed form (knn_pallas.py:323-329)."""
+    if extraction not in EXTRACTIONS:
+        raise ValueError(f"unknown extraction {extraction!r}")
+    return (extraction == "packed" and precision == "default" and valid_rows is None
+            and penalty is None and k <= 8)
+
+
+def packed_keys(sims: torch.Tensor) -> torch.Tensor:
+    """The packed extraction's ranking keys of float32 scores [Q, Lr]:
+    bits(s + 2) with the low 7 mantissa bits set to 127 - (column % 128)."""
+    col = torch.arange(sims.shape[1], device=sims.device, dtype=torch.int32) % _SUB
+    bits = (sims.float() + 2.0).view(torch.int32)
+    return ((bits & ~(_SUB - 1)) | ((_SUB - 1) - col)[None, :]).view(torch.float32)
+
+
 def knn_topk_plain(source: torch.Tensor, library: torch.Tensor, k: int = 4,
-                   precision: str = "default", q_chunk: int = 1024):
+                   precision: str = "default", valid_rows=None, penalty=None,
+                   extraction: str = "auto", q_chunk: int = 1024):
     """(values [Ls, k] float32, indices [Ls, k] int64): the scores of the
-    mode's operands computed in float32, exact top-k per query."""
+    mode's operands computed in float32, plus ``penalty``, rows past
+    ``valid_rows`` masked, exact top-k per query (or top-k of the packed
+    keys)."""
+    packed = uses_packed(precision, k, valid_rows, penalty, extraction)
     src, lib = prep_operands(source, library, precision)
+    lr = lib.shape[0]
     lib_t = lib.float().t()
+    excluded = None
+    if valid_rows is not None:
+        vr = torch.clamp(torch.as_tensor(valid_rows, device=lib.device), max=lr)
+        excluded = torch.arange(lr, device=lib.device)[None, :] >= vr
     vals, idxs = [], []
     for q0 in range(0, src.shape[0], q_chunk):
-        v, i = topk_exact(src[q0:q0 + q_chunk].float() @ lib_t, k)
+        sims = src[q0:q0 + q_chunk].float() @ lib_t
+        if penalty is not None:
+            sims = sims + penalty.float()[None, :]
+        if excluded is not None:
+            sims = sims.masked_fill(excluded, float("-inf"))
+        if packed:
+            sims = packed_keys(sims)
+        v, i = topk_exact(sims, k)
+        if packed:
+            v = v - 2.0
         vals.append(v)
-        idxs.append(i)
+        idxs.append(torch.where(torch.isneginf(v), SENTINEL, i))
     return torch.cat(vals), torch.cat(idxs)
 
 
 def knn_topk_cuda(source: torch.Tensor, library: torch.Tensor, k: int = 4,
-                  precision: str = "default"):
+                  precision: str = "default", valid_rows=None, penalty=None,
+                  extraction: str = "auto"):
     """The kernel launch (tile scores + per-block top-k, then the merge)."""
     if not 1 <= k <= 8:
         raise ValueError(f"k={k} must be in [1, 8]")
     if library.shape[0] < k:
         raise ValueError(f"library has {library.shape[0]} rows < k={k}")
+    packed = uses_packed(precision, k, valid_rows, penalty, extraction)
     src, lib = prep_operands(source, library, precision)
     d = src.shape[1]
     if d % 32:  # zero columns change no dot product
@@ -95,6 +153,23 @@ def knn_topk_cuda(source: torch.Tensor, library: torch.Tensor, k: int = 4,
     if lib.device != src.device:
         raise ValueError("source and library must be on one device")
     ls, lr = src.shape[0], lib.shape[0]
+    vr_ptr = 0
+    if torch.is_tensor(valid_rows):
+        if valid_rows.numel() != 1 or valid_rows.dtype.is_floating_point:
+            raise ValueError("valid_rows must be one integer")
+        valid_rows = valid_rows.to(device=src.device, dtype=torch.int32).reshape(())
+        vr_ptr = valid_rows.data_ptr()
+    elif valid_rows is not None:
+        if int(valid_rows) < 1:
+            raise ValueError(f"valid_rows={valid_rows} leaves no row")
+        lr = min(lr, int(valid_rows))   # the grid stops at the valid rows
+    pen_ptr = 0
+    if penalty is not None:
+        penalty = penalty.float().contiguous()
+        _lib.require(penalty, "penalty", (torch.float32,), 1)
+        if penalty.shape[0] != lib.shape[0] or penalty.device != src.device:
+            raise ValueError(f"penalty must be [{lib.shape[0]}] on {src.device}")
+        pen_ptr = penalty.data_ptr()
     if -(-ls // 64) > 65535:    # query tiles ride gridDim.y
         raise ValueError(f"{ls} queries exceed one launch; split the batch")
     kk = 4 if k <= 4 else 8
@@ -104,19 +179,31 @@ def knn_topk_cuda(source: torch.Tensor, library: torch.Tensor, k: int = 4,
     cand_i = torch.empty((n_chunks, ls, kk), dtype=torch.int32, device=dev)
     out_v = torch.empty((ls, kk), dtype=torch.float32, device=dev)
     out_i = torch.empty((ls, kk), dtype=torch.int32, device=dev)
-    fn = _lib.function("knn", "knn_topk", "ppppppiiiiiip")
-    rc = fn(src.data_ptr(), lib.data_ptr(), cand_v.data_ptr(), cand_i.data_ptr(),
-            out_v.data_ptr(), out_i.data_ptr(), ls, lr, src.shape[1], kk,
-            int(precision == "default"), _ROWS_PER_CHUNK, _lib.stream_of(src))
+    fn = _lib.function("knn", "knn_topk", "ppppppppiiiiiiip")
+    rc = fn(src.data_ptr(), lib.data_ptr(), pen_ptr, vr_ptr, cand_v.data_ptr(),
+            cand_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(), ls, lr,
+            src.shape[1], kk, int(precision == "default"), int(packed), _ROWS_PER_CHUNK,
+            _lib.stream_of(src))
     _lib.check(rc, "knn_topk")
-    _lib.LAUNCHES["knn"] += 1
+    _lib.LAUNCHES["knn_packed" if packed else "knn"] += 1
     return out_v[:, :k], out_i[:, :k].long()
 
 
 def knn_topk(source: torch.Tensor, library: torch.Tensor, k: int = 4,
-             precision: str = "default"):
+             precision: str = "default", valid_rows=None, penalty=None,
+             extraction: str = "auto"):
     """Cosine top-k of source [Ls, D] against library [Lr, D]: the kernel on
     CUDA tensors, the plain version on CPU tensors."""
     if _lib.route(source) == "cuda":
-        return knn_topk_cuda(source, library, k, precision)
-    return knn_topk_plain(source, library, k, precision)
+        return knn_topk_cuda(source, library, k, precision, valid_rows, penalty, extraction)
+    return knn_topk_plain(source, library, k, precision, valid_rows, penalty, extraction)
+
+
+def match_features(source: torch.Tensor, library: torch.Tensor, k: int = 4,
+                   alpha: float = 0.0, precision: str = "highest") -> torch.Tensor:
+    """source [Ls, D] against library [Lr, D]: the mean of the k nearest
+    library rows in float32, alpha-blended with the source
+    (``knn_pallas.py:match_features_pallas``)."""
+    _, idx = knn_topk(source, library, k=k, precision=precision)
+    result = library[idx].float().mean(dim=1)
+    return result * (1.0 - alpha) + source.float() * alpha

@@ -1,13 +1,20 @@
-"""Harmonic source by the Chebyshev recurrence: CUDA kernel
-(``csrc/oscillator.cu``) and its plain PyTorch version.
+"""Harmonic sources: CUDA kernels (``csrc/oscillator.cu``) and their plain
+PyTorch versions.
 
-Replaces ``alivevc_tpu/kernels/oscillator_pallas.py:harmonic_source_cheb_pallas``:
+``harmonic_source`` replaces
+``alivevc_tpu/kernels/oscillator_pallas.py:harmonic_source_cheb_pallas``:
 the decoder's offline oscillator (phi = 0, crop = (0, -1)) with formants
 exactly f0 * (1..NH).  Sample r of frame q mixes frames (q-1, q, q+1) with
 the x``seg`` linear-interpolation weights (align_corners=False); the phase
 inside a frame is the same mix with the prefix-summed weights, and the base
 phase of a frame is the sum of the earlier frames' totals, taken in float64
 and wrapped mod 1.
+
+``harmonic_source_formants`` replaces ``oscillator_pallas.py:harmonic_source_pallas``:
+the same source over any formants [N, Lf, NH] (not necessarily f0
+multiples), each harmonic with its own phase by the same closed form and a
+float64 base per frame wrapped mod 1 (the JAX kernel carries it unwrapped
+in float32).  It is reached through the kernel API, not the decoder.
 """
 
 from __future__ import annotations
@@ -100,3 +107,48 @@ def harmonic_source(f0: torch.Tensor, amps: torch.Tensor, sample_rate: int = 16_
     if _lib.route(f0) == "cuda":
         return harmonic_source_cuda(f0, amps, sample_rate, seg)
     return harmonic_source_plain(f0, amps, sample_rate, seg)
+
+
+def harmonic_source_formants_plain(formants: torch.Tensor, amps: torch.Tensor,
+                                   sample_rate: int = 16_000, seg: int = 320) -> torch.Tensor:
+    """formants [N, Lf, NH] Hz, amps [N, Lf, NH] -> [N, Lf*seg, 1] float32."""
+    n, lf, nh = formants.shape
+    w, ws = _tables(seg, formants.device)
+    fp = _edge(formants.float() / sample_rate)[..., None]                # [N, Lf+2, NH, 1]
+    cseg = fp[:, :-2] * ws[0] + fp[:, 1:-1] * ws[1] + fp[:, 2:] * ws[2]   # [N, Lf, NH, seg]
+    tot = cseg[..., -1].double()
+    o = (torch.cumsum(tot, dim=1) - tot) - cseg[:, :1, :, 0].double()
+    x = cseg + (o - torch.floor(o)).float()[..., None]
+    theta = (2.0 * math.pi) * (x - torch.floor(x))
+    ap = _edge(amps.float())[..., None]
+    amp = ap[:, :-2] * w[0] + ap[:, 1:-1] * w[1] + ap[:, 2:] * w[2]
+    return ((torch.sin(theta) * amp).sum(dim=2) / nh).reshape(n, lf * seg, 1)
+
+
+def harmonic_source_formants_cuda(formants: torch.Tensor, amps: torch.Tensor,
+                                  sample_rate: int = 16_000, seg: int = 320) -> torch.Tensor:
+    """The kernel launch."""
+    f = (formants.float() / sample_rate).contiguous()
+    a = amps.float().contiguous()
+    _lib.require(f, "formants", (torch.float32,), 3)
+    _lib.require(a, "amps", (torch.float32,), 3)
+    n, lf, nh = f.shape
+    if a.shape != f.shape or not 1 <= nh <= 256:
+        raise ValueError(f"amps {tuple(a.shape)} does not match formants {tuple(f.shape)} (NH <= 256)")
+    w, ws = _tables(seg, f.device)
+    out = torch.empty((n, lf * seg, 1), dtype=torch.float32, device=f.device)
+    fn = _lib.function("oscillator", "osc_formant_f32", "pppppiiiip")
+    rc = fn(f.data_ptr(), a.data_ptr(), w.data_ptr(), ws.data_ptr(), out.data_ptr(),
+            n, lf, nh, seg, _lib.stream_of(f))
+    _lib.check(rc, "osc_formant_f32")
+    _lib.LAUNCHES["oscillator_formants"] += 1
+    return out
+
+
+def harmonic_source_formants(formants: torch.Tensor, amps: torch.Tensor,
+                             sample_rate: int = 16_000, seg: int = 320) -> torch.Tensor:
+    """Full-formant harmonic source: the kernel on CUDA tensors, the plain
+    version on CPU tensors."""
+    if _lib.route(formants) == "cuda":
+        return harmonic_source_formants_cuda(formants, amps, sample_rate, seg)
+    return harmonic_source_formants_plain(formants, amps, sample_rate, seg)

@@ -16,7 +16,8 @@ from __future__ import annotations
 
 import torch
 
-from alivevc_tpu_torch.kernels.knn import knn_topk, topk_exact
+from alivevc_tpu_torch.kernels.knn import match_features as _match_flat
+from alivevc_tpu_torch.kernels.knn import topk_exact
 
 
 def _l2_normalize(x: torch.Tensor) -> torch.Tensor:
@@ -45,7 +46,4 @@ def match_features_kernel(source: torch.Tensor, library: torch.Tensor, k: int = 
     queries, then the mean of the k library rows in float32, alpha-blended.
     Returns float32 [N, Ls, D]."""
     n, ls, d = source.shape
-    flat = source.reshape(n * ls, d)
-    _, idx = knn_topk(flat, library, k=k, precision=precision)
-    result = library.float()[idx].mean(dim=1)
-    return (result * (1.0 - alpha) + flat.float() * alpha).reshape(n, ls, d)
+    return _match_flat(source.reshape(n * ls, d), library, k, alpha, precision).reshape(n, ls, d)

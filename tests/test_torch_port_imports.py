@@ -20,7 +20,7 @@ for name in names:
 runpy.run_path(sys.argv[1], run_name="chip_smoke_probe")
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "alivevc_tpu" or m.startswith("alivevc_tpu."))
-print(len(names), bad)
+print(len(names), bad, " ".join(names))
 sys.exit(1 if bad else 0)
 """
 
@@ -30,7 +30,9 @@ def test_importing_the_port_loads_no_jax():
                           cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 15
+    assert n_modules >= 19
+    for mod in ("mesh", "sharded_knn", "distributed_vc"):
+        assert f"alivevc_tpu_torch.parallel.{mod}" in proc.stdout.split()
 
 
 def _imports(path: pathlib.Path):
@@ -44,7 +46,8 @@ def _imports(path: pathlib.Path):
 
 def test_no_source_file_imports_jax_or_the_jax_package():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) >= 15
+    assert len(files) >= 19
+    assert (PKG / "parallel" / "sharded_knn.py") in files
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]

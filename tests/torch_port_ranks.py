@@ -1,0 +1,75 @@
+"""Rank bodies of the port's multi-process tests (tests/test_torch_port_parallel.py).
+
+Each rank is a spawned process that joins a gloo group through a file
+rendezvous and runs on the CPU.  This module imports torch and the port
+only: spawned workers must not import JAX (tests/conftest.py and
+tests/test_torch_port_util.py set JAX up), so the parent test process
+computes the JAX oracles and hands the inputs over in a file it wrote.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+import torch.distributed as dist
+
+
+def models(spec):
+    """The port's (ce, f0, dec) on the CPU from ``spec`` (config kwargs and
+    state dicts)."""
+    from alivevc_tpu_torch import config as tc
+    from alivevc_tpu_torch.models.content_encoder import ContentEncoder
+    from alivevc_tpu_torch.models.decoder import Decoder
+    from alivevc_tpu_torch.models.f0_estimator import F0Estimator
+
+    ce = ContentEncoder(tc.ContentEncoderConfig(**spec["ce_kw"]))
+    f0 = F0Estimator(tc.F0EstimatorConfig(**spec["f0_kw"]))
+    dec = Decoder(tc.DecoderConfig(**spec["dec_kw"]))
+    for m, key in ((ce, "ce"), (f0, "f0"), (dec, "dec")):
+        m.load_state_dict(spec[key])
+        m.eval().requires_grad_(False)
+    return ce, f0, dec
+
+
+def run_rank(rank: int, world: int, tmp: str) -> None:
+    """Rank ``rank`` of ``world``: reads ``tmp/inputs.pt``, writes
+    ``tmp/rank<rank>.pt``."""
+    from alivevc_tpu_torch.parallel import (
+        convert_windows_distributed,
+        init_distributed,
+        make_mesh,
+        pad_library_for_sharding,
+        replicate,
+        shard_along,
+        sharded_match_features,
+    )
+
+    torch.set_num_threads(1)
+    spec = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)
+    init_distributed("gloo", f"file://{tmp}/rendezvous", world, rank)
+    try:
+        out = {}
+        lib_mesh = make_mesh([("library", world)], "cpu")
+        for name, (src, lib) in spec["knn_cases"].items():
+            lib_p, valid = pad_library_for_sharding(torch.from_numpy(lib), world)
+            for precision in ("highest", "high", "default"):
+                matched, idx = sharded_match_features(
+                    lib_mesh, torch.from_numpy(src), lib_p, valid, k=4,
+                    precision=precision, return_indices=True)
+                out[(name, precision)] = (matched.numpy(), idx.numpy())
+
+        mesh = make_mesh([("data", 2), ("library", world // 2)], "cpu")
+        ce, f0m, dec = models(spec)
+        # replicate: every rank ends with rank 0's parameters
+        probe = torch.nn.Linear(3, 2)
+        torch.nn.init.constant_(probe.weight, float(rank))
+        replicate(probe, mesh)
+        out["replicated"] = float(probe.weight.detach().abs().max())
+        out["data_shard"] = shard_along(torch.arange(8), mesh, "data").tolist()
+        out["vc"] = convert_windows_distributed(
+            mesh, ce, f0m, dec, spec["windows"], spec["library"], **spec["vc_kw"],
+            device="cpu").numpy()
+        torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
