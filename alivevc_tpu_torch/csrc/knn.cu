@@ -11,17 +11,23 @@
 //
 // Inputs arrive L2-normalised (x * rsqrt(max(sum x^2, 1e-30)), done in
 // float32 by the wrapper) and, for precision 'default', rounded to bf16.
-// Scores: bf16 operands on the tensor cores (WMMA 16x16x16, float32
-// accumulation) for 'default'; float32 FMA for 'high'/'highest', so the
-// ranking is that of float32 scores.  Ties go to the smallest library index.
+// Scores run on the tensor cores in every mode, as wgmma with float32
+// accumulation: bf16 operands for 'default'; 3xTF32 for 'high'/'highest'.
+// There each float32 operand is split as hi = cvt.rna.tf32(x), lo =
+// cvt.rna.tf32(x - hi), and the score accumulates lo.hi + hi.lo + hi.hi per
+// k-step (~2^-22 relative per product, so the ranking is float32-faithful;
+// kernels/knn.py:scores_3xtf32 emulates it).  A score's summation order is
+// the same for every row wherever it falls in a tile, a chunk or a shard.
+// Ties go to the smallest library index.
 //
 // Row exclusion (the sharded path's shard padding): rows at index >=
-// min(lr, valid_rows) are never loaded and never win, in every mode; the
-// count may live on the device (read by the kernel, no host sync).  An
-// optional float32 penalty[l] is added to each score after the product
-// (JAX appends it as an operand column, knn_twopass.py:238-242, so its
-// 'default' mode rounds it to bf16).  With fewer valid rows than k the
-// missing places keep the sentinel (-inf, 0x7fffffff).
+// min(lr, valid_rows) never win, in every mode, and a tile wholly past
+// them is never loaded; the count may live on the device (read by the
+// kernel, no host sync).  An optional float32 penalty[l] is added to each
+// score after the product (JAX appends it as an operand column,
+// knn_twopass.py:238-242, so its 'default' mode rounds it to bf16).  With
+// fewer valid rows than k the missing places keep the sentinel (-inf,
+// 0x7fffffff).
 //
 // Packed extraction (PACKED, 'default' only, no exclusion; replaces
 // knn_pallas.py:_knn_kernel_fast / _pack_topk :51-135): each score s is
@@ -34,29 +40,44 @@
 //
 // What bounds it on an H100: operations.  At the conversion path's shape
 // (7 200 queries x 100 352 rows x 768) the score products are 1.11 TFLOP
-// against 154 MB (bf16) of library; the top-k extraction is a few compare
-// and swap steps per score.  The design keeps the [Ls, Lr] score matrix out
-// of device memory: a block of 256 threads owns 64 queries and a chunk of
-// 16 x 128 library rows, computes each 64 x 128 score tile into shared
-// memory, and four threads per query fold the tile into a sorted top-k held
-// in registers.  Blocks run in no order, so there is no carry across the
-// library: each (query tile, chunk) block writes its k winners and pass B
-// merges the n_chunks * k candidates per query.  Operand tiles are reloaded
-// from L2 without double buffering; wgmma and TMA are later work.
+// (3x that in 3xTF32) against 154 MB (bf16) of library.  Design: a block of
+// WG warpgroups owns QT = 64 WG queries and a chunk of library rows, walked
+// as QT x 128 score tiles; warpgroup w computes rows 64 w .. 64 w + 63 of a
+// tile in 64 accumulator registers a thread.  Operand slabs (128 bytes of
+// each row) arrive by TMA (one 2-D tensor copy per operand and slab,
+// 128-byte swizzle, rows past the tensor zero-filled) into a ring of
+// STAGES shared-memory stages.  Each stage has a "full" mbarrier that the
+// copies complete and an "empty" one on which every warp releases it; one
+// thread keeps the ring full.  In bf16 wgmma reads both operands from
+// shared memory through descriptors.  In 3xTF32 the block first splits the
+// library slab in place into its hi part plus a lo slab beside it (one
+// pass, then a barrier of the block); the query fragments come from
+// ldmatrix and split in registers.  The query tile (192 rows) does not fit
+// in shared memory beside a ring, so both operands stream; L2 serves the
+// repeats.  After a tile's last slab each thread folds its accumulators
+// into sorted top-k lists in registers (2 query rows a thread; a row's
+// 128 scores lie in one lane quad), skipping the row when none of its
+// scores reaches its k-th best, while the next slabs land.  The quad then
+// merges by shuffles and the block writes k winners per query and chunk.
+// Pass B merges the chunks with a warp per query: lanes stride over the
+// chunks, then a shuffle merge.
 
 #include "common.cuh"
-#include <mma.h>
+
+#include <cstdint>
+#include <cuda.h>
 
 namespace {
 
-using namespace nvcuda;
-
-constexpr int QT = 64;        // queries per block
-constexpr int LT = 128;       // library rows per score tile
-constexpr int SC_LD = 132;    // score tile row stride (floats)
-constexpr int BK16 = 32;      // bf16 k-step
-constexpr int BKP = BK16 + 8; // padded bf16 row (elements)
-constexpr int BK32 = 16;      // float32 k-step
+constexpr int WG = 3;             // warpgroups a block, 64 queries each
+constexpr int QT = 64 * WG;       // queries per block
+constexpr int LT = 128;           // library rows per score tile (the wgmma N)
+constexpr int THREADS = 128 * WG;
+constexpr int STAGES = 4;         // ring depth
+constexpr int SLAB_BYTES = 128;   // bytes of each row per slab: one 128-byte swizzle span
+constexpr int HEAD_BYTES = 1024;  // the mbarriers; operands start 1024-aligned (swizzle)
+constexpr int A_SLAB = QT * SLAB_BYTES;
+constexpr int B_SLAB = LT * SLAB_BYTES;
 
 __device__ __forceinline__ bool better(float a, int ia, float b, int ib) {
   return a > b || (a == b && ia < ib);
@@ -78,106 +99,59 @@ __device__ __forceinline__ void insert(float (&v)[K], int (&id)[K], float nv, in
   }
 }
 
-// 64 x 128 score tile on the tensor cores: Sc[q][l] = src[q0+q] . lib[l0+l]
-__device__ __forceinline__ void scores_bf16(const __nv_bfloat16* __restrict__ src,
-                                            const __nv_bfloat16* __restrict__ lib,
-                                            int ls, int lr, int d, int q0, int l0,
-                                            unsigned char* smem) {  // rows >= lr read as 0
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);  // [QT][BKP]
-  __nv_bfloat16* Bs = As + QT * BKP;                            // [LT][BKP]
-  float* Sc = reinterpret_cast<float*>(smem);                   // aliases As/Bs
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wr = warp % 4;   // rows wr*16 .. +16
-  const int wc = warp / 4;   // cols wc*64 .. +64
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
+// Merge the lists of the 4 lanes of each quad (disjoint candidates of the
+// same rows) into every lane of the quad.
+template <int K, int R>
+__device__ __forceinline__ void quad_merge(float (&v)[R][K], int (&id)[R][K]) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.0f);
-
-  for (int k0 = 0; k0 < d; k0 += BK16) {
-    {
-      const int r = tid / 4, c8 = (tid % 4) * 8;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (q0 + r < ls) v = *reinterpret_cast<const uint4*>(src + (size_t)(q0 + r) * d + k0 + c8);
-      *reinterpret_cast<uint4*>(As + r * BKP + c8) = v;
-    }
+  for (int off = 1; off <= 2; off <<= 1)
 #pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int e = tid + 256 * q;
-      const int r = e / 4, c8 = (e % 4) * 8;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (l0 + r < lr) v = *reinterpret_cast<const uint4*>(lib + (size_t)(l0 + r) * d + k0 + c8);
-      *reinterpret_cast<uint4*>(Bs + r * BKP + c8) = v;
-    }
-    __syncthreads();
+    for (int r = 0; r < R; ++r) {
+      float pv[K];
+      int pi[K];
 #pragma unroll
-    for (int kk = 0; kk < BK16; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-      wmma::load_matrix_sync(fa, As + (wr * 16) * BKP + kk, BKP);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fb, Bs + (wc * 64 + j * 16) * BKP + kk, BKP);
-        wmma::mma_sync(acc[j], fa, fb, acc[j]);
+      for (int s = 0; s < K; ++s) {
+        pv[s] = __shfl_xor_sync(0xffffffffu, v[r][s], off);
+        pi[s] = __shfl_xor_sync(0xffffffffu, id[r][s], off);
       }
-    }
-    __syncthreads();
-  }
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
-    wmma::store_matrix_sync(Sc + (wr * 16) * SC_LD + wc * 64 + j * 16, acc[j], SC_LD,
-                            wmma::mem_row_major);
+      for (int s = 0; s < K; ++s) insert<K>(v[r], id[r], pv[s], pi[s]);
+    }
 }
 
-// 64 x 128 score tile in float32 FMA: each thread owns 4 queries x 8 rows.
-__device__ __forceinline__ void scores_f32(const float* __restrict__ src,
-                                           const float* __restrict__ lib,
-                                           int ls, int lr, int d, int q0, int l0,
-                                           unsigned char* smem) {
-  float* As = reinterpret_cast<float*>(smem);   // [BK32][QT + 4]
-  float* Bs = As + BK32 * (QT + 4);             // [BK32][LT + 4]
-  float* Sc = reinterpret_cast<float*>(smem);   // aliases As/Bs
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  float acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+// mbarriers (shared-space addresses) and TMA tensor copies
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  asm volatile(
+      "{\n .reg .pred p;\n WAIT:\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      " @!p bra WAIT;\n}\n" ::"r"(bar), "r"(parity) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+// the box of ``tm`` at (column x, row y) -> shared dst; completion on bar
+__device__ __forceinline__ void tma_load(unsigned dst, const CUtensorMap& tm, int x, int y, unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(&tm)), "r"(x), "r"(y), "r"(bar) : "memory");
+}
 
-  for (int k0 = 0; k0 < d; k0 += BK32) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int e = tid + 256 * q;
-      const int r = e / BK32, kk = e % BK32;
-      As[kk * (QT + 4) + r] = (q0 + r < ls) ? src[(size_t)(q0 + r) * d + k0 + kk] : 0.f;
-    }
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const int e = tid + 256 * q;
-      const int c = e / BK32, kk = e % BK32;
-      Bs[kk * (LT + 4) + c] = (l0 + c < lr) ? lib[(size_t)(l0 + c) * d + k0 + kk] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK32; ++kk) {
-      const float4 a4 = *reinterpret_cast<const float4*>(As + kk * (QT + 4) + ty * 4);
-      const float4 b0 = *reinterpret_cast<const float4*>(Bs + kk * (LT + 4) + tx * 8);
-      const float4 b1 = *reinterpret_cast<const float4*>(Bs + kk * (LT + 4) + tx * 8 + 4);
-      const float a[4] = {a4.x, a4.y, a4.z, a4.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) Sc[(ty * 4 + i) * SC_LD + tx * 8 + j] = acc[i][j];
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// the 3xTF32 split: x ~ hi + lo, both TF32
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
 }
 
 // The ranking key of the packed extraction (see the header).
@@ -186,48 +160,253 @@ __device__ __forceinline__ float packed_key(float s, int c) {
   return __uint_as_float((bits & ~127u) | (127u - (unsigned)c));
 }
 
+// ldmatrix: four 8 x 16-byte matrices; lanes 8i..8i+7 give matrix i's rows
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d[0:64] += A . B^T over one k-step of 8 TF32 values, for the
+// warpgroup's 64 rows x 128 columns: A (this thread's m16k8 fragment,
+// TF32 bits) from registers, B (128 rows, K-major) from shared memory.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// d[0:64] += A . B^T over one k-step of 16 bf16 values, for the
+// warpgroup's 64 rows x 128 columns, both operands K-major in shared memory.
+__device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// A wgmma shared-memory descriptor: K-major rows of 128 bytes with the
+// 128-byte swizzle, 8-row groups 1024 bytes apart.
+__device__ __forceinline__ uint64_t desc_sw128(unsigned addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+// Pass A.  Grid (query tiles, chunks).  A stage holds the query slab
+// [QT][128 B] and the library slab [LT][128 B] (tm_src, tm_lib boxes), both
+// 128-byte swizzled (16-byte chunk c of row r at chunk c ^ (r & 7)), and in
+// 3xTF32 the library slab's lo part [LT][128 B] beside them.
 template <int K, bool BF16, bool PACKED>
-__global__ void __launch_bounds__(256)
-knn_tile_kernel(const void* __restrict__ src, const void* __restrict__ lib,
+__global__ void __launch_bounds__(THREADS, 1)
+knn_tile_kernel(const __grid_constant__ CUtensorMap tm_src, const __grid_constant__ CUtensorMap tm_lib,
                 const float* __restrict__ penalty, const int* __restrict__ valid_rows,
                 float* __restrict__ cand_v, int* __restrict__ cand_i,
-                int ls, int lr, int d, int rows_per_chunk) {
-  __shared__ __align__(128) unsigned char smem[QT * SC_LD * sizeof(float)];
-  const float* Sc = reinterpret_cast<const float*>(smem);
-  const int chunk = blockIdx.x;
-  const int q0 = blockIdx.y * QT;
-  const int row = threadIdx.x / 4, part = threadIdx.x % 4;
-
-  float v[K];
-  int id[K];
-#pragma unroll
-  for (int s = 0; s < K; ++s) { v[s] = -INFINITY; id[s] = 0x7fffffff; }
+                int ls, int lr, int d, int rows_per_chunk, int n_chunks) {
+  constexpr int STAGE_BYTES = A_SLAB + (BF16 ? 1 : 2) * B_SLAB;
+  constexpr int ELEMS = SLAB_BYTES / (BF16 ? 2 : 4);   // tensor columns per slab
+  constexpr int KSTEPS = SLAB_BYTES / 32;               // 32-byte wgmma k-steps per slab
+  extern __shared__ unsigned char smem_raw[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int q0 = blockIdx.x * QT;
+  const int chunk = blockIdx.y;
 
   // rows at index >= lv are excluded
   const int lv = valid_rows ? min(lr, max(0, *valid_rows)) : lr;
   const int l_begin = chunk * rows_per_chunk;
   const int l_end = min(lv, l_begin + rows_per_chunk);
-  for (int l0 = l_begin; l0 < l_end; l0 += LT) {
-    if (BF16)
-      scores_bf16(static_cast<const __nv_bfloat16*>(src), static_cast<const __nv_bfloat16*>(lib),
-                  ls, lv, d, q0, l0, smem);
-    else
-      scores_f32(static_cast<const float*>(src), static_cast<const float*>(lib),
-                 ls, lv, d, q0, l0, smem);
-    __syncthreads();
-    const int n_valid = min(LT, l_end - l0);
-    for (int c = part; c < n_valid; c += 4) {
-      float sc = Sc[row * SC_LD + c];
-      if (penalty) sc += penalty[l0 + c];
-      if (PACKED) sc = packed_key(sc, c);
-      insert<K>(v, id, sc, l0 + c);
+  const int n_tiles = l_end > l_begin ? (l_end - l_begin + LT - 1) / LT : 0;
+  const int slabs = d / ELEMS;                         // slabs per row
+  const int n_steps = n_tiles * slabs;
+
+  const unsigned raw = static_cast<unsigned>(__cvta_generic_to_shared(smem_raw));
+  const unsigned base = (raw + HEAD_BYTES - 1) & ~(unsigned)(HEAD_BYTES - 1);
+  unsigned char* smem = smem_raw + (base - raw);
+  const unsigned full = base, empty = base + 8 * STAGES;   // one mbarrier per stage each
+  const unsigned ring = base + HEAD_BYTES;
+
+  // slab `step` (tile step / slabs, columns (step % slabs) * ELEMS) of
+  // both operands into its stage
+  auto fetch = [&](int step) {
+    const int slot = step % STAGES, col = (step % slabs) * ELEMS;
+    const unsigned bar = full + 8 * slot, st = ring + slot * STAGE_BYTES;
+    mbar_expect_tx(bar, A_SLAB + B_SLAB);
+    tma_load(st, tm_src, col, q0, bar);
+    tma_load(st + A_SLAB, tm_lib, col, l_begin + (step / slabs) * LT, bar);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, THREADS / 32);
     }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int s = 0; s < STAGES && s < n_steps; ++s) fetch(s);
+  }
+  __syncthreads();
+
+  // this thread's rows: 16 warp + g and + 8 (g = lane / 4); its columns of
+  // a tile: 8 j + 2 (lane % 4) + e, accumulator 4 j + 2 h + e for row h
+  float v[2][K];
+  int id[2][K];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int s = 0; s < K; ++s) { v[r][s] = -INFINITY; id[r][s] = 0x7fffffff; }
+  float acc[64];
+#pragma unroll
+  for (int e = 0; e < 64; ++e) acc[e] = 0.f;
+
+  // 3xTF32: this lane's ldmatrix row of the warp's 16 query rows, and the
+  // swizzled 16-byte chunk of k-step k: (2 k + lane / 16) ^ (lane & 7)
+  const unsigned a_row = (16 * warp + (lane & 15)) * SLAB_BYTES;
+  const int sw = lane & 7, ha = lane >> 4, t2 = 2 * (lane & 3);
+  int slot = 0, ks = 0, l0 = l_begin;
+  for (int step = 0; step < n_steps; ++step) {
+    // refill the stage released one step ago (its warps are most likely done)
+    if (tid == 0 && step >= 1 && step - 1 + STAGES < n_steps) {
+      const int prev = step - 1;
+      mbar_wait(empty + 8 * (prev % STAGES), (prev / STAGES) & 1);
+      fetch(prev + STAGES);
+    }
+    mbar_wait(full + 8 * slot, (step / STAGES) & 1);   // slab `step` has landed
+    const unsigned st = ring + slot * STAGE_BYTES;
+    if (BF16) {
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int k = 0; k < KSTEPS; ++k)
+        wgmma_bf16(acc, desc_sw128(st + (warp >> 2) * 64 * SLAB_BYTES + 32 * k), desc_sw128(st + A_SLAB + 32 * k));
+    } else {
+      // split the library slab: hi in place, lo beside it (positions, and
+      // so the swizzle, unchanged)
+      float4* bh = reinterpret_cast<float4*>(smem + (st - base) + A_SLAB);
+      float4* bl = bh + B_SLAB / 16;
+      for (int i = tid; i < B_SLAB / 16; i += THREADS) {
+        const float4 x = bh[i];
+        uint32_t h[4], l[4];
+        split_tf32(x.x, h[0], l[0]);
+        split_tf32(x.y, h[1], l[1]);
+        split_tf32(x.z, h[2], l[2]);
+        split_tf32(x.w, h[3], l[3]);
+        bh[i] = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]), __uint_as_float(h[2]), __uint_as_float(h[3]));
+        bl[i] = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]), __uint_as_float(l[2]), __uint_as_float(l[3]));
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");   // generic writes -> wgmma reads
+      asm volatile("bar.sync 1, %0;\n" ::"n"(THREADS) : "memory");
+
+      uint32_t ah[KSTEPS][4], al[KSTEPS][4];
+#pragma unroll
+      for (int k = 0; k < KSTEPS; ++k) {
+        uint32_t f[4];
+        ldsm4(f, st + a_row + (((2 * k + ha) ^ sw) << 4));
+#pragma unroll
+        for (int j = 0; j < 4; ++j) split_tf32(__uint_as_float(f[j]), ah[k][j], al[k][j]);
+      }
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int k = 0; k < KSTEPS; ++k) {
+        const uint64_t dh = desc_sw128(st + A_SLAB + 32 * k), dl = desc_sw128(st + A_SLAB + B_SLAB + 32 * k);
+        wgmma_tf32(acc, al[k], dh);
+        wgmma_tf32(acc, ah[k], dl);
+        wgmma_tf32(acc, ah[k], dh);
+      }
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * slot);      // this warp is done with the stage
+    slot = slot + 1 == STAGES ? 0 : slot + 1;
+
+    if (++ks == slabs) {   // the tile is complete: fold it
+      // Only the chunk's last tile can be partial.
+      const bool whole = l0 + LT <= l_end;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float m = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = 8 * j + t2 + e;
+            float x = acc[4 * j + 2 * h + e];
+            if (penalty) x += (l0 + c < l_end) ? __ldg(penalty + l0 + c) : 0.f;
+            if (PACKED) x = packed_key(x, c);
+            acc[4 * j + 2 * h + e] = x;
+            if (whole || l0 + c < l_end) m = fmaxf(m, x);
+          }
+        if (m >= v[h][K - 1]) {   // some score reaches the k-th best (ties included)
+#pragma unroll
+          for (int j = 0; j < 16; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int c = 8 * j + t2 + e;
+              if (whole || l0 + c < l_end) insert<K>(v[h], id[h], acc[4 * j + 2 * h + e], l0 + c);
+            }
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 64; ++e) acc[e] = 0.f;
+      ks = 0;
+      l0 += LT;
+    }
   }
 
-  // the four threads of a query hold disjoint candidates: merge them
+  quad_merge<K, 2>(v, id);
+  if ((lane & 3) == 0) {
 #pragma unroll
-  for (int off = 1; off <= 2; off <<= 1) {
+    for (int r = 0; r < 2; ++r) {
+      const int q = q0 + 16 * warp + 8 * r + (lane >> 2);
+      if (q < ls) {
+        const size_t out = ((size_t)q * n_chunks + chunk) * K;
+#pragma unroll
+        for (int s = 0; s < K; ++s) {
+          // key - 2 is exact, so the merge keeps the packed order
+          cand_v[out + s] = PACKED ? v[r][s] - 2.0f : v[r][s];
+          cand_i[out + s] = id[r][s];
+        }
+      }
+    }
+  }
+}
+
+// Pass B: a warp per query; lanes stride over the chunks, then a shuffle
+// merge.  cand [ls][n_chunks][K].
+template <int K>
+__global__ void __launch_bounds__(256)
+knn_merge_kernel(const float* __restrict__ cand_v, const int* __restrict__ cand_i,
+                 float* __restrict__ out_v, int* __restrict__ out_i, int ls, int n_chunks) {
+  const int lane = threadIdx.x & 31;
+  const long long q = (long long)blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+  if (q >= ls) return;
+  float v[K];
+  int id[K];
+#pragma unroll
+  for (int s = 0; s < K; ++s) { v[s] = -INFINITY; id[s] = 0x7fffffff; }
+  const size_t row = (size_t)q * n_chunks * K;
+  for (int c = lane; c < n_chunks; c += 32)
+#pragma unroll
+    for (int s = 0; s < K; ++s) insert<K>(v, id, cand_v[row + c * K + s], cand_i[row + c * K + s]);
+#pragma unroll
+  for (int off = 16; off >= 1; off >>= 1) {
     float pv[K];
     int pi[K];
 #pragma unroll
@@ -238,35 +417,61 @@ knn_tile_kernel(const void* __restrict__ src, const void* __restrict__ lib,
 #pragma unroll
     for (int s = 0; s < K; ++s) insert<K>(v, id, pv[s], pi[s]);
   }
-  const int q = q0 + row;
-  if (part == 0 && q < ls) {
-    const size_t base = ((size_t)chunk * ls + q) * K;
+  if (lane == 0) {
 #pragma unroll
-    for (int s = 0; s < K; ++s) {
-      // key - 2 is exact, so the merge keeps the packed order
-      cand_v[base + s] = PACKED ? v[s] - 2.0f : v[s];
-      cand_i[base + s] = id[s];
-    }
+    for (int s = 0; s < K; ++s) { out_v[(size_t)q * K + s] = v[s]; out_i[(size_t)q * K + s] = id[s]; }
   }
 }
 
-template <int K>
-__global__ void __launch_bounds__(256)
-knn_merge_kernel(const float* __restrict__ cand_v, const int* __restrict__ cand_i,
-                 float* __restrict__ out_v, int* __restrict__ out_i, int ls, int n_chunks) {
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= ls) return;
-  float v[K];
-  int id[K];
-#pragma unroll
-  for (int s = 0; s < K; ++s) { v[s] = -INFINITY; id[s] = 0x7fffffff; }
-  for (int c = 0; c < n_chunks; ++c) {
-    const size_t base = ((size_t)c * ls + q) * K;
-#pragma unroll
-    for (int s = 0; s < K; ++s) insert<K>(v, id, cand_v[base + s], cand_i[base + s]);
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+#endif
+      fn = reinterpret_cast<EncodeTiled>(p);
   }
-#pragma unroll
-  for (int s = 0; s < K; ++s) { out_v[(size_t)q * K + s] = v[s]; out_i[(size_t)q * K + s] = id[s]; }
+  return fn;
+}
+
+// a [rows, d] row-major tensor read as boxes of [box_rows x 128 bytes],
+// 128-byte swizzled, rows past the tensor zero-filled
+bool make_map(CUtensorMap* tm, const void* ptr, bool bf16, int rows, int d, int box_rows) {
+  EncodeTiled fn = encode_fn();
+  if (!fn) return false;
+  const int esize = bf16 ? 2 : 4;
+  cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)rows};
+  cuuint64_t strides[1] = {(cuuint64_t)d * esize};
+  cuuint32_t box[2] = {(cuuint32_t)(SLAB_BYTES / esize), (cuuint32_t)box_rows};
+  cuuint32_t estr[2] = {1, 1};
+  return fn(tm, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+            const_cast<void*>(ptr), dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int K, bool BF16, bool PACKED>
+int launch_tile(const CUtensorMap& tm_src, const CUtensorMap& tm_lib, const float* penalty,
+                const int* valid_rows, float* cand_v, int* cand_i, int ls, int lr, int d,
+                int rows_per_chunk, int n_chunks, cudaStream_t stream) {
+  auto kernel = knn_tile_kernel<K, BF16, PACKED>;
+  const size_t smem = 2 * HEAD_BYTES + (size_t)STAGES * (A_SLAB + (BF16 ? 1 : 2) * B_SLAB);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((ls + QT - 1) / QT, n_chunks);
+  kernel<<<grid, THREADS, smem, stream>>>(tm_src, tm_lib, penalty, valid_rows, cand_v, cand_i, ls, lr, d,
+                                          rows_per_chunk, n_chunks);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int K>
@@ -274,32 +479,35 @@ int launch(const void* src, const void* lib, const float* penalty, const int* va
            float* cand_v, int* cand_i, float* out_v, int* out_i, int ls, int lr, int d,
            int bf16, int packed, int rows_per_chunk, cudaStream_t stream) {
   const int n_chunks = (lr + rows_per_chunk - 1) / rows_per_chunk;
-  dim3 grid(n_chunks, (ls + QT - 1) / QT);
-  if (bf16 && packed)
-    knn_tile_kernel<K, true, true><<<grid, 256, 0, stream>>>(src, lib, penalty, valid_rows, cand_v,
-                                                             cand_i, ls, lr, d, rows_per_chunk);
-  else if (bf16)
-    knn_tile_kernel<K, true, false><<<grid, 256, 0, stream>>>(src, lib, penalty, valid_rows, cand_v,
-                                                              cand_i, ls, lr, d, rows_per_chunk);
+  if (n_chunks > 65535)   // chunks ride gridDim.y
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  CUtensorMap tm_src, tm_lib;
+  if (!make_map(&tm_src, src, bf16, ls, d, QT) || !make_map(&tm_lib, lib, bf16, lr, d, LT))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int rc;
+  if (!bf16)
+    rc = launch_tile<K, false, false>(tm_src, tm_lib, penalty, valid_rows, cand_v, cand_i, ls, lr, d,
+                                      rows_per_chunk, n_chunks, stream);
+  else if (packed)
+    rc = launch_tile<K, true, true>(tm_src, tm_lib, penalty, valid_rows, cand_v, cand_i, ls, lr, d,
+                                    rows_per_chunk, n_chunks, stream);
   else
-    knn_tile_kernel<K, false, false><<<grid, 256, 0, stream>>>(src, lib, penalty, valid_rows, cand_v,
-                                                               cand_i, ls, lr, d, rows_per_chunk);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  knn_merge_kernel<K><<<(ls + 255) / 256, 256, 0, stream>>>(cand_v, cand_i, out_v, out_i, ls,
-                                                             n_chunks);
+    rc = launch_tile<K, true, false>(tm_src, tm_lib, penalty, valid_rows, cand_v, cand_i, ls, lr, d,
+                                     rows_per_chunk, n_chunks, stream);
+  if (rc != 0) return rc;
+  knn_merge_kernel<K><<<(ls + 7) / 8, 256, 0, stream>>>(cand_v, cand_i, out_v, out_i, ls, n_chunks);
   RETURN_LAUNCH_STATUS();
 }
 
 }  // namespace
 
 // src [ls, d], lib [lr, d]: bf16 when bf16 != 0, else float32; d a multiple
-// of 32.  penalty: float32 [lr] or null.  valid_rows: one int32 on the
-// device or null (rows >= min(lr, *valid_rows) are excluded).  packed != 0
-// (bf16 only) selects the packed extraction.  cand_v/cand_i
-// [ceil(lr / rows_per_chunk), ls, kk], out_v/out_i [ls, kk] with kk = 4 or
-// 8 (the caller keeps the first k columns); rows_per_chunk a multiple of
-// 128.
+// of 64, both 16-byte aligned.  penalty: float32 [lr] or null.  valid_rows:
+// one int32 on the device or null (rows >= min(lr, *valid_rows) are
+// excluded).  packed != 0 (bf16 only) selects the packed extraction.
+// cand_v/cand_i [ls, ceil(lr / rows_per_chunk), kk], out_v/out_i [ls, kk]
+// with kk = 4 or 8 (the caller keeps the first k columns); rows_per_chunk a
+// multiple of 128.
 extern "C" int knn_topk(const void* src, const void* lib, const void* penalty,
                         const void* valid_rows, void* cand_v, void* cand_i, void* out_v,
                         void* out_i, int ls, int lr, int d, int kk, int bf16, int packed,
@@ -311,7 +519,9 @@ extern "C" int knn_topk(const void* src, const void* lib, const void* penalty,
   int* ci = static_cast<int*>(cand_i);
   float* ov = static_cast<float*>(out_v);
   int* oi = static_cast<int*>(out_i);
-  if (packed && !bf16) return static_cast<int>(cudaErrorInvalidValue);
+  if ((packed && !bf16) || d % 64 || rows_per_chunk % LT || ls < 1 || lr < 1 ||
+      (reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(lib)) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (kk == 4)
     return launch<4>(src, lib, pen, vr, cv, ci, ov, oi, ls, lr, d, bf16, packed, rows_per_chunk, s);
   if (kk == 8)

@@ -9,7 +9,18 @@ Precision modes (the JAX names):
   * 'default': bf16 operands, float32 accumulation.  An exact top-k on those
     scores; near-ties may flip against float32 (the licensed bf16 mode).
   * 'high' / 'highest': float32 operands and scores; the ranking is that of
-    float32 cosine scores.
+    float32 cosine scores.  The kernel computes them as 3xTF32 on the
+    tensor cores (``scores_3xtf32`` emulates it on the CPU): each operand
+    splits into TF32 hi + lo, and lo.hi + hi.lo + hi.hi is summed in
+    float32, ~2^-22 relative per product.  That is at least as precise as
+    JAX's own 'high' (bf16x3, ``knn_twopass.py:246-257``).
+
+What bounds the kernel on an H100 is operations: the score products (3x
+them in 3xTF32).  It runs them on the tensor cores (``wgmma``, three
+warpgroups of 64 queries a block) fed by a 4-stage ring of TMA tensor
+copies with ``mbarrier``s.  It folds each 192 x 128 score tile into register
+top-k lists straight from the accumulators while the next slabs land, and
+merges the chunks' winners with a warp per query (``csrc/knn.cu``).
 
 Normalisation is ``x * rsqrt(max(sum x^2, 1e-30))`` in float32 before the
 mode cast (``knn_twopass.py:230-234``).  Ties go to the smallest library
@@ -47,24 +58,46 @@ from alivevc_tpu_torch.kernels import _lib
 PRECISIONS = ("default", "high", "highest")
 EXTRACTIONS = ("auto", "exact", "packed")
 SENTINEL = 2**31 - 1         # index of a place no valid row filled
-_ROWS_PER_CHUNK = 16 * 128   # library rows one block scans (csrc/knn.cu)
+_ROWS_PER_CHUNK = 64 * 128   # library rows one block scans, at most (csrc/knn.cu) ...
+_MIN_BLOCKS = 2 * 132        # ... unless fewer blocks than two waves on an H100 result
+_QUERIES_PER_BLOCK = 192     # csrc/knn.cu: QT
+_MAX_CHUNKS = 65535          # chunks ride gridDim.y
+_D_MULT = 64                 # the kernel's slab: 128 bytes of a bf16 row
 _SUB = 128                   # packed extraction's subtile width (7 index bits)
 
 
-def normalize_rows(x: torch.Tensor) -> torch.Tensor:
+def normalize_rows(x: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """x * rsqrt(max(sum x^2, 1e-30)) per row in float32, stored as ``dtype``."""
     x = x.float()
-    return x * torch.rsqrt(torch.clamp((x * x).sum(dim=1, keepdim=True), min=1e-30))
+    scale = torch.rsqrt(torch.clamp((x * x).sum(dim=1, keepdim=True), min=1e-30))
+    return torch.mul(x, scale, out=torch.empty(x.shape, dtype=dtype, device=x.device))
 
 
 def prep_operands(source: torch.Tensor, library: torch.Tensor, precision: str):
-    """Normalised operands in the mode's type: bf16 for 'default', float32
-    otherwise."""
+    """Normalised operands in the mode's type: bf16 for 'default' (the
+    float32 product rounded once as it is stored), float32 otherwise."""
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}")
-    src, lib = normalize_rows(source), normalize_rows(library)
-    if precision == "default":
-        src, lib = src.to(torch.bfloat16), lib.to(torch.bfloat16)
-    return src, lib
+    dt = torch.bfloat16 if precision == "default" else torch.float32
+    return normalize_rows(source, dt), normalize_rows(library, dt)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest TF32 value (10 mantissa bits), ties away from
+    zero, as ``cvt.rna.tf32.f32`` rounds: add half of the 13 dropped bits'
+    unit to the magnitude's bits, then clear them."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def scores_3xtf32(src: torch.Tensor, lib: torch.Tensor) -> torch.Tensor:
+    """[Ls, Lr] scores of float32 operands as the kernel's 'high'/'highest'
+    mode forms them: hi = tf32(x), lo = tf32(x - hi), products of TF32
+    values (exact in float32) summed in float32 as lo.hi + hi.lo + hi.hi.
+    Used by the tests to hold the split's premise on the CPU."""
+    sh, lh = tf32_round(src), tf32_round(lib)
+    sl, ll = tf32_round(src.float() - sh), tf32_round(lib.float() - lh)
+    return sl @ lh.t() + sh @ ll.t() + sh @ lh.t()
 
 
 def topk_exact(sims: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -143,15 +176,16 @@ def knn_topk_cuda(source: torch.Tensor, library: torch.Tensor, k: int = 4,
     packed = uses_packed(precision, k, valid_rows, penalty, extraction)
     src, lib = prep_operands(source, library, precision)
     d = src.shape[1]
-    if d % 32:  # zero columns change no dot product
-        src = F.pad(src, (0, 32 - d % 32))
-        lib = F.pad(lib, (0, 32 - d % 32))
+    if d % _D_MULT:  # zero columns change no dot product
+        src = F.pad(src, (0, _D_MULT - d % _D_MULT))
+        lib = F.pad(lib, (0, _D_MULT - d % _D_MULT))
     src, lib = src.contiguous(), lib.contiguous()
     dt = (torch.bfloat16,) if precision == "default" else (torch.float32,)
     _lib.require(src, "source", dt, 2)
     _lib.require(lib, "library", dt, 2)
-    if lib.device != src.device:
-        raise ValueError("source and library must be on one device")
+    if lib.device != src.device or lib.shape[1] != src.shape[1]:
+        raise ValueError(f"source {tuple(src.shape)} and library {tuple(lib.shape)} must share "
+                         "one device and one width")
     ls, lr = src.shape[0], lib.shape[0]
     vr_ptr = 0
     if torch.is_tensor(valid_rows):
@@ -170,19 +204,22 @@ def knn_topk_cuda(source: torch.Tensor, library: torch.Tensor, k: int = 4,
         if penalty.shape[0] != lib.shape[0] or penalty.device != src.device:
             raise ValueError(f"penalty must be [{lib.shape[0]}] on {src.device}")
         pen_ptr = penalty.data_ptr()
-    if -(-ls // 64) > 65535:    # query tiles ride gridDim.y
-        raise ValueError(f"{ls} queries exceed one launch; split the batch")
     kk = 4 if k <= 4 else 8
-    n_chunks = -(-lr // _ROWS_PER_CHUNK)
+    # chunks of 128-row tiles: short enough to give every SM work, long
+    # enough to amortise the per-block start and the merge
+    want = -(-_MIN_BLOCKS // -(-ls // _QUERIES_PER_BLOCK))
+    rows_per_chunk = min(_ROWS_PER_CHUNK, 128 * -(-lr // (128 * want)))
+    rows_per_chunk = max(rows_per_chunk, 128 * -(-lr // (128 * _MAX_CHUNKS)))
+    n_chunks = -(-lr // rows_per_chunk)
     dev = src.device
-    cand_v = torch.empty((n_chunks, ls, kk), dtype=torch.float32, device=dev)
-    cand_i = torch.empty((n_chunks, ls, kk), dtype=torch.int32, device=dev)
+    cand_v = torch.empty((ls, n_chunks, kk), dtype=torch.float32, device=dev)
+    cand_i = torch.empty((ls, n_chunks, kk), dtype=torch.int32, device=dev)
     out_v = torch.empty((ls, kk), dtype=torch.float32, device=dev)
     out_i = torch.empty((ls, kk), dtype=torch.int32, device=dev)
     fn = _lib.function("knn", "knn_topk", "ppppppppiiiiiiip")
     rc = fn(src.data_ptr(), lib.data_ptr(), pen_ptr, vr_ptr, cand_v.data_ptr(),
             cand_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(), ls, lr,
-            src.shape[1], kk, int(precision == "default"), int(packed), _ROWS_PER_CHUNK,
+            src.shape[1], kk, int(precision == "default"), int(packed), rows_per_chunk,
             _lib.stream_of(src))
     _lib.check(rc, "knn_topk")
     _lib.LAUNCHES["knn_packed" if packed else "knn"] += 1

@@ -1,19 +1,49 @@
 """STFT magnitude front end: CUDA kernel (``csrc/stft.cu``) and its plain
 PyTorch version.
 
-Replaces ``alivevc_tpu/kernels/stft_pallas.py:stft_magnitude_pallas``.  The
-reflect pad stays a ``F.pad`` in the wrapper, as it is host-side in JAX;
-framing, the DFT products and the magnitude run in the kernel, in float32
+Replaces ``alivevc_tpu/kernels/stft_pallas.py:stft_magnitude_pallas``: a
+rectangular window, n_fft 1280, centre reflect pad, 641 bins, in float32
 whatever the input dtype.
+
+The kernel is a shared-memory real FFT per frame, bound by bytes (it reads
+x once and writes the magnitudes): each 1280-point frame is a 640-point
+complex FFT of its even/odd samples, in the Stockham stages of
+``FFT_RADICES``, followed by the real-FFT split step.  It reads the reflect
+pad by index arithmetic, so no padded copy of x is made.  The twiddle table
+(``fft_twiddles``) is computed here once in float64 and cached per device.
+The plain version is the dense DFT product of ``ops/stft.py``.
 """
 
 from __future__ import annotations
 
+import functools
+from typing import Dict
+
+import numpy as np
 import torch
 
 from alivevc_tpu_torch.kernels import _lib
-from alivevc_tpu_torch.ops.stft import dft_basis, reflect_pad
 from alivevc_tpu_torch.ops.stft import stft_magnitude as _stft_plain
+
+N_FFT = 1280                     # the kernel's frame length
+FFT_RADICES = (5, 8, 16)         # csrc/stft.cu's stages of the 640-point FFT
+_TWIDDLES: Dict[str, torch.Tensor] = {}
+
+
+@functools.lru_cache(maxsize=None)
+def fft_twiddles_np() -> np.ndarray:
+    """e^{-2 pi i t / 1280} for t < 1280, computed in float64, as float32
+    (re, im) pairs [1280, 2]: the FFT stages' twiddles (even t) and the
+    split step's."""
+    ang = -2.0 * np.pi * np.arange(N_FFT, dtype=np.float64) / N_FFT
+    return np.stack([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32)
+
+
+def fft_twiddles(device) -> torch.Tensor:
+    key = str(torch.device(device))
+    if key not in _TWIDDLES:
+        _TWIDDLES[key] = torch.from_numpy(fft_twiddles_np()).to(device)
+    return _TWIDDLES[key]
 
 
 def stft_magnitude_plain(x: torch.Tensor, n_fft: int = 1280, hop_length: int = 320) -> torch.Tensor:
@@ -23,22 +53,21 @@ def stft_magnitude_plain(x: torch.Tensor, n_fft: int = 1280, hop_length: int = 3
 
 
 def stft_magnitude_cuda(x: torch.Tensor, n_fft: int = 1280, hop_length: int = 320) -> torch.Tensor:
-    """The kernel launch: x [N, L] float32 on the card."""
+    """The kernel launch: x [N, L] float32 on the card, L > 640."""
     _lib.require(x, "x", (torch.float32,), 2)
-    if n_fft % 16 or n_fft // 2 >= x.shape[1]:
-        raise ValueError(f"n_fft={n_fft} must be a multiple of 16 and < 2*L")
+    if n_fft != N_FFT:
+        raise ValueError(f"the kernel computes n_fft={N_FFT}, not {n_fft}")
+    if not 1 <= hop_length <= N_FFT:
+        raise ValueError(f"hop_length={hop_length} must be in [1, {N_FFT}]")
     n, length = x.shape
-    xp = reflect_pad(x, n_fft // 2).contiguous()
+    if length <= N_FFT // 2:
+        raise ValueError(f"reflect padding by {N_FFT // 2} needs L > {N_FFT // 2}, got {length}")
     t = length // hop_length + 1
-    if -(-n * t // 64) > 65535:    # frame tiles ride gridDim.y
-        raise ValueError(f"{n * t} frames exceed one launch; split the batch")
-    nbins = n_fft // 2 + 1
-    cos_b, sin_b = dft_basis(n_fft, "rect", n_fft, x.device)
-    out = torch.empty((n, t, nbins), dtype=torch.float32, device=x.device)
-    fn = _lib.function("stft", "stft_mag_f32", "ppppiiiiiip")
-    rc = fn(xp.data_ptr(), cos_b.data_ptr(), sin_b.data_ptr(), out.data_ptr(),
-            n, xp.shape[1], t, n_fft, hop_length, nbins, _lib.stream_of(x))
-    _lib.check(rc, "stft_mag_f32")
+    out = torch.empty((n, t, N_FFT // 2 + 1), dtype=torch.float32, device=x.device)
+    fn = _lib.function("stft", "stft_fft_mag_f32", "pppiiiip")
+    rc = fn(x.data_ptr(), fft_twiddles(x.device).data_ptr(), out.data_ptr(), n, length, t,
+            hop_length, _lib.stream_of(x))
+    _lib.check(rc, "stft_fft_mag_f32")
     _lib.LAUNCHES["stft"] += 1
     return out
 

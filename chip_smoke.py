@@ -14,7 +14,10 @@ printing the final line:
      524 288-row shards with their valid-row counts; a penalty column; the
      packed extraction; the full-formant source), with its CUDA-event time,
      the plain version's time, one PyTorch call's time where one computes
-     the same function, and the least time the card could take (bound).
+     the same function (the STFT: ``torch.stft`` + ``abs``; kNN: ``matmul``
+     + ``topk`` on the normalised operands), and the least time the card
+     could take (bound; kNN 'high'/'highest' at the 3xTF32 tensor-core
+     floor, three TF32 products per score).
      Each time is the median of at least 5 runs and at least 20 ms of timed
      work (2 runs for a plain version), after one warm-up;
   3. the main path end to end at full model width (default configs, random
@@ -31,8 +34,9 @@ printing the final line:
      (NCCL takes one rank per card), 16 windows of 144 000 samples, a
      1 048 575 x 768 library from the seed (shard 1 carries one padding
      row), kNN 'highest', plus ``sharded_match_features`` in 'default' and
-     'highest' on the same queries.  Each rank zeroes its launch counters
-     before the path and sends them back with its results.  Then the same
+     'highest' on the same queries.  Rank 0 profiles one step by kernel
+     group.  Each rank zeroes its launch counters before the path and sends
+     them back with its results.  Then the same
      entry point on one rank: identical 'highest' index sets, waveform
      within 1e-4, 'default' flip rate <= 4 %.
   5. the kernel API, the path through which the packed kNN extraction and
@@ -58,10 +62,11 @@ import sys
 import time
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, float32 outside
-# the tensor cores, bf16 on the tensor cores.
+# the tensor cores, bf16 and TF32 on the tensor cores.
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 PEAK_BF16 = 989e12
+PEAK_TF32 = 495e12
 
 LW = 144_000          # overlap-discard window (3 x 48 000 samples)
 LF = LW // 320        # frames per window
@@ -126,7 +131,6 @@ def bound_ms(nbytes: float, flops: float, peak: float):
 def check_stft(gen):
     import torch
     from alivevc_tpu_torch.kernels.stft import stft_magnitude_cuda, stft_magnitude_plain
-    from alivevc_tpu_torch.ops.stft import dft_basis, frame
 
     x = 0.3 * torch.randn(N_STEP, LW, generator=gen, device="cuda")
     got = stft_magnitude_cuda(x)
@@ -135,23 +139,25 @@ def check_stft(gen):
     err = float((got - want).abs().max())
     # float32 sums of 1280 products, taken in another order
     need(got.shape == want.shape and err <= 1e-3, f"stft: max abs err {err} > 1e-3")
-    frames = frame(x, 1280, 320).reshape(-1, 1280).contiguous()
-    basis = torch.cat(dft_basis(1280, "rect", 1280, x.device), dim=1).contiguous()
     n_frames = N_STEP * got.shape[1]
     # the function's least work: read x, write the magnitudes; a real FFT
     # of 1280 points (~2.5 n log2 n operations) and 3 per magnitude
     nbytes = x.numel() * 4 + got.numel() * 4
     flops = n_frames * (2.5 * 1280 * math.log2(1280) + 3.0 * got.shape[2])
     b, by = bound_ms(nbytes, flops, PEAK_F32)
-    # the floor of this kernel's design, a dense DFT product (not the bound)
-    dft_floor, _ = bound_ms(nbytes + basis.numel() * 4, 2.0 * n_frames * 1280 * basis.shape[1], PEAK_F32)
+    window = torch.ones(1280, device="cuda")
+
+    def library_call():   # the whole function in one PyTorch call
+        torch.stft(x, 1280, 320, window=window, center=True, pad_mode="reflect",
+                   return_complex=True).abs()
+
     return {
         "name": "stft", "variant": f"[{N_STEP}, {LW}] f32",
         "max_abs_err": err, "tol": 1e-3,
         "ms": cuda_ms(lambda: stft_magnitude_cuda(x)),
         "plain_ms": cuda_ms(lambda: stft_magnitude_plain(x), 2),
-        "library_ms": cuda_ms(lambda: torch.matmul(frames, basis)),
-        "bound_ms": b, "bound_by": by, "dft_product_floor_ms": dft_floor,
+        "library_ms": cuda_ms(library_call),
+        "bound_ms": b, "bound_by": by,
     }
 
 
@@ -201,10 +207,15 @@ def check_knn(gen, lib_rows, precision, valid_rows=None, penalty=False, extracti
         torch.topk(s, 4, dim=1)
 
     # the function reads float32 queries and the rows it ranks (plus the
-    # penalty), writes values + indices; products over the rows it ranks
+    # penalty), writes values + indices; products over the rows it ranks,
+    # on the tensor cores: bf16 for 'default', three TF32 products (3xTF32,
+    # float32-faithful) for 'high'/'highest'
     nbytes = (ls + rows) * 768 * 4 + ls * 4 * 8 + (lib_rows * 4 if penalty else 0)
     flops = 2.0 * ls * rows * 768
-    b, by = bound_ms(nbytes, flops, PEAK_BF16 if precision == "default" else PEAK_F32)
+    if precision == "default":
+        b, by = bound_ms(nbytes, flops, PEAK_BF16)
+    else:
+        b, by = bound_ms(nbytes, 3.0 * flops, PEAK_TF32)
     return {
         "name": "knn_packed" if packed else "knn",
         "variant": f"{ls} x {lib_rows} x 768 {precision}{tag}",
@@ -431,16 +442,16 @@ def knn_flip_rate(ce, lib, xa):
 
 
 KERNEL_GROUPS = (
-    ("stft", ("stft_mag",)),
+    ("stft", ("stft_fft",)),
     ("knn", ("knn_tile", "knn_merge")),
     ("oscillator", ("osc_cheb",)),
     ("filter_level", ("res_conv", "gemm_bias")),
 )
 
 
-def profile_step(step, card):
-    """Device time of one bench-shape step by kernel group (torch.profiler),
-    and the device's busy share of the step's wall time."""
+def profile_step(step, card, label="one bench-shape bf16 step"):
+    """Device time of one step by kernel group (torch.profiler), and the
+    device's busy share of the step's wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -470,7 +481,7 @@ def profile_step(step, card):
             cur_e = max(cur_e, end)
     busy = (busy + cur_e - cur_s) / 1e3
     total = sum(groups.values())
-    print(f"profile, one bench-shape bf16 step [{card}]: wall {wall_us / 1e3:.2f} ms, "
+    print(f"profile, {label} [{card}]: wall {wall_us / 1e3:.2f} ms, "
           f"device busy {busy:.2f} ms ({100 * busy * 1e3 / wall_us:.1f} % of wall)")
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"  {g:45s} {ms:9.3f} ms  {100 * ms / total:5.1f} %")
@@ -524,7 +535,8 @@ def shard_windows():
 def run_sharded(n_lib: int) -> dict:
     """This rank's part of the sharded path on a ('data', 1) x ('library',
     n_lib) mesh: models and library from the seed, launch counters zeroed,
-    one warm-up and one timed ``convert_windows_distributed`` step, then
+    one warm-up, one timed and one profiled ``convert_windows_distributed``
+    step, then
     ``sharded_match_features`` in 'highest' and 'default' on the step's
     content features.  Needs the default process group."""
     import torch
@@ -564,6 +576,14 @@ def run_sharded(n_lib: int) -> dict:
         wave = convert_windows_distributed(mesh, ce, f0m, dec, windows, lib, precision="highest")
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
+    # a third step, profiled on rank 0 (every rank must take part)
+    step = lambda: convert_windows_distributed(mesh, ce, f0m, dec, windows, lib, precision="highest")  # noqa: E731
+    dist.barrier()
+    if dist.get_rank() == 0:
+        profile_step(step, card_line(), f"one sharded step, rank 0 of {n_lib}")
+    else:
+        step()
+        torch.cuda.synchronize()
     with float32_math():
         feat = content_encoder(ce, spectrogram(windows)).reshape(-1, 768)
     lib_p, valid = pad_library_for_sharding(lib, n_lib)
@@ -786,6 +806,8 @@ def main() -> int:
     rows = [check_stft(gen)]
     for lib_rows, precision in ((LIB_ROWS, "default"), (LIB_ROWS, "high"), (512, "default"), (512, "high")):
         rows.append(check_knn(gen, lib_rows, precision))
+    # its own generator, so that `gen` (and phase 3's library) run as before
+    rows.append(check_knn(torch.Generator(device="cuda").manual_seed(SEED + 3), LIB_ROWS, "highest"))
     for precision in ("default", "highest"):      # phase 4's last shard
         rows.append(check_knn(gen, shard, precision, valid_rows=shard - 1))
     rows.append(check_knn(gen, 512, "highest", valid_rows=509))

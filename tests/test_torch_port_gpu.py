@@ -6,13 +6,18 @@ port; run it there without the repo's conftest (which sets JAX up):
 
     python -m pytest tests/test_torch_port_gpu.py --noconftest -m gpu -q
 
-Tolerances: STFT 1e-3 abs (float32 sums of 1280 products in another order);
+Tolerances: STFT 1e-3 abs (a float32 FFT against float32 DFT sums of 1280
+products);
 kNN values 1e-4 abs (float32 sums of the mode's operand products), and with
 the packed extraction 1e-4 too (a sum that rounds across a 128-ulp packing
 step moves its key by 3.1e-5); oscillator 5e-3 abs (sinf/cosf rounding
 grown by the Chebyshev recurrence), the same for the full-formant source
 (float32 phase of up to ~500 cycles a frame); filter level 1e-3 abs in
-float32.  The sharded path: 2 gloo ranks on one card against 1 rank,
+float32.  The redesigned kernels' edges (odd shapes, Lr = k, a device
+valid-row count below k, d padded or too wide for the resident query
+tile) are held to the same tolerances, and 'highest' index sets equal a
+float64 ranking wherever its 4th and 5th scores differ by more than 1e-5.
+The sharded path: 2 gloo ranks on one card against 1 rank,
 identical 'highest' index sets and the waveform within 1e-4 (float32 sums
 of the k rows split over the shards, in another order).
 """
@@ -99,6 +104,76 @@ def test_kernel_matches_plain_on_card(name):
             got = kfilter.filter_level_cuda(x, s, rate=2, **args)
             want = kfilter.filter_level_plain(x, s, rate=2, **args)
         assert max_err(got, want) <= 1e-3
+
+
+def _knn_vs_plain(q, lib, k, precision, **kw):
+    """Kernel vs plain version: values within 1e-4, sentinels in the same
+    places, index sets equal wherever the plain k-th and (k+1)-th scores
+    are more than 1e-4 apart (or fewer than k + 1 rows rank)."""
+    v, i = kknn.knn_topk_cuda(q, lib, k, precision, **kw)
+    kp = min(k + 1, lib.shape[0])
+    pv, pi = kknn.knn_topk_plain(q, lib, kp, precision, **kw)
+    assert torch.equal(torch.isneginf(v), torch.isneginf(pv[:, :k]))
+    assert max_err(v.nan_to_num(neginf=0), pv[:, :k].nan_to_num(neginf=0)) <= 1e-4
+    clear = torch.ones(q.shape[0], dtype=torch.bool, device=q.device)
+    if kp > k:
+        clear = (pv[:, k - 1] - pv[:, k]).nan_to_num(nan=1.0, posinf=1.0) > 1e-4
+    same = (torch.sort(i, 1).values == torch.sort(pi[:, :k], 1).values).all(1)
+    assert bool((same | ~clear).all())
+    return v, i
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["stft_edges", "knn_edges", "knn_highest_vs_float64"])
+def test_redesigned_kernel_edges_on_card(name):
+    """The shared-memory FFT and the tensor-core kNN kernel at their edges."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; on the card run this file with --noconftest -m gpu")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(1)
+    if name == "stft_edges":
+        # batch 1; L not a multiple of 320; L just over 640; odd L (rows not
+        # 16-byte aligned); a hop that is not the default
+        for n, length, hop in ((1, 16_000, 320), (1, 16_123, 320), (3, 641, 320), (2, 700, 320),
+                               (3, 9_601, 320), (2, 5_000, 160)):
+            x = 0.3 * torch.randn(n, length, generator=g, device="cuda")
+            got = kstft.stft_magnitude_cuda(x, hop_length=hop)
+            want = kstft.stft_magnitude_plain(x, hop_length=hop)
+            assert got.shape == want.shape == (n, length // hop + 1, 641)
+            assert max_err(got, want) <= 1e-3
+        with pytest.raises(ValueError):
+            kstft.stft_magnitude_cuda(torch.zeros(1, 640, device="cuda"))
+    elif name == "knn_edges":
+        q = torch.randn(300, 768, generator=g, device="cuda")     # 300: not a multiple of 64
+        for precision in kknn.PRECISIONS:
+            for k in (4, 8):
+                _knn_vs_plain(q, torch.randn(k, 768, generator=g, device="cuda"), k, precision)
+            lib = torch.randn(5003, 768, generator=g, device="cuda")   # not a multiple of 128
+            pen = torch.where(torch.rand(5003, generator=g, device="cuda") < 0.3, -4.0, 0.0)
+            _knn_vs_plain(q, lib, 8, precision)
+            _knn_vs_plain(q, lib, 5, precision, penalty=pen)
+            v, i = _knn_vs_plain(q, lib, 4, precision, valid_rows=torch.tensor(2, device="cuda"))
+            assert (i[:, 2:] == kknn.SENTINEL).all() and (i[:, :2] < 2).all()
+            _knn_vs_plain(q[:37, :100], lib[:, :100], 4, precision)   # d padded to 128
+        lib = torch.randn(5003, 768, generator=g, device="cuda")
+        _knn_vs_plain(q, lib, 8, "default", extraction="packed")
+        _knn_vs_plain(q, lib[:130], 4, "default", extraction="packed")
+        # d = 1024: the bf16 query tile no longer fits beside the ring and streams
+        wide_q = torch.randn(200, 1024, generator=g, device="cuda")
+        wide = torch.randn(3000, 1024, generator=g, device="cuda")
+        for kw in ({}, dict(extraction="packed"), dict(valid_rows=torch.tensor(2900, device="cuda"))):
+            _knn_vs_plain(wide_q, wide, 4, "default", **kw)
+    else:
+        q = torch.randn(300, 768, generator=g, device="cuda")
+        lib = torch.randn(20_000, 768, generator=g, device="cuda")
+        _, i = kknn.knn_topk_cuda(q, lib, 4, "highest")
+        s = kknn.normalize_rows(q).double() @ kknn.normalize_rows(lib).double().t()
+        top, order = torch.sort(s, dim=1, descending=True)
+        clear = (top[:, 3] - top[:, 4]) > 1e-5
+        assert float(clear.float().mean()) > 0.8
+        same = (torch.sort(i, 1).values == torch.sort(order[:, :4], 1).values).all(1)
+        assert bool(same[clear].all())
 
 
 def _sharded_run(world: int) -> dict:

@@ -9,7 +9,14 @@ test_torch_port_gpu.py holds them against their plain versions there, and
 chip_smoke.py does so at the conversion path's full shapes.
 
 Tolerances, with their reasons:
-  * STFT: 1e-4 abs (float32 DFT sums of 1280 products, another order);
+  * STFT: 1e-4 abs (float32 DFT sums of 1280 products, another order); the
+    CUDA kernel's FFT plan run in numpy: 1e-4 of the largest magnitude
+    against np.fft.rfft in float64 (a float32 FFT of 640 points), 1e-4 abs
+    against the Pallas kernel;
+  * kNN 3xTF32 (the CUDA kernel's 'high'/'highest' products, emulated):
+    1e-6 abs against float64 on unit rows (the dropped lo.lo term and float32
+    accumulation), the same index sets as JAX 'highest' wherever the exact
+    4th and 5th scores differ by more than 1e-5;
   * kNN 'high'/'highest': identical index sets on every query whose exact
     k-th and (k+1)-th scores differ by more than 1e-6 (the port scores in
     float32; JAX 'high' is bf16x3, 'highest' 6-pass bf16);
@@ -74,6 +81,53 @@ def test_stft_vs_pallas():
     assert max_err(got, want) <= 1e-4
 
 
+def _stft_fft_np(x, hop=320):
+    """The CUDA kernel's stage sequence in numpy (complex64): reflect pad,
+    frames, z[m] = x[2m] + i x[2m+1], the Stockham stages of FFT_RADICES
+    with the wrapper's twiddle table, the real-FFT split, |.|."""
+    n_fft, nc = kstft.N_FFT, kstft.N_FFT // 2
+    tw = kstft.fft_twiddles_np()
+    tw = (tw[:, 0] + 1j * tw[:, 1]).astype(np.complex64)
+    xp = np.pad(x, ((0, 0), (nc, nc)), mode="reflect")
+    t_frames = x.shape[1] // hop + 1
+    idx = np.arange(t_frames)[:, None] * hop + np.arange(n_fft)[None, :]
+    frames = xp[:, idx].reshape(-1, n_fft)
+    z = (frames[:, 0::2] + 1j * frames[:, 1::2]).astype(np.complex64)
+    p = 1
+    for r_ in kstft.FFT_RADICES:
+        m = nc // r_
+        i = np.arange(m)
+        k = i % p
+        r = np.arange(r_)[:, None]
+        u = z[:, i[None, :] + r * m] * tw[r * 2 * (nc // (p * r_)) * k[None, :]]
+        dft = np.exp(-2j * np.pi * np.outer(np.arange(r_), np.arange(r_)) / r_).astype(np.complex64)
+        y = np.einsum("qr,frm->fqm", dft, u)
+        out = np.empty_like(z)
+        out[:, ((i - k) * r_ + k)[None, :] + r * p] = y
+        z, p = out, p * r_
+    assert p == nc
+    kk = np.arange(1, nc)
+    zk, zc = z[:, kk], np.conj(z[:, nc - kk])
+    mid = 0.5 * (zk + zc) + tw[kk] * (-0.5j) * (zk - zc)
+    spec = np.concatenate([(z[:, :1].real + z[:, :1].imag), mid, (z[:, :1].real - z[:, :1].imag)], 1)
+    return np.abs(spec).astype(np.float32).reshape(x.shape[0], t_frames, nc + 1), frames
+
+
+def test_stft_fft_plan_vs_rfft_and_pallas():
+    """The kernel's FFT plan and twiddle table, run in numpy, against
+    np.fft.rfft (1e-4 relative to the largest magnitude) and against the
+    Pallas kernel in interpret mode (the existing 1e-4 abs)."""
+    rng = np.random.default_rng(11)
+    x = (0.1 * rng.standard_normal((2, 6400))).astype(np.float32)
+    got, frames = _stft_fft_np(x)
+    ref = np.abs(np.fft.rfft(frames.astype(np.float64), axis=1)).reshape(got.shape)
+    assert np.abs(got - ref).max() <= 1e-4 * np.abs(ref).max()
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(stft_magnitude_pallas(jnp.asarray(x)))
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= 1e-4
+
+
 def _exact(src, lib, k):
     s = src / np.linalg.norm(src, axis=1, keepdims=True)
     lb = lib / np.linalg.norm(lib, axis=1, keepdims=True)
@@ -97,6 +151,30 @@ def test_knn_exact_modes_vs_pallas(lr, precision):
     same = np.all(np.sort(n(got_i), 1) == np.sort(np.asarray(want_i), 1), axis=1)
     assert same[clear].all()
     np.testing.assert_allclose(n(got_v), top[:, :4], atol=1e-5)
+
+
+def test_knn_3xtf32_split_vs_float64_and_pallas_highest():
+    """The 'high'/'highest' kernel's 3xTF32 scores, emulated: within 1e-6 of
+    float64 on 768-wide unit rows, and the same index sets as JAX 'highest'
+    (interpret mode) wherever the exact 4th and 5th scores differ by more
+    than 1e-5."""
+    one = torch.tensor([1.0 + 2.0**-11, -(1.0 + 2.0**-11), 1.0 + 2.0**-12, 3.0])
+    assert torch.equal(kknn.tf32_round(one), torch.tensor([1.0 + 2.0**-10, -(1.0 + 2.0**-10), 1.0, 3.0]))
+    rng = np.random.default_rng(21)
+    src = rng.standard_normal((64, 768)).astype(np.float32)
+    lib = rng.standard_normal((1000, 768)).astype(np.float32)
+    s, lb = kknn.normalize_rows(t(src)), kknn.normalize_rows(t(lib))
+    sims = kknn.scores_3xtf32(s, lb)
+    exact = n(s).astype(np.float64) @ n(lb).astype(np.float64).T
+    assert np.abs(n(sims) - exact).max() <= 1e-6
+    with pltpu.force_tpu_interpret_mode():
+        _, want_i = knn_topk_pallas(jnp.asarray(src), jnp.asarray(lib), 4, precision="highest")
+    _, got_i = kknn.topk_exact(sims, 4)
+    top = -np.sort(-exact, axis=1)[:, :5]
+    clear = (top[:, 3] - top[:, 4]) > 1e-5
+    assert clear.mean() > 0.8
+    same = np.all(np.sort(n(got_i), 1) == np.sort(np.asarray(want_i), 1), axis=1)
+    assert same[clear].all()
 
 
 def test_knn_default_within_bf16_licence():
