@@ -197,17 +197,22 @@ def _up(conv: ConvTranspose, x: torch.Tensor, rate: int) -> torch.Tensor:
 
 def level_args(blk: FilterBlock, up: ConvTranspose, cond: torch.Tensor):
     """The weights of one up level in ``kernels/filter.py``'s layouts, and the
-    frame-rate FiLM of its six causal convs."""
+    frame-rate FiLM of its six causal convs as one product: [N, F, 12 C],
+    conv i's scale (linear + 1, the 1 folded into the bias) in columns
+    [2 i C, (2 i + 1) C) and its shift in the next C."""
     conv_w: List[torch.Tensor] = []
     conv_b: List[torch.Tensor] = []
-    film = []
+    film_w: List[torch.Tensor] = []
+    film_b: List[torch.Tensor] = []
     dilations = []
     for d, rb in enumerate(blk.blocks):
         for mc in (rb.c1, rb.c2):
             conv_w.append(mc.conv.conv.weight.permute(2, 1, 0))
             conv_b.append(mc.conv.conv.bias)
-            film.append(mc.film(cond))
+            film_w += [mc.to_scale.weight, mc.to_shift.weight]
+            film_b += [mc.to_scale.bias + 1.0, mc.to_shift.bias]
             dilations.append(2 ** d)
+    film = linear(cond, torch.cat(film_w), torch.cat(film_b))
     return dict(up_w=up_weight(up), up_b=up.bias, in_w=blk.input_conv.weight[:, :, 0].t(),
                 in_b=blk.input_conv.bias, conv_w=conv_w, conv_b=conv_b, film=film,
                 dilations=dilations)

@@ -16,8 +16,10 @@ printing the final line:
      the plain version's time, one PyTorch call's time where one computes
      the same function (the STFT: ``torch.stft`` + ``abs``; kNN: ``matmul``
      + ``topk`` on the normalised operands), and the least time the card
-     could take (bound; kNN 'high'/'highest' at the 3xTF32 tensor-core
-     floor, three TF32 products per score).
+     could take (bound; kNN 'high'/'highest' and the float32 filter levels
+     at the 3xTF32 tensor-core floor, three TF32 products per product).
+     Each filter level also records ``products_library_ms``: its eight
+     products alone as cuDNN/cuBLAS calls (a yardstick, not the function).
      Each time is the median of at least 5 runs and at least 20 ms of timed
      work (2 runs for a plain version), after one warm-up;
   3. the main path end to end at full model width (default configs, random
@@ -26,7 +28,9 @@ printing the final line:
      61 s) in bf16 and in fp32, one ``convert_window`` step at the bench
      shape (64 windows x 144 000 samples) and the bf16 licence's log-mel L1.
      Launch counters are zeroed just before this phase and read just after
-     it: every kernel must have run.  Then the licence's kNN flip rate (direct
+     it: every kernel must have run.  The bench-shape step is profiled by
+     kernel group, and a device span named ``filter`` outside the
+     filter_level group fails the run.  Then the licence's kNN flip rate (direct
      kernel calls) and a small-input check of the card's output against the
      plain versions on the CPU, neither of them counted.
   4. the library-sharded path at full width: ``convert_windows_distributed``
@@ -296,6 +300,36 @@ def check_formants(gen):
     }
 
 
+def level_products(x, s, args, rate):
+    """The level's eight products alone, each one cuDNN/cuBLAS call on
+    operands prepared beforehand: the up conv and the 1x1 (``torch.matmul``)
+    and the six causal convs (``F.conv1d`` on reflect-padded [N, C, L + 4d]
+    operands).  A yardstick only: it skips gelu, FiLM and every rounding, so
+    it does not compute the level's function.  Its own generator, so that
+    the shared one (and phase 3's library) draws as before."""
+    import torch
+    import torch.nn.functional as F
+
+    n, l_in, _ = x.shape
+    c = args["up_b"].shape[0]
+    length = l_in * rate
+    xs = x + s
+    gen = torch.Generator(device=x.device).manual_seed(SEED + 4)
+    mid = torch.randn(n, length, c, generator=gen, device=x.device).to(x.dtype)
+    w = [cw.permute(2, 1, 0).contiguous() for cw in args["conv_w"]]
+    k = w[0].shape[2]
+    ops = {d: F.pad(mid.transpose(1, 2), ((k - 1) * d, 0), mode="reflect").contiguous()
+           for d in set(args["dilations"])}
+
+    def run():
+        torch.matmul(xs, args["up_w"])
+        torch.matmul(mid, args["in_w"])
+        for wi, b, d in zip(w, args["conv_b"], args["dilations"]):
+            F.conv1d(ops[d], wi, b, dilation=d)
+
+    return run
+
+
 def check_filter_levels(gen, dec):
     import torch
     from alivevc_tpu_torch.infer.offline import cast_params
@@ -303,11 +337,10 @@ def check_filter_levels(gen, dec):
     from alivevc_tpu_torch.models.decoder import level_args
 
     cfg = dec.cfg
-    rates = list(reversed(cfg.filter_rates))
     lens = [LW // 32, LW // 4, LW // 2, LW]          # output length of up level i
     cond32 = 0.5 * torch.randn(N_STEP, LF, cfg.channels, generator=gen, device="cuda")
     rows = []
-    for dt, peak in ((torch.float32, PEAK_F32), (torch.bfloat16, PEAK_BF16)):
+    for dt in (torch.float32, torch.bfloat16):
         for i, (up, blk) in enumerate(zip(dec.filter.ups, dec.filter.blocks)):
             up_d, blk_d = cast_params(up, dt), cast_params(blk, dt)
             cin, c, r = up.weight.shape
@@ -327,20 +360,26 @@ def check_filter_levels(gen, dec):
             tag = "f32" if dt == torch.float32 else "bf16"
             need(err <= tol, f"filter level {i} ({tag}, C={c}): max abs err {err} > {tol}")
             isz = x.element_size()
-            nbytes = isz * (2 * x.numel() + got.numel()
-                            + sum(p.numel() for p in list(up.parameters()) + list(blk.parameters()))
-                            + sum(a.numel() + b.numel() for a, b in args["film"]))
+            nbytes = isz * (2 * x.numel() + got.numel() + args["film"].numel()
+                            + sum(p.numel() for p in list(up.parameters()) + list(blk.parameters())))
             flops = 2.0 * N_STEP * (l_in * cin * r * c + lens[i] * c * c
                                     + 6 * lens[i] * c * c * cfg.filter_kernel_size)
-            b, by = bound_ms(nbytes, flops, peak)
+            # the products on the tensor cores: bf16, or 3xTF32 (three TF32
+            # products each) in float32 storage
+            if dt == torch.float32:
+                b, by = bound_ms(nbytes, 3.0 * flops, PEAK_TF32)
+            else:
+                b, by = bound_ms(nbytes, flops, PEAK_BF16)
             rows.append({
                 "name": "filter_level", "variant": f"level {i} C={c} L={lens[i]} {tag}",
                 "max_abs_err": err, "tol": tol,
                 "ms": cuda_ms(lambda: filter_level_cuda(x, s, rate=r, **args)),
                 "plain_ms": cuda_ms(lambda: filter_level_plain(x, s, rate=r, **args), 2),
                 "library_ms": None,
+                "products_library_ms": cuda_ms(level_products(x, s, args, r)),
                 "bound_ms": b, "bound_by": by,
             })
+            del got, want
     return rows
 
 
@@ -445,7 +484,7 @@ KERNEL_GROUPS = (
     ("stft", ("stft_fft",)),
     ("knn", ("knn_tile", "knn_merge")),
     ("oscillator", ("osc_cheb",)),
-    ("filter_level", ("res_conv", "gemm_bias")),
+    ("filter_level", ("filter_wide_kernel", "filter_narrow_kernel")),
 )
 
 
@@ -471,6 +510,9 @@ def profile_step(step, card, label="one bench-shape bf16 step"):
     for start, end, name in spans:
         g = next((g for g, keys in KERNEL_GROUPS if any(k in name for k in keys)),
                  "other (cuBLAS, cuDNN, elementwise, copies)")
+        # every filter kernel of the port must count as the filter level's
+        need("filter" not in name or g == "filter_level",
+             f"profile: device span {name!r} lands in {g!r}, not in filter_level")
         groups[g] += (end - start) / 1e3
     busy, cur_s, cur_e = 0.0, None, None
     for start, end, _ in sorted(spans):
@@ -760,6 +802,8 @@ def kernels_line(rows, launches):
             "bound_by": max(main, key=lambda r: r["bound_ms"])["bound_by"],
             "library_ms": (None if any(r["library_ms"] is None for r in main)
                            else sum(r["library_ms"] for r in main)),
+            **({"products_library_ms": sum(r["products_library_ms"] for r in main)}
+               if name == "filter_level" else {}),
             "variants": [{k: v for k, v in r.items() if k != "name"} for r in mine],
         }
         out.append(entry)
@@ -819,9 +863,10 @@ def main() -> int:
     rows.extend(check_filter_levels(gen, dec))
     for r in rows:
         lib_ms = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.3f}"
+        prod = f" products_library {r['products_library_ms']:.3f}" if "products_library_ms" in r else ""
         print(f"kernel {r['name']:19s} {r['variant']:52s} err {r['max_abs_err']:.3e} "
               f"(tol {r['tol']:.1e}) ms {r['ms']:.3f} plain {r['plain_ms']:.3f} "
-              f"library {lib_ms} bound {r['bound_ms']:.4f} ({r['bound_by']}) [{card}]")
+              f"library {lib_ms}{prod} bound {r['bound_ms']:.4f} ({r['bound_by']}) [{card}]")
     torch.cuda.empty_cache()
     print(f"phase 2 done at {time.perf_counter() - t_start:.1f} s")
 

@@ -13,9 +13,12 @@ the packed extraction 1e-4 too (a sum that rounds across a 128-ulp packing
 step moves its key by 3.1e-5); oscillator 5e-3 abs (sinf/cosf rounding
 grown by the Chebyshev recurrence), the same for the full-formant source
 (float32 phase of up to ~500 cycles a frame); filter level 1e-3 abs in
-float32.  The redesigned kernels' edges (odd shapes, Lr = k, a device
-valid-row count below k, d padded or too wide for the resident query
-tile) are held to the same tolerances, and 'highest' index sets equal a
+float32, and at its edges (all four level shapes, batch 1, lengths that no
+tile divides, a narrow level just over its 56-sample lookback, one FiLM
+frame a level) 1e-3 (1 + scale) in float32 and 4e-2 (1 + scale) in bf16,
+chip_smoke.py's tolerances.  The STFT and kNN kernels' edges (odd shapes,
+Lr = k, a device valid-row count below k, d padded or too wide for the
+resident query tile) are held to the same tolerances, and 'highest' index sets equal a
 float64 ranking wherever its 4th and 5th scores differ by more than 1e-5.
 The sharded path: 2 gloo ranks on one card against 1 rank,
 identical 'highest' index sets and the waveform within 1e-4 (float32 sums
@@ -98,7 +101,7 @@ def test_kernel_matches_plain_on_card(name):
         dec = Decoder(DecoderConfig(), generator=torch.Generator().manual_seed(0)).cuda()
         x = 0.3 * torch.randn(2, 960, 16, generator=g, device="cuda")
         s = 0.3 * torch.randn(2, 960, 16, generator=g, device="cuda")
-        cond = 0.5 * torch.randn(2, 6, 512, generator=g, device="cuda")
+        cond = 0.5 * torch.randn(2, 6, 512, generator=g, device="cuda")   # 1920 samples: 320 a frame
         args = level_args(dec.filter.blocks[3], dec.filter.ups[3], cond)
         with torch.no_grad():
             got = kfilter.filter_level_cuda(x, s, rate=2, **args)
@@ -174,6 +177,140 @@ def test_redesigned_kernel_edges_on_card(name):
         assert float(clear.float().mean()) > 0.8
         same = (torch.sort(i, 1).values == torch.sort(order[:, :4], 1).values).all(1)
         assert bool(same[clear].all())
+
+
+# (level, windows, input samples, FiLM frames): the four (C, r) level shapes
+# (C = 256 / 64 / 16 / 8 at r = 10 / 8 / 2 / 2) at small L, none a multiple
+# of the kernels' time tiles (narrow 199, wide 64 or 128); narrow levels of
+# 60 samples, just over the 56-sample lookback, so that tile 0 is the only
+# tile and reflects; one FiLM frame for a whole level (F r == L, F = 1)
+FILTER_EDGES = [(0, 2, 50, 50), (1, 2, 120, 12), (2, 2, 480, 6), (3, 1, 640, 4),
+                (0, 1, 2, 2), (1, 1, 8, 1), (2, 1, 30, 1), (3, 2, 30, 1), (3, 3, 530, 53)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_filter_level_edges_on_card(dtype):
+    """The redesigned filter kernels (wide at C = 256, 64; one launch at
+    C = 16, 8) against filter_level_plain at chip_smoke.py's tolerances:
+    float32 1e-3 (1 + scale), bf16 4e-2 (1 + scale)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; on the card run this file with --noconftest -m gpu")
+    from alivevc_tpu_torch.infer.offline import cast_params
+    from alivevc_tpu_torch.kernels import LAUNCHES
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    dec = Decoder(DecoderConfig(), generator=torch.Generator().manual_seed(0)).cuda()
+    g = torch.Generator(device="cuda").manual_seed(2)
+    for level, n, l_in, frames in FILTER_EDGES:
+        up, blk = cast_params(dec.filter.ups[level], dt), cast_params(dec.filter.blocks[level], dt)
+        cin, c, r = dec.filter.ups[level].weight.shape
+        x = (0.3 * torch.randn(n, l_in, cin, generator=g, device="cuda")).to(dt)
+        s = (0.3 * torch.randn(n, l_in, cin, generator=g, device="cuda")).to(dt)
+        cond = (0.5 * torch.randn(n, frames, 512, generator=g, device="cuda")).to(dt)
+        with torch.no_grad():
+            args = level_args(blk, up, cond)
+            before = LAUNCHES["filter_level"]
+            got = kfilter.filter_level_cuda(x, s, rate=r, **args)
+            want = kfilter.filter_level_plain(x, s, rate=r, **args)
+        torch.cuda.synchronize()
+        assert LAUNCHES["filter_level"] == before + 1
+        assert got.shape == want.shape == (n, l_in * r, c) and got.dtype == dt
+        scale = float(want.float().abs().max())
+        tol = (1e-3 if dt == torch.float32 else 4e-2) * (1.0 + scale)
+        assert bool(torch.isfinite(got).all()), (level, n, l_in, frames)
+        assert max_err(got, want) <= tol, (level, n, l_in, frames, max_err(got, want), tol)
+
+
+def _random_level(g, dt, n, l_in, cin, c, rate, k, dilations, frames):
+    """A level's inputs and weights in kernels/filter.py's layouts, random
+    with unit-scale activations."""
+    def rnd(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=g, device="cuda")).to(dt)
+
+    n_conv = len(dilations)
+    return dict(
+        x_prev=rnd(n, l_in, cin, scale=0.3), skip=rnd(n, l_in, cin, scale=0.3),
+        up_w=rnd(cin, rate * c, scale=cin ** -0.5), up_b=rnd(c, scale=0.1),
+        in_w=rnd(c, c, scale=c ** -0.5), in_b=rnd(c, scale=0.1),
+        conv_w=[rnd(k, c, c, scale=(k * c) ** -0.5) for _ in range(n_conv)],
+        conv_b=[rnd(c, scale=0.1) for _ in range(n_conv)],
+        film=torch.cat([torch.cat([1.0 + rnd(n, frames, c, scale=0.2), rnd(n, frames, c, scale=0.2)], 2)
+                        for _ in range(n_conv)], 2),
+        rate=rate, dilations=list(dilations))
+
+
+# (windows, input samples, C_in, C, rate, k, dilations, FiLM frames): shapes
+# off the main path that reach the wide kernel's other tile shapes.  C = 64
+# from C_in = 256 at rate 2 (an up conv of N = 128 columns from 256 input
+# channels: float32's 64-row tile for wide inputs); C = 136 (every product
+# in that tile in float32, three masked column tiles in bf16); C = 16 from
+# C_in = 256 and C = 8 at rate 10 (narrow levels the one-launch kernel
+# refuses: more input channels or a higher rate than its shared memory
+# takes); C = 256 with k = 7 at dilation 4 (a 24-row halo: the largest
+# operand tile the wide kernel stages).
+WIDE_ROUTES = [(2, 70, 256, 64, 2, 5, (1, 1, 2, 2), 7), (1, 45, 136, 136, 2, 5, (1, 2), 3),
+               (2, 90, 256, 16, 2, 5, (1, 1, 2, 2, 4, 4), 9), (1, 33, 16, 8, 10, 5, (1, 2), 11),
+               (2, 20, 256, 256, 10, 7, (4, 4), 4)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_filter_level_wide_routes_on_card(dtype):
+    """Every tile shape of the wide kernel, and its route for narrow levels
+    that the one-launch kernel refuses, against filter_level_plain at
+    chip_smoke.py's tolerances; a second call returns the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; on the card run this file with --noconftest -m gpu")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    for case in WIDE_ROUTES:
+        args = _random_level(g, dt, *case)
+        with torch.no_grad():
+            got = kfilter.filter_level_cuda(**args)
+            again = kfilter.filter_level_cuda(**args)
+            want = kfilter.filter_level_plain(**args)
+        torch.cuda.synchronize()
+        n, l_in, _, c, rate = case[:5]
+        assert got.shape == want.shape == (n, l_in * rate, c) and got.dtype == dt
+        assert torch.equal(got, again), case
+        scale = float(want.float().abs().max())
+        tol = (1e-3 if dt == torch.float32 else 4e-2) * (1.0 + scale)
+        assert bool(torch.isfinite(got).all()), case
+        assert max_err(got, want) <= tol, (case, max_err(got, want), tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_filter_level_repeatable_on_card(dtype):
+    """The four levels at chip_smoke.py's main-path shapes (16 windows of
+    144 000 samples) give the same bits in five calls: a race between the
+    kernels' warps, or a read of shared memory that another tile wrote,
+    would show as calls that differ."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; on the card run this file with --noconftest -m gpu")
+    from alivevc_tpu_torch.infer.offline import cast_params
+
+    dt = getattr(torch, dtype)
+    dec = Decoder(DecoderConfig(), generator=torch.Generator().manual_seed(0)).cuda()
+    g = torch.Generator(device="cuda").manual_seed(4)
+    n, lw = 16, 144_000
+    cond = (0.5 * torch.randn(n, lw // 320, 512, generator=g, device="cuda")).to(dt)
+    for level, length in enumerate((lw // 32, lw // 4, lw // 2, lw)):
+        up, blk = cast_params(dec.filter.ups[level], dt), cast_params(dec.filter.blocks[level], dt)
+        cin, _, r = dec.filter.ups[level].weight.shape
+        x = (0.3 * torch.randn(n, length // r, cin, generator=g, device="cuda")).to(dt)
+        s = (0.3 * torch.randn(n, length // r, cin, generator=g, device="cuda")).to(dt)
+        with torch.no_grad():
+            args = level_args(blk, up, cond)
+            first = kfilter.filter_level_cuda(x, s, rate=r, **args)
+            for _ in range(4):
+                assert torch.equal(kfilter.filter_level_cuda(x, s, rate=r, **args), first), level
+        assert bool(torch.isfinite(first).all()), level
 
 
 def _sharded_run(world: int) -> dict:

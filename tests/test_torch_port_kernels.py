@@ -467,6 +467,82 @@ def test_filter_level_bf16_storage_rounds_like_the_kernel(filter_models):
     assert max_err(got, want) <= 0.05 * (1.0 + scale)
 
 
+def _level_args(dec, i, cond):
+    return level_args(dec.filter.blocks[i], dec.filter.ups[i], t(cond))
+
+
+@pytest.mark.parametrize("i,tile", [(2, None), (2, 44), (2, 1000), (3, None), (3, 44), (3, 1000)])
+def test_filter_tiling_emulation_equals_plain(filter_models, i, tile):
+    """The narrow kernel's tiling replayed on the CPU (recomputed 56-sample
+    lookback, in-place reflect of a tile that starts at sample 0), at the
+    kernel's own tile (199 samples), at a tile shorter than the lookback and
+    at one that does not divide L: within 1e-5 of the plain version."""
+    _, dec = filter_models
+    x, s, cond, r = _level_inputs(i, 90 + i)
+    args = _level_args(dec, i, cond)
+    if tile is None:
+        tile = kfilter.narrow_tile(args["conv_w"][0].shape[0], args["dilations"], r)
+        assert tile == 199
+    assert (x.shape[1] * r) % tile
+    got = kfilter.filter_level_tiled(t(x), t(s), rate=r, tile=tile, **args)
+    want = kfilter.filter_level_plain(t(x), t(s), rate=r, **args)
+    assert max_err(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize("i", [0, 1, 2, 3])
+def test_filter_3xtf32_products_vs_float64(filter_models, i):
+    """float32 storage: every product of the level split as the kernels
+    split it (3xTF32), the narrow levels at the kernel's tiling, within
+    1e-5 (1 + scale) of the level evaluated in float64 (storage roundings to
+    float32 kept)."""
+    _, dec = filter_models
+    x, s, cond, r = _level_inputs(i, 110 + i)
+    args = _level_args(dec, i, cond)
+    length = x.shape[1] * r
+    tile = kfilter.narrow_tile(5, args["dilations"], r) if i >= 2 else length
+    got = kfilter.filter_level_tiled(t(x), t(s), rate=r, tile=tile, products="3xtf32", **args)
+    want = kfilter.filter_level_tiled(t(x), t(s), rate=r, tile=length, compute=torch.float64,
+                                      **args)
+    scale = float(want.detach().abs().max())
+    assert max_err(got, want) <= 1e-5 * (1.0 + scale)
+    # the split is what carries it: one TF32 product alone is ~1e-3 off
+    a, b = t(x).reshape(-1, x.shape[2]), args["up_w"]
+    exact = a.double() @ b.double()
+    assert float((kfilter.product_3xtf32(a, b) - exact).abs().max()) <= 1e-6 * (1 + float(exact.abs().max()))
+
+
+def test_film_single_product_equals_per_conv_linears(filter_models):
+    """level_args' one FiLM product equals the twelve per-conv linears
+    (scale + 1, shift) within 1e-6 in float32."""
+    _, dec = filter_models
+    _, _, cond, _ = _level_inputs(1, 7)
+    blk = dec.filter.blocks[1]
+    film = level_args(blk, dec.filter.ups[1], t(cond))["film"]
+    c = blk.input_conv.weight.shape[0]
+    assert film.shape == (1, F, 12 * c)
+    mcs = [mc for rb in blk.blocks for mc in (rb.c1, rb.c2)]
+    for i, mc in enumerate(mcs):
+        scale, shift = mc.film(t(cond))
+        got_scale, got_shift = kfilter.film_of(film, i, c)
+        assert max_err(got_scale, scale) <= 1e-6 and max_err(got_shift, shift) <= 1e-6
+
+
+def test_filter_wrapper_checks(filter_models):
+    """The kernel wrapper takes only CUDA tensors and raises on a shape it
+    cannot take; the CPU route never launches."""
+    from alivevc_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    _, dec = filter_models
+    x, s, cond, r = _level_inputs(3, 5)
+    args = _level_args(dec, 3, cond)
+    with pytest.raises(ValueError):
+        kfilter.filter_level_cuda(t(x), t(s), rate=r, **args)
+    reset_launches()
+    kfilter.filter_level(t(x), t(s), rate=r, **args)
+    assert LAUNCHES["filter_level"] == 0
+    assert kfilter.lookback(5, args["dilations"]) == 56
+
+
 def test_cpu_route_and_launch_counts():
     """A CPU tensor takes the plain version and launches nothing."""
     from alivevc_tpu_torch.kernels import LAUNCHES, reset_launches
