@@ -1,211 +1,476 @@
 // Two DDSP harmonic sources, both with the offline semantics: phi = 0,
-// crop = (0, -1) (the phase is re-zeroed at the first sample).
+// crop = (0, -1) (the phase is re-zeroed at the first sample).  osc_cheb
+// launches one kernel on the caller's stream; osc_formant two, the phase
+// scan and then the source.
 //
-// 1. osc_cheb_f32, the decoder's source, by the Chebyshev recurrence: x320
+// 1. osc_cheb, the decoder's source, by the Chebyshev recurrence: x``seg``
 // linear upsampling of the frame-rate f0 and amplitudes, closed-form phase
 // integral, sin(k theta) for k = 1..NH by sin(k t) = 2 cos(t) sin((k-1) t)
 // - sin((k-2) t), and the amplitude-weighted mean over the harmonics.
-//
 // Replaces: alivevc_tpu/kernels/oscillator_pallas.py:harmonic_source_cheb_pallas
 // (_osc_cheb_kernel, pallas_call at :229).
 //
-// What bounds it on an H100: operations.  Per output sample it does one
-// sinf, one cosf and ~6 float32 operations per harmonic (amplitude mix,
-// recurrence, accumulate): 0.9 GFLOP at 16 x 144 000 samples x 64
-// harmonics, against 11 MB of traffic (frame-rate inputs, one float per
-// output sample).  No sample-rate intermediate touches device memory.
-//
-// Phase precision decides the result.  The TPU kernel carries a running
-// phase across sequential time tiles, wrapped mod 1.  Blocks here run in no
-// order, so each block (one window row x 8 frames) computes its own base
-// phase: the sum of the float32 frame totals of every earlier frame, taken
-// in float64 by a block reduction, minus the first sample's phase, wrapped
-// mod 1 before it is cast to float32.  Inside a frame the phase stays below
-// a few cycles, so sin(k theta) keeps float32 accuracy up to k = 64.
-//
-// 2. osc_formant_f32, the full-formant source over any formants [N, Lf, NH]
-// (not f0 multiples).  Replaces:
+// 2. osc_formant, the full-formant source over any formants [N, Lf, NH] (not
+// f0 multiples), each harmonic with its own phase.  Replaces:
 // alivevc_tpu/kernels/oscillator_pallas.py:harmonic_source_pallas (_osc_kernel
-// :59-111, pallas_call at :281).  Each harmonic has its own phase: the same
-// closed-form mix with prefix-summed weights, a per-frame base taken as a
-// float64 sum of the earlier frames' float32 totals, wrapped mod 1 (the TPU
-// kernel carries it unwrapped in float32, which at harmonic 64 over a
-// 450-frame window reaches ~1.7e5 cycles, a float32 ulp of ~0.016 cycles).
-// The output is the mean over harmonics of sin(2 pi phase) amp, with the
-// phase reduced mod 1 in float32 before sinpif.  Bound by operations: per
-// sample and harmonic 7 FMAs (phase mix, amplitude mix, the weighted sum)
-// and one sine, 16 x 144 000 x 64 of them in a 16-window step; the
-// frame-rate inputs stage through shared memory, so traffic is the
-// [N, Lf, NH] inputs and one float per output sample.
+// :59-111, pallas_call at :281).
+//
+// What bounds them on an H100: operations.  16 windows x 144 000 samples x
+// 64 harmonics are 147.5 M sample-harmonic pairs; the frame-rate inputs and
+// one float per output sample are 11 MB.
+//
+// The base phases.  The TPU kernels carry a running phase across sequential
+// time tiles; blocks here run in no order, so each frame's base phase is
+// computed apart: per (window, column) the float64 exclusive prefix of the
+// float32 frame totals, minus the phase of sample 0, wrapped mod 1.  The
+// formant source has NH columns: osc_scan_kernel computes them first into
+// a float32 [N, Lf, NH] scratch, O(Lf) work a column, in parallel over
+// chunks of frames (see the kernel).  The Chebyshev source has one column
+// of at most Lf floats, so each of its blocks sums the prefix of its own
+// tile while it stages its amplitudes: no second launch, no scratch, and
+// O(Lf) more L2 reads a block.  The frame totals, the first sample's phase
+// and f = Hz * (1 / sample rate) are rounded exactly as the plain version
+// rounds them on the card (no contracted products), so the offsets match it.
+//
+// The two-frame form.  Sample r of frame q mixes frames (q-1, q) for r <
+// seg / 2 and (q, q+1) after (one weight of the three is exactly 0; for an
+// odd seg the middle sample has weight 1 on frame q).  So the amplitude
+// mix factors out of the harmonic sum: with A_lo = sum_k s_k a_lo,k and
+// A_hi = sum_k s_k a_hi,k, the sample is (w_lo A_lo + w_hi A_hi) / NH, the
+// plain version's own weights with no difference a_hi - a_lo formed.  Per
+// pair the Chebyshev source does 3 FMAs: the recurrence and two
+// accumulations.  In the formant source the phase mix is also two frames:
+// in the second half the prefix weight of frame q-1 is constant, so it folds
+// into a per-frame, per-harmonic constant beside the offset: 2 FMAs, then
+// the reduction x - rint(x) (two adds by the 1.5 * 2^23 constant and a
+// subtraction), one SFU sine of 2 pi x on [-pi, pi] (__sinf, absolute error
+// about 4e-7), and 2 FMAs.  On an H100 the Chebyshev loop alone issues its
+// FMAs at about two thirds of the card's float32 FMA rate, in any source
+// order of the three (scripts/osc_loop_probe.py times it).  Not measured
+// why; each recurrence FMA reads three registers that no neighbouring
+// instruction shares, so register-bank conflicts are the suspect.
+//
+// Register blocking.  A warp task is 160 samples of one half-frame: a thread
+// holds SPT = 5 samples, strided by 32 so that stores coalesce.  Amplitudes
+// (and the formant source's frequencies and phase constants) are staged in
+// shared memory once per tile of FB = 4 frames and read as float4 (four
+// harmonics) that every lane of the warp shares (a broadcast), so each load
+// feeds 4 x 5 pairs: 0.1 shared loads a pair (Chebyshev), 0.25 (formants).
+// One block a tile, 8 warps for its 8 half-frames, in a plain grid: the
+// block scheduler refills an SM as soon as a block ends, so a partial last
+// wave costs at most one block's time.  (A persistent grid of resident
+// blocks walking the tiles was no faster on the H100: its blocks stage and
+// compute in step.)
+//
+// Sines.  The recurrence grows an error in 2 cos(theta) about k^2/2-fold by
+// k = 64, so theta's sine and cosine are full float32 (sincosf).  theta is
+// formed as the plain version forms it, (2 pi rounded to float) * x with x
+// = the frame's mixed phase + offset: a sincospif of the wrapped phase would
+// be closer to float64 by the plain version's own rounding of 2 pi x (a few
+// 1e-6 rad at 50 rad), and the recurrence carries that to ~1e-4 at k = 64.
 
 #include "common.cuh"
 
+#include <limits.h>
+
 namespace {
 
-constexpr int FT = 8;         // frames per block
-constexpr int NH_MAX = 256;   // harmonics held in shared memory
+constexpr int NH_MAX = 256;       // harmonics held in shared memory
+constexpr int SEG_MAX = 1024;     // samples a frame
+constexpr int SPT = 5;            // samples a thread
+constexpr int CHUNK = 32 * SPT;   // samples of a warp task
+constexpr int WARPS = 8;          // warps a block
+constexpr int THREADS = 32 * WARPS;
+constexpr int FB = 4;             // frames a tile
+constexpr int SCAN_THREADS = 1024;
+constexpr float TWO_PI = 6.28318530717958647692f;
+constexpr float RINT_MAGIC = 12582912.0f;   // 1.5 * 2^23: (x + M) - M = rint(x), |x| < 2^22
 
-__device__ __forceinline__ float frame_val(const float* f, int q, int lf) {
-  return f[max(0, min(q, lf - 1))];   // edge replication (align_corners=False)
+// a * wa + b * wb + c * wc, each product and sum rounded as the plain
+// version's separate tensor operations round them
+__device__ __forceinline__ float mix3(float a, float b, float c, float wa, float wb, float wc) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(a, wa), __fmul_rn(b, wb)), __fmul_rn(c, wc));
 }
 
-__global__ void osc_cheb_kernel(const float* __restrict__ f, const float* __restrict__ amps,
-                                const float* __restrict__ w, const float* __restrict__ ws,
-                                float* __restrict__ out, int lf, int nh, int seg) {
-  __shared__ float a_s[(FT + 2) * NH_MAX];
-  __shared__ double red[32];
-  __shared__ float off_s[FT];
+__device__ __forceinline__ int clampq(int q, int lf) { return max(0, min(q, lf - 1)); }
 
-  const int b = blockIdx.y;
-  const int q_start = blockIdx.x * FT;
-  const float* fb = f + (size_t)b * lf;
-  const float wsa = ws[seg - 1], wsb = ws[2 * seg - 1], wsc = ws[3 * seg - 1];
+// fin [N, Lf, H] Hz -> off [N, Lf, H]: the wrapped base phase of each frame.
+// ws is the [3, seg] table of prefix-summed weights.  A block takes a window
+// and CW columns; thread t takes column t % CW of chunk t / CW, a chunk
+// being ceil(Lf / (1024 / CW)) consecutive frames (one frame at H = 1 and Lf
+// <= 1024; four at H = 64, Lf = 450), so every load of a thread is in flight
+// at once.  The chunks' float64 sums are scanned by warp shuffles, then
+// across warps through shared memory.
+template <int CW>
+__global__ void __launch_bounds__(SCAN_THREADS)
+osc_scan_kernel(const float* __restrict__ fin, float inv_sr, const float* __restrict__ ws,
+                float* __restrict__ off, int lf, int h, int seg) {
+  constexpr int CHUNKS = SCAN_THREADS / CW;
+  __shared__ double warp_sum[SCAN_THREADS / 32][CW];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = threadIdx.x % CW, chunk = threadIdx.x / CW;
+  const int col = blockIdx.x * CW + c;
+  const bool live = col < h;
+  const int per = (lf + CHUNKS - 1) / CHUNKS;
+  const int q0 = min(chunk * per, lf), q1 = min(q0 + per, lf);
+  const size_t base_idx = (size_t)blockIdx.y * lf * h + (live ? col : 0);
+  const float* fb = fin + base_idx;
+  const float wa = ws[seg - 1], wb = ws[2 * seg - 1], wc = ws[3 * seg - 1];
+  auto freq = [&](int q) { return __fmul_rn(fb[(size_t)clampq(q, lf) * h], inv_sr); };
 
-  // float64 sum of the frame totals before this block's first frame
+  double sum = 0.0;
+  if (live) {
+    float fm = freq(q0 - 1), fq = freq(q0);
+#pragma unroll 4
+    for (int q = q0; q < q1; ++q) {
+      const float fp = freq(q + 1);
+      sum += (double)mix3(fm, fq, fp, wa, wb, wc);
+      fm = fq;
+      fq = fp;
+    }
+  }
+  // inclusive scan over this column's chunks in the warp (lanes CW apart)
+  double incl = sum;
+#pragma unroll
+  for (int d = CW; d < 32; d <<= 1) {
+    const double u = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += u;
+  }
+  double run = __shfl_up_sync(0xffffffffu, incl, CW);
+  if (lane < CW) run = 0.0;
+  if (lane >= 32 - CW) warp_sum[warp][c] = incl;
+  __syncthreads();
+  if (!live || q0 >= q1) return;
+  for (int j = 0; j < warp; ++j) run += warp_sum[j][c];
+  const double p0 = (double)mix3(freq(-1), freq(0), freq(1), ws[0], ws[seg], ws[2 * seg]);
+  float* ob = off + base_idx;
+  float fm = freq(q0 - 1), fq = freq(q0);
+#pragma unroll 4
+  for (int q = q0; q < q1; ++q) {
+    const double o = run - p0;
+    ob[(size_t)q * h] = (float)(o - floor(o));
+    const float fp = freq(q + 1);
+    run += (double)mix3(fm, fq, fp, wa, wb, wc);
+    fm = fq;
+    fq = fp;
+  }
+}
+
+// A warp task: frame fi of the tile, half 0 (r < seg / 2) or 1, chunk ck of
+// that half.  Returns false where the task holds no sample.
+struct Task {
+  int fi, half, rb, r_end;
+};
+
+__device__ __forceinline__ bool task_of(int task, int nck, int q0, int lf, int seg, Task& t) {
+  t.fi = task / (2 * nck);
+  t.half = (task / nck) & 1;
+  const int h1 = seg / 2;
+  t.rb = (t.half ? h1 : 0) + (task % nck) * CHUNK;
+  t.r_end = t.half ? seg : h1;
+  return q0 + t.fi < lf && t.rb < t.r_end;
+}
+
+// f0 [N, Lf] Hz, amps [N, Lf, NH] (float or bf16), tab [6, seg] = (w rows,
+// ws rows) -> out [N, Lf * seg].  Dynamic shared memory: (FB + 2) rows of nh4
+// amplitudes, frames q0 - 1 .. q0 + FB.  The block computes its frames' base
+// phase itself (one column, so the prefix is at most Lf floats of L2): the
+// float64 sum of the totals of frames p < q0, one frame a thread in rounds
+// of 256 (two rounds at the decoder's 450 frames; the neighbours' f by
+// warp shuffles), reduced by warp shuffles; then each warp adds its tile's
+// earlier frames, as osc_scan_kernel does.  The amplitudes are loaded into
+// registers first and stored to shared memory after the prefix, so their
+// loads are in flight while it runs.
+template <typename AT>
+__global__ void __launch_bounds__(THREADS, 4)
+osc_cheb_kernel(const float* __restrict__ fin, const AT* __restrict__ amps,
+                const float* __restrict__ tab, float* __restrict__ out, int lf, int nh, int seg,
+                float inv_sr) {
+  constexpr int STAGE_ROUNDS = (FB + 2) * NH_MAX / THREADS;
+  extern __shared__ float4 smem4[];
+  __shared__ float f_s[FB + 2];
+  __shared__ double part_s[WARPS], p0_s;
+  float* a_s = reinterpret_cast<float*>(smem4);
+  const int nh4 = (nh + 3) & ~3, r4 = nh4 / 4;
+  const int nck = (seg - seg / 2 + CHUNK - 1) / CHUNK;
+  const int tiles_per_row = (lf + FB - 1) / FB;
+  const float* w = tab;
+  const float* ws = tab + 3 * seg;
+  const float wa = ws[seg - 1], wb = ws[2 * seg - 1], wc = ws[3 * seg - 1];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float inv_nh = 1.0f / (float)nh;
+  const int b = blockIdx.x / tiles_per_row, q0 = (blockIdx.x % tiles_per_row) * FB;
+  const float* fb_row = fin + (size_t)b * lf;
+  auto freq = [&](int q) { return __fmul_rn(fb_row[clampq(q, lf)], inv_sr); };
+
+  // element e = threadIdx.x + 256 i of the staged rows is (row fr, column k)
+  float av[STAGE_ROUNDS];
+  const int step_fr = THREADS / nh4, step_k = THREADS - step_fr * nh4;
+  int fr = threadIdx.x / nh4, k = threadIdx.x - fr * nh4;
+#pragma unroll
+  for (int i = 0; i < STAGE_ROUNDS; ++i) {
+    av[i] = fr < FB + 2 && k < nh
+                ? to_f32(amps[((size_t)b * lf + clampq(q0 - 1 + fr, lf)) * nh + k]) : 0.0f;
+    fr += step_fr;
+    k += step_k;
+    if (k >= nh4) {
+      k -= nh4;
+      ++fr;
+    }
+  }
   double part = 0.0;
-  for (int q = threadIdx.x; q < q_start; q += blockDim.x)
-    part += (double)(frame_val(fb, q - 1, lf) * wsa + frame_val(fb, q, lf) * wsb +
-                     frame_val(fb, q + 1, lf) * wsc);
-  for (int o = 16; o > 0; o >>= 1) part += __shfl_down_sync(0xffffffffu, part, o);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (lane == 0) red[warp] = part;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    double base = 0.0;
-    for (int i = 0; i < (int)(blockDim.x + 31) / 32; ++i) base += red[i];
-    // phase of sample 0, which the offline path re-zeroes against
-    const float p0 = frame_val(fb, -1, lf) * ws[0] + frame_val(fb, 0, lf) * ws[seg] +
-                     frame_val(fb, 1, lf) * ws[2 * seg];
-    for (int i = 0; i < FT; ++i) {
-      const int q = q_start + i;
-      const double o = base - (double)p0;
-      off_s[i] = (float)(o - floor(o));
-      if (q < lf)
-        base += (double)(frame_val(fb, q - 1, lf) * wsa + frame_val(fb, q, lf) * wsb +
-                         frame_val(fb, q + 1, lf) * wsc);
-    }
+#pragma unroll 2
+  for (int pb = 0; pb < q0; pb += THREADS) {
+    const int p = pb + threadIdx.x;
+    const float fq = freq(p);
+    float fm = __shfl_up_sync(0xffffffffu, fq, 1), fp = __shfl_down_sync(0xffffffffu, fq, 1);
+    if (lane == 0) fm = freq(p - 1);
+    if (lane == 31) fp = freq(p + 1);
+    if (p < q0) part += (double)mix3(fm, fq, fp, wa, wb, wc);
   }
-  // amplitudes of frames q_start-1 .. q_start+FT, edge-replicated
-  for (int e = threadIdx.x; e < (FT + 2) * nh; e += blockDim.x) {
-    const int fr = e / nh, k = e % nh;
-    const int q = max(0, min(q_start - 1 + fr, lf - 1));
-    a_s[e] = amps[((size_t)b * lf + q) * nh + k];
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) part += __shfl_xor_sync(0xffffffffu, part, d);
+  if (lane == 0) part_s[warp] = part;
+#pragma unroll
+  for (int i = 0; i < STAGE_ROUNDS; ++i) {
+    const int e = threadIdx.x + i * THREADS;
+    if (e < (FB + 2) * nh4) a_s[e] = av[i];
   }
+  if (threadIdx.x < FB + 2) f_s[threadIdx.x] = freq(q0 - 1 + threadIdx.x);
+  if (threadIdx.x == FB + 2) p0_s = (double)mix3(freq(-1), freq(0), freq(1), ws[0], ws[seg], ws[2 * seg]);
   __syncthreads();
 
-  for (int r = threadIdx.x; r < seg; r += blockDim.x) {
-    const float wa = w[r], wb = w[seg + r], wc = w[2 * seg + r];
-    const float sa = ws[r], sb = ws[seg + r], sc = ws[2 * seg + r];
-    for (int i = 0; i < FT; ++i) {
-      const int q = q_start + i;
-      if (q >= lf) break;
-      const float cseg = frame_val(fb, q - 1, lf) * sa + frame_val(fb, q, lf) * sb +
-                         frame_val(fb, q + 1, lf) * sc;
-      const float theta = 6.28318530717958647692f * (cseg + off_s[i]);
-      const float s1 = sinf(theta);
-      const float twoc = 2.0f * cosf(theta);
-      const float* a0 = a_s + i * nh;   // frame q - 1
-      const float* a1 = a0 + nh;        // frame q
-      const float* a2 = a1 + nh;        // frame q + 1
-      float acc = s1 * (a0[0] * wa + a1[0] * wb + a2[0] * wc);
-      float s_km2 = 0.0f, s_km1 = s1;
-      for (int k = 1; k < nh; ++k) {
-        const float s_k = twoc * s_km1 - s_km2;
-        acc += s_k * (a0[k] * wa + a1[k] * wb + a2[k] * wc);
-        s_km2 = s_km1;
-        s_km1 = s_k;
-      }
-      out[(size_t)b * lf * seg + (size_t)q * seg + r] = acc / (float)nh;
+  for (int task = warp; task < FB * 2 * nck; task += WARPS) {
+    Task t;
+    if (!task_of(task, nck, q0, lf, seg, t)) continue;
+    const float fa = f_s[t.fi], fb = f_s[t.fi + 1], fc = f_s[t.fi + 2];
+    double run = 0.0;
+#pragma unroll
+    for (int j = 0; j < WARPS; ++j) run += part_s[j];
+    for (int i = 0; i < t.fi; ++i) run += (double)mix3(f_s[i], f_s[i + 1], f_s[i + 2], wa, wb, wc);
+    const double o64 = run - p0_s;
+    const float o = (float)(o64 - floor(o64));
+    // s = sin(k theta) and sp = sin((k-1) theta), from k = 1; lanes past
+    // the half-frame's end carry zeros
+    float twoc[SPT], s[SPT], sp[SPT], lo[SPT], hi[SPT];
+#pragma unroll
+    for (int j = 0; j < SPT; ++j) {
+      const int r = t.rb + lane + 32 * j;
+      const int rr = r < t.r_end ? r : t.rb;
+      const float x = __fadd_rn(mix3(fa, fb, fc, ws[rr], ws[seg + rr], ws[2 * seg + rr]), o);
+      float sn, cs;
+      sincosf(__fmul_rn(TWO_PI, x), &sn, &cs);
+      const bool ok = r < t.r_end;
+      twoc[j] = ok ? 2.0f * cs : 0.0f;
+      s[j] = ok ? sn : 0.0f;
+      sp[j] = 0.0f;
+      lo[j] = 0.0f;
+      hi[j] = 0.0f;
+    }
+    const float4* alo = smem4 + (t.fi + t.half) * r4;
+    const float4* ahi = alo + r4;
+    // one harmonic: the two accumulations, then sin((k+1) theta)
+#define OSC_CHEB_STEP(A, B)                                   \
+  _Pragma("unroll") for (int j = 0; j < SPT; ++j) {           \
+    lo[j] = fmaf(s[j], (A), lo[j]);                         \
+    hi[j] = fmaf(s[j], (B), hi[j]);                         \
+    const float nx = fmaf(s[j], twoc[j], -sp[j]);           \
+    sp[j] = s[j];                                           \
+    s[j] = nx;                                              \
+  }
+#pragma unroll 4
+    for (int k4 = 0; k4 < r4; ++k4) {
+      const float4 al = alo[k4], ah = ahi[k4];
+      OSC_CHEB_STEP(al.x, ah.x)
+      OSC_CHEB_STEP(al.y, ah.y)
+      OSC_CHEB_STEP(al.z, ah.z)
+      OSC_CHEB_STEP(al.w, ah.w)
+    }
+#undef OSC_CHEB_STEP
+    float* ob = out + (size_t)b * lf * seg + (size_t)(q0 + t.fi) * seg;
+#pragma unroll
+    for (int j = 0; j < SPT; ++j) {
+      const int r = t.rb + lane + 32 * j;
+      if (r < t.r_end)
+        ob[r] = fmaf(w[t.half * seg + r], lo[j], __fmul_rn(w[(t.half + 1) * seg + r], hi[j])) * inv_nh;
     }
   }
 }
 
-constexpr int FS = FT + 2;    // staged frames q_start-1 .. q_start+FT
+// formants [N, Lf, NH] Hz, amps [N, Lf, NH] (float or bf16), off [N, Lf, NH]
+// from the scan, tab as above -> out [N, Lf * seg].  Dynamic shared memory,
+// rows of nh4 floats: (FB + 2) rows of f = Hz / sample rate and (FB + 2) of
+// amplitudes for frames q0 - 1 .. q0 + FB, then per frame of the tile the
+// first half's phase constant (the offset) and the second half's (offset +
+// f[q-1] * ws[0][seg-1]).
+template <typename AT>
+__global__ void __launch_bounds__(THREADS, 4)
+osc_formant_kernel(const float* __restrict__ fin, const AT* __restrict__ amps,
+                   const float* __restrict__ off, const float* __restrict__ tab,
+                   float* __restrict__ out, int lf, int nh, int seg, float inv_sr) {
+  extern __shared__ float4 smem4[];
+  const int nh4 = (nh + 3) & ~3, r4 = nh4 / 4;
+  float* f_s = reinterpret_cast<float*>(smem4);
+  float* a_s = f_s + (FB + 2) * nh4;
+  float* c_s = a_s + (FB + 2) * nh4;
+  const int nck = (seg - seg / 2 + CHUNK - 1) / CHUNK;
+  const int tiles_per_row = (lf + FB - 1) / FB;
+  const float* w = tab;
+  const float* ws = tab + 3 * seg;
+  const float ws0_tot = ws[seg - 1];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float inv_nh = 1.0f / (float)nh;
+  const int b = blockIdx.x / tiles_per_row, q0 = (blockIdx.x % tiles_per_row) * FB;
 
-__global__ void osc_formant_kernel(const float* __restrict__ f, const float* __restrict__ amps,
-                                   const float* __restrict__ w, const float* __restrict__ ws,
-                                   float* __restrict__ out, int lf, int nh, int seg) {
-  __shared__ float f_s[FS * NH_MAX];   // formants / sample_rate, edge-replicated
-  __shared__ float a_s[FS * NH_MAX];
-  __shared__ float off_s[FT * NH_MAX]; // per-frame base phase mod 1
-
-  const int b = blockIdx.y;
-  const int q_start = blockIdx.x * FT;
-  const float* fb = f + (size_t)b * lf * nh;
-  const float* ab = amps + (size_t)b * lf * nh;
-  for (int e = threadIdx.x; e < FS * nh; e += blockDim.x) {
-    const int fr = e / nh, h = e % nh;
-    const int q = max(0, min(q_start - 1 + fr, lf - 1));
-    f_s[e] = fb[(size_t)q * nh + h];
-    a_s[e] = ab[(size_t)q * nh + h];
+  for (int e = threadIdx.x; e < (FB + 2) * nh4; e += THREADS) {
+    const int fr = e / nh4, k = e - fr * nh4;
+    const size_t idx = ((size_t)b * lf + clampq(q0 - 1 + fr, lf)) * nh + k;
+    f_s[e] = k < nh ? __fmul_rn(fin[idx], inv_sr) : 0.0f;
+    a_s[e] = k < nh ? to_f32(amps[idx]) : 0.0f;
   }
-  // one thread per harmonic: float64 sum of the frame totals before this
-  // block, minus the phase of sample 0, wrapped mod 1
-  const float wsa = ws[seg - 1], wsb = ws[2 * seg - 1], wsc = ws[3 * seg - 1];
-  for (int h = threadIdx.x; h < nh; h += blockDim.x) {
-    double base = 0.0;
-    for (int q = 0; q < q_start; ++q)
-      base += (double)(fb[(size_t)max(q - 1, 0) * nh + h] * wsa + fb[(size_t)q * nh + h] * wsb +
-                       fb[(size_t)min(q + 1, lf - 1) * nh + h] * wsc);
-    const float p0 = fb[h] * ws[0] + fb[h] * ws[seg] + fb[(size_t)min(1, lf - 1) * nh + h] * ws[2 * seg];
-    for (int i = 0; i < FT; ++i) {
-      const int q = q_start + i;
-      const double o = base - (double)p0;
-      off_s[i * nh + h] = (float)(o - floor(o));
-      if (q < lf)
-        base += (double)(fb[(size_t)max(q - 1, 0) * nh + h] * wsa + fb[(size_t)q * nh + h] * wsb +
-                         fb[(size_t)min(q + 1, lf - 1) * nh + h] * wsc);
+  for (int e = threadIdx.x; e < FB * nh4; e += THREADS) {
+    const int fi = e / nh4, k = e - fi * nh4;
+    const int q = q0 + fi;
+    float o = 0.0f, fm = 0.0f;
+    if (q < lf && k < nh) {
+      o = off[((size_t)b * lf + q) * nh + k];
+      fm = __fmul_rn(fin[((size_t)b * lf + clampq(q - 1, lf)) * nh + k], inv_sr);
     }
+    c_s[(2 * fi) * nh4 + k] = o;
+    c_s[(2 * fi + 1) * nh4 + k] = fmaf(fm, ws0_tot, o);
   }
   __syncthreads();
 
-  for (int r = threadIdx.x; r < seg; r += blockDim.x) {
-    const float wa = w[r], wb = w[seg + r], wc = w[2 * seg + r];
-    const float sa = ws[r], sb = ws[seg + r], sc = ws[2 * seg + r];
-    for (int i = 0; i < FT; ++i) {
-      const int q = q_start + i;
-      if (q >= lf) break;
-      const float* f0 = f_s + i * nh;   // frame q - 1
-      const float* a0 = a_s + i * nh;
-      const float* off = off_s + i * nh;
-      float acc = 0.0f;
-      for (int h = 0; h < nh; ++h) {
-        float x = f0[h] * sa + f0[nh + h] * sb + f0[2 * nh + h] * sc + off[h];
-        x -= floorf(x);
-        acc += sinpif(2.0f * x) * (a0[h] * wa + a0[nh + h] * wb + a0[2 * nh + h] * wc);
-      }
-      out[(size_t)b * lf * seg + (size_t)q * seg + r] = acc / (float)nh;
+  const float4* f4 = smem4;
+  const float4* a4 = f4 + (FB + 2) * r4;
+  const float4* c4 = a4 + (FB + 2) * r4;
+  for (int task = warp; task < FB * 2 * nck; task += WARPS) {
+    Task t;
+    if (!task_of(task, nck, q0, lf, seg, t)) continue;
+    float wslo[SPT], wshi[SPT], lo[SPT], hi[SPT];
+#pragma unroll
+    for (int j = 0; j < SPT; ++j) {
+      const int r = t.rb + lane + 32 * j;
+      const int rr = r < t.r_end ? r : t.rb;
+      wslo[j] = ws[t.half * seg + rr];
+      wshi[j] = ws[(t.half + 1) * seg + rr];
+      lo[j] = 0.0f;
+      hi[j] = 0.0f;
+    }
+    const float4* flo = f4 + (t.fi + t.half) * r4;
+    const float4* fhi = flo + r4;
+    const float4* alo = a4 + (t.fi + t.half) * r4;
+    const float4* ahi = alo + r4;
+    const float4* cc = c4 + (2 * t.fi + t.half) * r4;
+#define OSC_FORMANT_PAIR(FL, FH, C, AL, AH)                                   \
+  _Pragma("unroll") for (int j = 0; j < SPT; ++j) {                           \
+    const float x = fmaf((FH), wshi[j], fmaf((FL), wslo[j], (C)));          \
+    const float xr = x - __fsub_rn(__fadd_rn(x, RINT_MAGIC), RINT_MAGIC);   \
+    const float s = __sinf(TWO_PI * xr);                                    \
+    lo[j] = fmaf(s, (AL), lo[j]);                                           \
+    hi[j] = fmaf(s, (AH), hi[j]);                                           \
+  }
+#pragma unroll 2
+    for (int k4 = 0; k4 < r4; ++k4) {
+      const float4 fl = flo[k4], fh = fhi[k4], c = cc[k4], al = alo[k4], ah = ahi[k4];
+      OSC_FORMANT_PAIR(fl.x, fh.x, c.x, al.x, ah.x)
+      OSC_FORMANT_PAIR(fl.y, fh.y, c.y, al.y, ah.y)
+      OSC_FORMANT_PAIR(fl.z, fh.z, c.z, al.z, ah.z)
+      OSC_FORMANT_PAIR(fl.w, fh.w, c.w, al.w, ah.w)
+    }
+#undef OSC_FORMANT_PAIR
+    float* ob = out + (size_t)b * lf * seg + (size_t)(q0 + t.fi) * seg;
+#pragma unroll
+    for (int j = 0; j < SPT; ++j) {
+      const int r = t.rb + lane + 32 * j;
+      if (r < t.r_end)
+        ob[r] = fmaf(w[t.half * seg + r], lo[j], __fmul_rn(w[(t.half + 1) * seg + r], hi[j])) * inv_nh;
     }
   }
 }
+
+size_t cheb_smem(int nh) { return (size_t)(FB + 2) * ((nh + 3) & ~3) * sizeof(float); }
+size_t formant_smem(int nh) { return (size_t)(4 * FB + 4) * ((nh + 3) & ~3) * sizeof(float); }
+
+bool bad_shape(int n, int lf, int nh, int seg) {
+  return n < 1 || n > 65535 || lf < 1 || nh < 1 || nh > NH_MAX || seg < 1 || seg > SEG_MAX ||
+         (long long)n * ((lf + FB - 1) / FB) > INT_MAX;
+}
+
+void launch_scan(const float* fin, float inv_sr, const float* ws, float* off, int n, int lf, int h,
+                 int seg, cudaStream_t st) {
+  // columns a block: the least power of two >= H, at most 8
+  const int cw = h >= 5 ? 8 : h >= 3 ? 4 : h;
+  const dim3 grid((h + cw - 1) / cw, n);
+  if (cw == 8)
+    osc_scan_kernel<8><<<grid, SCAN_THREADS, 0, st>>>(fin, inv_sr, ws, off, lf, h, seg);
+  else if (cw == 4)
+    osc_scan_kernel<4><<<grid, SCAN_THREADS, 0, st>>>(fin, inv_sr, ws, off, lf, h, seg);
+  else if (cw == 2)
+    osc_scan_kernel<2><<<grid, SCAN_THREADS, 0, st>>>(fin, inv_sr, ws, off, lf, h, seg);
+  else
+    osc_scan_kernel<1><<<grid, SCAN_THREADS, 0, st>>>(fin, inv_sr, ws, off, lf, h, seg);
+}
+
+// one tile of FB frames a block; the block scheduler refills each SM as its
+// blocks end
+int source_blocks(int n, int lf) { return n * ((lf + FB - 1) / FB); }
 
 }  // namespace
 
-// f [n, lf] float32 = f0 / sample_rate; amps [n, lf, nh] float32 (nh <= 256);
-// w, ws [3, seg] float32 interpolation weights and their prefix sums;
-// out [n, lf * seg] float32.
-extern "C" int osc_cheb_f32(const void* f, const void* amps, const void* w, const void* ws,
-                            void* out, int n, int lf, int nh, int seg, void* stream) {
-  if (nh > NH_MAX || nh < 1 || seg < 1 || seg > 1024) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid((lf + FT - 1) / FT, n);
-  const int threads = ((seg + 31) / 32) * 32;
-  osc_cheb_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(f), static_cast<const float*>(amps),
-      static_cast<const float*>(w), static_cast<const float*>(ws),
-      static_cast<float*>(out), lf, nh, seg);
+// f0 [n, lf] float32 Hz; amps [n, lf, nh] float32 or bf16 (amps_bf16 != 0),
+// nh <= 256; tab [6, seg] float32: interpolation weights w [3, seg], then
+// their inclusive prefix sums ws; out [n, lf * seg] float32; inv_sr = 1 /
+// sample rate in float32.  One launch: the kernel computes its own base
+// phases.
+extern "C" int osc_cheb(const void* f0, const void* amps, int amps_bf16, const void* tab, void* out,
+                        int n, int lf, int nh, int seg, float inv_sr, void* stream) {
+  if (bad_shape(n, lf, nh, seg)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* fin = static_cast<const float*>(f0);
+  const float* t = static_cast<const float*>(tab);
+  float* o = static_cast<float*>(out);
+  if (amps_bf16)
+    osc_cheb_kernel<<<source_blocks(n, lf), THREADS, cheb_smem(nh), st>>>(
+        fin, static_cast<const __nv_bfloat16*>(amps), t, o, lf, nh, seg, inv_sr);
+  else
+    osc_cheb_kernel<<<source_blocks(n, lf), THREADS, cheb_smem(nh), st>>>(
+        fin, static_cast<const float*>(amps), t, o, lf, nh, seg, inv_sr);
   RETURN_LAUNCH_STATUS();
 }
 
-// f [n, lf, nh] float32 = formants / sample_rate; amps [n, lf, nh] float32
-// (nh <= 256); w, ws as above; out [n, lf * seg] float32.
-extern "C" int osc_formant_f32(const void* f, const void* amps, const void* w, const void* ws,
-                               void* out, int n, int lf, int nh, int seg, void* stream) {
-  if (nh > NH_MAX || nh < 1 || seg < 1 || seg > 1024) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid((lf + FT - 1) / FT, n);
-  const int threads = ((seg + 31) / 32) * 32;
-  osc_formant_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(f), static_cast<const float*>(amps),
-      static_cast<const float*>(w), static_cast<const float*>(ws),
-      static_cast<float*>(out), lf, nh, seg);
+// formants [n, lf, nh] float32 Hz; amps [n, lf, nh] float32 or bf16; tab,
+// inv_sr as above; off [n, lf, nh] float32 scratch; out [n, lf * seg].
+extern "C" int osc_formant(const void* formants, const void* amps, int amps_bf16, const void* tab,
+                           void* off, void* out, int n, int lf, int nh, int seg, float inv_sr,
+                           void* stream) {
+  if (bad_shape(n, lf, nh, seg)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* fin = static_cast<const float*>(formants);
+  const float* t = static_cast<const float*>(tab);
+  float* o = static_cast<float*>(off);
+  launch_scan(fin, inv_sr, t + 3 * seg, o, n, lf, nh, seg, st);
+  const cudaError_t scan_status = cudaGetLastError();
+  if (scan_status != cudaSuccess) return static_cast<int>(scan_status);
+  float* dst = static_cast<float*>(out);
+  if (amps_bf16)
+    osc_formant_kernel<<<source_blocks(n, lf), THREADS, formant_smem(nh), st>>>(
+        fin, static_cast<const __nv_bfloat16*>(amps), o, t, dst, lf, nh, seg, inv_sr);
+  else
+    osc_formant_kernel<<<source_blocks(n, lf), THREADS, formant_smem(nh), st>>>(
+        fin, static_cast<const float*>(amps), o, t, dst, lf, nh, seg, inv_sr);
   RETURN_LAUNCH_STATUS();
+}
+
+// Blocks of the Chebyshev (formant = 0) or formant source kernel resident
+// on one SM at once for nh harmonics (float32 amplitudes).
+extern "C" int osc_blocks_per_sm(int formant, int nh) {
+  if (nh < 1 || nh > NH_MAX) return -1;
+  int per_sm = 0;
+  const cudaError_t status =
+      formant ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, osc_formant_kernel<float>, THREADS,
+                                                              formant_smem(nh))
+              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, osc_cheb_kernel<float>, THREADS,
+                                                              cheb_smem(nh));
+  return status == cudaSuccess ? per_sm : -1;
 }

@@ -117,7 +117,15 @@ def function(lib_name: str, symbol: str, argtypes: str):
     return fn
 
 
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def stream_of(t: torch.Tensor) -> int:
+    """The handle of PyTorch's current stream on ``t``'s card: the raw
+    handle where PyTorch exposes it (making a ``torch.cuda.Stream`` costs
+    several microseconds of host time a launch)."""
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(t.get_device())
     return torch.cuda.current_stream(t.device).cuda_stream
 
 

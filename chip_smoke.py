@@ -20,6 +20,10 @@ printing the final line:
      at the 3xTF32 tensor-core floor, three TF32 products per product).
      Each filter level also records ``products_library_ms``: its eight
      products alone as cuDNN/cuBLAS calls (a yardstick, not the function).
+     Each oscillator row also records ``kernel_ms``, the device time of its
+     kernels alone (torch.profiler: the Chebyshev source; the formant
+     source and its phase scan), and its grid (tiles of 4 frames, resident
+     blocks, waves).
      Each time is the median of at least 5 runs and at least 20 ms of timed
      work (2 runs for a plain version), after one warm-up;
   3. the main path end to end at full model width (default configs, random
@@ -30,7 +34,8 @@ printing the final line:
      Launch counters are zeroed just before this phase and read just after
      it: every kernel must have run.  The bench-shape step is profiled by
      kernel group, and a device span named ``filter`` outside the
-     filter_level group fails the run.  Then the licence's kNN flip rate (direct
+     filter_level group, or ``osc_`` outside the oscillator group, fails
+     the run.  Then the licence's kNN flip rate (direct
      kernel calls) and a small-input check of the card's output against the
      plain versions on the CPU, neither of them counted.
   4. the library-sharded path at full width: ``convert_windows_distributed``
@@ -125,6 +130,38 @@ def cuda_ms(fn, min_runs: int = MIN_RUNS, warmup: int = 1) -> float:
 def bound_ms(nbytes: float, flops: float, peak: float):
     tb, tf = nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def kernel_device_ms(fn, keys, runs: int = 20):
+    """Mean device time of one call of ``fn`` in the kernels whose names hold
+    one of ``keys`` (torch.profiler over ``runs`` calls after a warm-up; the
+    wrapper's host time is left out), or None if the profiler recorded no
+    device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and any(k in e.name for k in keys)]
+    return sum(spans) / 1e3 / runs if spans else None
+
+
+def osc_grid(formant: bool, nh: int = 64) -> dict:
+    """The oscillator source kernel's grid at the main-path shape: one block
+    a tile of 4 frames, the blocks that fit on the card at once, and the
+    waves that makes."""
+    import torch
+    from alivevc_tpu_torch.kernels import _lib
+
+    per_sm = _lib.function("oscillator", "osc_blocks_per_sm", "ii")(int(formant), nh)
+    resident = per_sm * torch.cuda.get_device_properties(0).multi_processor_count
+    tiles = N_STEP * math.ceil(LF / 4)
+    return {"tiles": tiles, "resident_blocks": resident, "waves": tiles / resident}
 
 
 # ---------------------------------------------------------------------------
@@ -254,9 +291,10 @@ def check_oscillator(gen):
         "name": "oscillator", "variant": f"f0 [{N_STEP}, {LF}], amps [{N_STEP}, {LF}, 64]",
         "max_abs_err": err, "tol": 5e-3,
         "ms": cuda_ms(lambda: harmonic_source_cuda(f0, amps)),
+        "kernel_ms": kernel_device_ms(lambda: harmonic_source_cuda(f0, amps), ("osc_",)),
         "plain_ms": cuda_ms(lambda: harmonic_source_plain(f0, amps), 2),
         "library_ms": None,
-        "bound_ms": b, "bound_by": by,
+        "bound_ms": b, "bound_by": by, **osc_grid(False),
     }
 
 
@@ -294,9 +332,10 @@ def check_formants(gen):
         "variant": f"formants, amps [{N_STEP}, {LF}, 64]",
         "max_abs_err": err, "tol": 5e-3,
         "ms": cuda_ms(lambda: harmonic_source_formants_cuda(formants, amps)),
+        "kernel_ms": kernel_device_ms(lambda: harmonic_source_formants_cuda(formants, amps), ("osc_",)),
         "plain_ms": cuda_ms(lambda: harmonic_source_formants_plain(formants, amps), 2),
         "library_ms": None,
-        "bound_ms": b, "bound_by": by,
+        "bound_ms": b, "bound_by": by, **osc_grid(True),
     }
 
 
@@ -483,7 +522,7 @@ def knn_flip_rate(ce, lib, xa):
 KERNEL_GROUPS = (
     ("stft", ("stft_fft",)),
     ("knn", ("knn_tile", "knn_merge")),
-    ("oscillator", ("osc_cheb",)),
+    ("oscillator", ("osc_scan", "osc_cheb", "osc_formant")),
     ("filter_level", ("filter_wide_kernel", "filter_narrow_kernel")),
 )
 
@@ -510,9 +549,12 @@ def profile_step(step, card, label="one bench-shape bf16 step"):
     for start, end, name in spans:
         g = next((g for g, keys in KERNEL_GROUPS if any(k in name for k in keys)),
                  "other (cuBLAS, cuDNN, elementwise, copies)")
-        # every filter kernel of the port must count as the filter level's
+        # every filter kernel of the port must count as the filter level's,
+        # every oscillator kernel (the phase scan too) as the oscillator's
         need("filter" not in name or g == "filter_level",
              f"profile: device span {name!r} lands in {g!r}, not in filter_level")
+        need("osc_" not in name or g == "oscillator",
+             f"profile: device span {name!r} lands in {g!r}, not in oscillator")
         groups[g] += (end - start) / 1e3
     busy, cur_s, cur_e = 0.0, None, None
     for start, end, _ in sorted(spans):
@@ -804,6 +846,7 @@ def kernels_line(rows, launches):
                            else sum(r["library_ms"] for r in main)),
             **({"products_library_ms": sum(r["products_library_ms"] for r in main)}
                if name == "filter_level" else {}),
+            **({"kernel_ms": main[0]["kernel_ms"]} if "kernel_ms" in main[0] else {}),
             "variants": [{k: v for k, v in r.items() if k != "name"} for r in mine],
         }
         out.append(entry)
@@ -864,8 +907,12 @@ def main() -> int:
     for r in rows:
         lib_ms = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.3f}"
         prod = f" products_library {r['products_library_ms']:.3f}" if "products_library_ms" in r else ""
+        if "kernel_ms" in r:
+            kms = "not measured" if r["kernel_ms"] is None else f"{r['kernel_ms']:.4f}"
+            prod += (f" kernels alone {kms} ({r['tiles']} tiles on {r['resident_blocks']} resident "
+                     f"blocks, {r['waves']:.2f} waves)")
         print(f"kernel {r['name']:19s} {r['variant']:52s} err {r['max_abs_err']:.3e} "
-              f"(tol {r['tol']:.1e}) ms {r['ms']:.3f} plain {r['plain_ms']:.3f} "
+              f"(tol {r['tol']:.1e}) ms {r['ms']:.4f} plain {r['plain_ms']:.3f} "
               f"library {lib_ms}{prod} bound {r['bound_ms']:.4f} ({r['bound_by']}) [{card}]")
     torch.cuda.empty_cache()
     print(f"phase 2 done at {time.perf_counter() - t_start:.1f} s")

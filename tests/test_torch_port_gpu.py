@@ -12,7 +12,9 @@ kNN values 1e-4 abs (float32 sums of the mode's operand products), and with
 the packed extraction 1e-4 too (a sum that rounds across a 128-ulp packing
 step moves its key by 3.1e-5); oscillator 5e-3 abs (sinf/cosf rounding
 grown by the Chebyshev recurrence), the same for the full-formant source
-(float32 phase of up to ~500 cycles a frame); filter level 1e-3 abs in
+(float32 phase of up to ~500 cycles a frame), and at their edges against
+the replay of their own arithmetic 1e-3 (Chebyshev) and 1e-4 (formants);
+filter level 1e-3 abs in
 float32, and at its edges (all four level shapes, batch 1, lengths that no
 tile divides, a narrow level just over its 56-sample lookback, one FiLM
 frame a level) 1e-3 (1 + scale) in float32 and 4e-2 (1 + scale) in bf16,
@@ -311,6 +313,92 @@ def test_filter_level_repeatable_on_card(dtype):
             for _ in range(4):
                 assert torch.equal(kfilter.filter_level_cuda(x, s, rate=r, **args), first), level
         assert bool(torch.isfinite(first).all()), level
+
+
+# (windows, frames, harmonics, samples a frame): the oscillator kernels'
+# edges, each value at least once: Lf = 1, 2, 7, 9, 450, 451; NH = 1, 3,
+# 64, 256; seg = 320 and an odd 161 (a middle sample on frame q alone);
+# N = 1 and 64.  Lf = 451 leaves a tile of one frame.
+OSC_EDGES = [(1, 1, 64, 320), (1, 2, 3, 161), (64, 7, 1, 320), (2, 9, 256, 161), (1, 450, 64, 320),
+             (1, 451, 256, 161), (64, 2, 64, 320), (3, 451, 3, 320), (2, 450, 1, 161), (64, 9, 256, 320)]
+
+
+def _osc_case(g, source, n, lf, nh):
+    """Random inputs of one source: f0 80-380 Hz (formants: harmonics of an
+    f0 scaled so that the top one stays under 8 kHz, each off its multiple
+    by ~1 %), amplitudes exp(0.3 N(0, 1))."""
+    f0 = 80.0 + 300.0 * torch.rand(n, lf, 1, generator=g, device="cuda")
+    amps = torch.exp(0.3 * torch.randn(n, lf, nh, generator=g, device="cuda"))
+    if source == "cheb":
+        return (f0, amps), (kosc.harmonic_source_cuda, kosc.harmonic_source_plain,
+                            kosc.harmonic_source_replay)
+    k = torch.arange(1, nh + 1, device="cuda") * (1.0 + 0.01 * torch.randn(nh, generator=g, device="cuda"))
+    formants = f0 * min(1.0, 20.0 / nh) * k
+    return (formants, amps), (kosc.harmonic_source_formants_cuda, kosc.harmonic_source_formants_plain,
+                              kosc.harmonic_source_formants_replay)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("source", ["cheb", "formants"])
+def test_oscillator_edges_on_card(source):
+    """Both oscillator kernels at their edges (OSC_EDGES) against the plain
+    version at chip_smoke.py's 5e-3, and against the replay of their own
+    arithmetic (kernels/oscillator.py:*_replay, run on the card) at 1e-3
+    (Chebyshev: sincosf against torch.sin/cos, an ulp apart, grown by the
+    recurrence up to k = 256) and 1e-4 (formants: the SFU sine's ~4e-7);
+    bf16 amplitudes are read as they are (the same bits as their float32
+    values)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; on the card run this file with --noconftest -m gpu")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    replay_tol = 1e-3 if source == "cheb" else 1e-4
+    errs = {}
+    for n, lf, nh, seg in OSC_EDGES:
+        (f, amps), (kernel, plain, replay) = _osc_case(g, source, n, lf, nh)
+        got = kernel(f, amps, seg=seg)
+        e_plain = max_err(got, plain(f, amps, seg=seg))
+        e_replay = max_err(got, replay(f, amps, seg=seg))
+        assert got.shape == (n, lf * seg, 1) and bool(torch.isfinite(got).all()), (n, lf, nh, seg)
+        errs[(n, lf, nh, seg)] = (e_plain, e_replay)
+        ab = amps.bfloat16()
+        assert torch.equal(kernel(f, ab, seg=seg), kernel(f, ab.float(), seg=seg)), (n, lf, nh, seg)
+    print(f"{source}: (max err vs plain, vs replay) {errs}")
+    assert all(p <= 5e-3 and r <= replay_tol for p, r in errs.values()), errs
+    # shapes the kernels refuse: no harmonic, NH > 256, frames that do not
+    # match, seg > 1024
+    (f, amps), (kernel, _, _) = _osc_case(g, source, 1, 4, 8)
+    for a, seg in ((amps[..., :0], 320), (torch.ones(1, 4, 257, device="cuda"), 320),
+                   (amps[:, :3], 320), (amps, 1025)):
+        with pytest.raises(ValueError):
+            kernel(f, a, seg=seg)
+
+
+@pytest.mark.gpu
+def test_oscillator_repeatable_without_host_sync_on_card():
+    """Both oscillator kernels at chip_smoke.py's main-path shape (16 windows
+    of 450 frames, 64 harmonics) give the same bits in five calls, and
+    neither wrapper copies between host and device or waits on the stream:
+    they run under torch.cuda.set_sync_debug_mode('error'), including a
+    first call at a new seg (the weight table's upload)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; on the card run this file with --noconftest -m gpu")
+    g = torch.Generator(device="cuda").manual_seed(6)
+    cases = [_osc_case(g, source, 16, 450, 64) for source in ("cheb", "formants")]
+    for (f, amps), (kernel, _, _) in cases:
+        first = kernel(f, amps)
+        for _ in range(4):
+            assert torch.equal(kernel(f, amps), first)
+        assert bool(torch.isfinite(first).all())
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for (f, amps), (kernel, _, _) in cases:
+            kernel(f, amps)
+            kernel(f, amps.bfloat16())
+            kernel(f[:2, :9], amps[:2, :9], seg=317)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
 
 
 def _sharded_run(world: int) -> dict:

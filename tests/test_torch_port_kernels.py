@@ -38,6 +38,11 @@ Tolerances, with their reasons:
     5e-3 against the JAX kernel (whose float32 phase carry is itself ~2.7e-3
     off the float64 value on a 70-frame input; the port sums the frame base
     phase in float64);
+  * both sources' CUDA arithmetic replayed on the CPU (the two-frame split,
+    the two accumulators, the scan's offsets): 5e-5 abs against the plain
+    version (the same float32 values rounded in another order, FMAs where
+    the plain version rounds twice), 1e-3 against float64; the split
+    reproduces the 3-tap weights exactly;
   * filter level: 5e-3 abs (PARITY.md's filter tolerance).
 """
 
@@ -384,6 +389,97 @@ def test_oscillator_vs_cheb_pallas(lf):
     assert got.shape == want.shape
     assert np.abs(n(got) - _source_f64(f0, amps)).max() <= 1e-3
     assert max_err(got, want) <= 5e-3
+
+
+@pytest.mark.parametrize("seg", [320, 161, 1])
+def test_oscillator_two_frame_split(seg):
+    """The kernels' two-frame form reproduces the 3-tap weights exactly: a
+    sample's weights on (q-1, q, q+1) are its two frames' weights and an
+    exact 0, the odd segment's middle sample weighs only frame q, and the
+    third prefix weight is 0 in the first half and the constant
+    ws[0][seg-1] in the second (the formant kernel's folded term)."""
+    w, ws = kosc.interp_weights_np(seg)
+    lo, w_lo, w_hi, ws_lo, ws_hi = kosc.two_frame_split(seg)
+    r = np.arange(seg)
+    first = lo == -1
+    assert first.sum() == seg // 2
+    taps = np.zeros((3, seg), np.float32)
+    taps[lo + 1, r] = w_lo
+    taps[lo + 2, r] = w_hi
+    np.testing.assert_array_equal(taps, w)
+    prefix = np.zeros((3, seg), np.float32)
+    prefix[lo + 1, r] = ws_lo
+    prefix[lo + 2, r] = ws_hi
+    prefix[0, ~first] = ws[0, -1]
+    np.testing.assert_array_equal(prefix, ws)
+    if seg % 2:
+        np.testing.assert_array_equal(w[:, seg // 2], [0.0, 1.0, 0.0])
+
+
+def _osc_inputs(lf, seed=7):
+    """f0 80-380 Hz and amplitudes of order 1 (the tolerances are absolute)."""
+    rng = np.random.default_rng(seed)
+    feats = rng.standard_normal((2, lf, 512)).astype(np.float32)
+    f0 = (rng.random((2, lf, 1)) * 300 + 80).astype(np.float32)
+    w = (rng.standard_normal((512, 64)) * 0.01).astype(np.float32)
+    return f0, np.exp(feats @ w).astype(np.float32)
+
+
+@pytest.mark.parametrize("lf,seg", [(70, 320), (9, 161), (1, 320), (2, 161)])
+def test_oscillator_replay(lf, seg):
+    """The Chebyshev kernel's arithmetic (two-frame split, two accumulators,
+    the scan's wrapped offsets), replayed on the CPU, matches the plain
+    version within 5e-5 (float32 roundings in another order) and the
+    float64 function within 1e-3."""
+    f0, amps = _osc_inputs(lf)
+    got = kosc.harmonic_source_replay(t(f0), t(amps), seg=seg)
+    assert got.shape == (2, lf * seg, 1)
+    assert max_err(got, kosc.harmonic_source_plain(t(f0), t(amps), seg=seg)) <= 5e-5
+    assert np.abs(n(got) - _source_f64(f0, amps, seg=seg)).max() <= 1e-3
+
+
+@pytest.mark.parametrize("lf,seg,jitter", [(70, 320, 0.01), (9, 161, 0.01), (20, 320, 0.0)])
+def test_formant_source_replay(lf, seg, jitter):
+    """The formant kernel's arithmetic (2-FMA phase over two frames, x -
+    rint(x), two accumulators), replayed on the CPU, matches the plain
+    version within 5e-5 and the float64 function within 1e-3."""
+    formants, amps = _formant_inputs(lf, 9, jitter, 0.01)
+    got = kosc.harmonic_source_formants_replay(t(formants), t(amps), seg=seg)
+    assert got.shape == (1, lf * seg, 1)
+    assert max_err(got, kosc.harmonic_source_formants_plain(t(formants), t(amps), seg=seg)) <= 5e-5
+    assert np.abs(n(got) - _formant_source_f64(formants, amps, seg=seg)).max() <= 1e-3
+
+
+@pytest.mark.parametrize("h", [1, 64])
+def test_phase_offsets(h):
+    """The scan's offsets lie in [0, 1) and equal, mod 1 and within float32
+    rounding (1e-6), the float64 sum of the earlier frames' float32 totals
+    minus the phase of sample 0, over 450 frames."""
+    rng = np.random.default_rng(11)
+    f = (rng.random((3, 450, h)) * 0.02 * np.arange(1, h + 1)).astype(np.float32)
+    got = n(kosc.phase_offsets(t(f), 320))
+    assert got.shape == (3, 450, h) and (got >= 0).all() and (got <= 1).all()
+    _, ws = kosc.interp_weights_np(320)
+    fp = np.concatenate([f[:, :1], f, f[:, -1:]], 1)
+    tot = ((fp[:, :-2] * ws[0, -1] + fp[:, 1:-1] * ws[1, -1]) + fp[:, 2:] * ws[2, -1]).astype(np.float64)
+    p0 = ((fp[:, :1] * ws[0, 0] + fp[:, 1:2] * ws[1, 0]) + fp[:, 2:3] * ws[2, 0]).astype(np.float64)
+    want = np.cumsum(tot, 1) - tot - p0
+    d = (got - want) % 1.0
+    assert np.minimum(d, 1.0 - d).max() <= 1e-6
+
+
+def test_oscillator_wrappers_need_cuda():
+    """The kernel wrappers take only CUDA tensors; the replays launch
+    nothing."""
+    from alivevc_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    f0, amps = _osc_inputs(4)
+    with pytest.raises(ValueError):
+        kosc.harmonic_source_cuda(t(f0), t(amps))
+    reset_launches()
+    kosc.harmonic_source_replay(t(f0), t(amps))
+    kosc.harmonic_source_formants_replay(t(f0 * np.arange(1, 65, dtype=np.float32)), t(amps))
+    assert all(v == 0 for v in LAUNCHES.values())
 
 
 LW = 15_360
