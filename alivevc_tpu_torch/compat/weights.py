@@ -19,7 +19,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from alivevc_tpu_torch.config import DecoderConfig
+from alivevc_tpu_torch.config import (
+    ContentEncoderConfig,
+    DecoderConfig,
+    F0EstimatorConfig,
+    VoiceLibraryConfig,
+)
 
 StateDict = Dict[str, np.ndarray]
 
@@ -129,6 +134,77 @@ def decoder_state(params, cfg: DecoderConfig = DecoderConfig()) -> StateDict:
         filter_block_state(sd, f"filter.blocks.{i}", blk)
     conv_state(sd, "filter.source_out", filt["source_out"])
     return sd
+
+
+def voice_library_state(params) -> StateDict:
+    return {"tokens": _np(params["tokens"]).T[None]}       # [1, 768, num_tokens]
+
+
+def filter_layout(params):
+    """(filter_channels, filter_rates) of a JAX decoder pytree, read off its
+    down convs' shapes (``w`` [r * C_i, C_{i+1}]): what ``decoder_state``
+    needs of the config."""
+    filt = params["filter"]
+    chans = [_np(filt["source_in"]["w"]).shape[2]]
+    rates = []
+    for dp in filt["downs"]:
+        w = _np(dp["w"])
+        rates.append(w.shape[0] // chans[-1])
+        chans.append(w.shape[1])
+    return tuple(chans[:-1]), tuple(rates)
+
+
+# ---------------------------------------------------------------------------
+# configurations read off a reference state dict (the widths a checkpoint
+# was trained at; what the config does not fix stays at its default)
+# ---------------------------------------------------------------------------
+
+
+def _count(sd: Mapping[str, np.ndarray], fmt: str) -> int:
+    n = 0
+    while any(k.startswith(fmt.format(n)) for k in sd):
+        n += 1
+    return n
+
+
+def _convnext_widths(sd: Mapping[str, np.ndarray]) -> dict:
+    w_in = sd["input_layer.weight"]                          # [internal, n_bins, 1]
+    return dict(n_fft=2 * (w_in.shape[1] - 1), internal_channels=w_in.shape[0],
+                hidden_channels=sd["mid_layers.0.pw_conv1.weight"].shape[0],
+                output_channels=sd["output_layer.weight"].shape[0],
+                num_layers=_count(sd, "mid_layers.{}."),
+                kernel_size=sd["mid_layers.0.dw_conv.weight"].shape[2])
+
+
+def content_encoder_config(sd: Mapping[str, np.ndarray]) -> ContentEncoderConfig:
+    return ContentEncoderConfig(**_convnext_widths(sd))
+
+
+def f0_estimator_config(sd: Mapping[str, np.ndarray]) -> F0EstimatorConfig:
+    return F0EstimatorConfig(**_convnext_widths(sd))
+
+
+def voice_library_config(sd: Mapping[str, np.ndarray]) -> VoiceLibraryConfig:
+    _, dim, num_tokens = sd["tokens"].shape
+    return VoiceLibraryConfig(num_tokens=num_tokens, dim=dim)
+
+
+def decoder_config(sd: Mapping[str, np.ndarray]) -> DecoderConfig:
+    fe = "feature_extractor"
+    w_in = sd[f"{fe}.input_layer.weight"]                    # [channels, content, 1]
+    n_levels = _count(sd, "filter.downs.{}.")
+    downs = [sd[f"filter.downs.{i}.weight"] for i in range(n_levels)]   # [out, in, r]
+    return DecoderConfig(
+        content_channels=w_in.shape[1], channels=w_in.shape[0],
+        hidden_channels=sd[f"{fe}.mid_layers.0.pw_conv1.weight"].shape[0],
+        num_layers=_count(sd, f"{fe}.mid_layers.{{}}."),
+        kernel_size=sd[f"{fe}.mid_layers.0.dw_conv.weight"].shape[2],
+        num_harmonics=sd["harmonic_oscillator.to_amps.weight"].shape[0],
+        filter_rates=tuple(w.shape[2] for w in downs),
+        filter_channels=tuple(w.shape[1] for w in downs),
+        filter_kernel_size=sd["filter.mid_conv.conv.weight"].shape[2],
+        filter_dilations=_count(sd, "filter.blocks.0.blocks.{}."),
+    )
 
 
 def load_state(module: nn.Module, sd: Mapping[str, np.ndarray]) -> nn.Module:

@@ -90,6 +90,14 @@ class DecoderConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class VoiceLibraryConfig:
+    """Learnable 512-token voice library (module/voice_library.py:7)."""
+
+    num_tokens: int = 512
+    dim: int = 768
+
+
+@dataclasses.dataclass(frozen=True)
 class KNNConfig:
     """Feature matching defaults (module/common.py:96, inference.py:33-34)."""
 
@@ -112,6 +120,19 @@ class InferenceConfig:
     # Max overlap-discard windows converted per step: bounds the decoder's
     # intermediates regardless of file length.
     max_windows_per_step: int = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamingConfig:
+    """Realtime streaming defaults (realtime_inference.py:33-36,122-128)."""
+
+    chunk: int = 960               # 60 ms hop at 16 kHz
+    buffer_size: int = 8           # 480 ms analysis window
+    f0_rate: float = 1.0
+    pitch_shift: float = 0.0
+    k: int = 4
+    alpha: float = 0.0
+    target_decimation: int = 4     # realtime_inference.py:88: tgt[:, :, ::4]
 
 
 AUDIO = AudioConfig()

@@ -7,6 +7,7 @@ caller asks for it by name (``device="cpu"``), as the tests do.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Union
 
 import torch
@@ -26,3 +27,20 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+@contextlib.contextmanager
+def float32_math():
+    """Full float32 products and convolutions for the fp32 mode.
+
+    cuDNN convolutions run in TF32 by default on the card
+    (``torch.backends.cudnn.allow_tf32`` is True), which keeps about three
+    decimal digits; the fp32 mode turns TF32 off for both convolutions and
+    matrix products while it runs, and restores the flags after."""
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved

@@ -26,13 +26,14 @@ import torch
 from torch import nn
 
 from alivevc_tpu_torch.config import DecoderConfig, InferenceConfig
-from alivevc_tpu_torch.device import DeviceLike, resolve_device
+from alivevc_tpu_torch.device import DeviceLike, float32_math, resolve_device
 from alivevc_tpu_torch.kernels.stft import stft_magnitude
 from alivevc_tpu_torch.models.content_encoder import content_encoder
 from alivevc_tpu_torch.models.decoder import decoder
 from alivevc_tpu_torch.models.f0_estimator import f0_estimate
 from alivevc_tpu_torch.ops.knn import match_features_kernel
 from alivevc_tpu_torch.ops.pitch import apply_intonation
+from alivevc_tpu_torch.ops.resample import resample
 from alivevc_tpu_torch.ops.stft import spectrogram
 
 DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
@@ -48,23 +49,6 @@ def cast_params(module: nn.Module, dtype: torch.dtype) -> nn.Module:
         if p.dtype == torch.float32:
             p.data = p.data.to(dtype)
     return out
-
-
-@contextlib.contextmanager
-def float32_math():
-    """Full float32 products and convolutions for the fp32 mode.
-
-    cuDNN convolutions run in TF32 by default on the card
-    (``torch.backends.cudnn.allow_tf32`` is True), which keeps about three
-    decimal digits; the fp32 mode turns TF32 off for both convolutions and
-    matrix products while it runs, and restores the flags after."""
-    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def _on(module: nn.Module, dev: torch.device, name: str) -> None:
@@ -219,12 +203,15 @@ class OfflineConverter:
         return out
 
     def convert(self, wave: np.ndarray, sr: int) -> np.ndarray:
-        """Mono-mix, then convert.  Resampling comes with the inference CLI's
-        port; until then only 16 kHz input is accepted."""
+        """Any rate in and out: mono-mix, resample to 16 kHz, convert, and
+        resample back to ``sr`` (``ops/resample.py`` on the converter's
+        device; the output has ceil-rounded length at each step, as JAX's)."""
         wave = np.asarray(wave, np.float32)
         if wave.ndim == 2:  # [C, L] or [L, C] -> mono (channel axis = shorter)
             wave = wave.mean(axis=0 if wave.shape[0] <= wave.shape[1] else 1)
-        if sr != self.sample_rate:
-            raise NotImplementedError(
-                f"sample rate {sr}: resampling is not ported yet; pass {self.sample_rate} Hz audio")
-        return self.convert_16k(wave)
+        if sr == self.sample_rate:
+            return self.convert_16k(wave)
+        x = torch.from_numpy(np.ascontiguousarray(wave))[None].to(self.device)
+        wave16 = resample(x, sr, self.sample_rate)[0].cpu().numpy()
+        out16 = torch.from_numpy(self.convert_16k(wave16))[None].to(self.device)
+        return resample(out16, self.sample_rate, sr)[0].cpu().numpy()

@@ -11,9 +11,12 @@ q+1 of the edge-padded input), the same arithmetic as the JAX package.
 from __future__ import annotations
 
 import functools
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
+
+_WEIGHTS: Dict[Tuple[int, str, torch.dtype], Tuple[torch.Tensor, ...]] = {}
 
 
 @functools.lru_cache(maxsize=None)
@@ -28,10 +31,20 @@ def upsample_weights_np(factor: int):
     return (wa.astype(np.float32), wb.astype(np.float32), wc.astype(np.float32))
 
 
+def _upsample_weights(factor: int, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The three weight rows as [1, 1, factor, 1] tensors on ``x``'s device in
+    its dtype, cached: after the first call an upsample copies nothing from
+    the host, so it never waits on the stream and a CUDA graph can hold it."""
+    key = (factor, str(x.device), x.dtype)
+    if key not in _WEIGHTS:
+        _WEIGHTS[key] = tuple(torch.from_numpy(w).to(x.device).to(x.dtype)[None, None, :, None]
+                              for w in upsample_weights_np(factor))
+    return _WEIGHTS[key]
+
+
 def _upsample_int_time(x: torch.Tensor, factor: int) -> torch.Tensor:
     n, t, c = x.shape
-    wa, wb, wc = (torch.as_tensor(w, device=x.device).to(x.dtype)[None, None, :, None]
-                  for w in upsample_weights_np(factor))
+    wa, wb, wc = _upsample_weights(factor, x)
     x0 = torch.cat([x[:, :1], x[:, :-1]], dim=1)
     x2 = torch.cat([x[:, 1:], x[:, -1:]], dim=1)
     y = x0[:, :, None, :] * wa + x[:, :, None, :] * wb + x2[:, :, None, :] * wc

@@ -20,8 +20,8 @@ from torch import nn
 from torch.distributed.device_mesh import DeviceMesh
 
 from alivevc_tpu_torch.config import DecoderConfig
-from alivevc_tpu_torch.device import DeviceLike, resolve_device
-from alivevc_tpu_torch.infer.offline import _on, float32_math
+from alivevc_tpu_torch.device import DeviceLike, float32_math, resolve_device
+from alivevc_tpu_torch.infer.offline import _on
 from alivevc_tpu_torch.models.content_encoder import content_encoder
 from alivevc_tpu_torch.models.decoder import decoder
 from alivevc_tpu_torch.models.f0_estimator import f0_estimate

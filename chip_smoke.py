@@ -36,8 +36,9 @@ printing the final line:
      kernel group, and a device span named ``filter`` outside the
      filter_level group, or ``osc_`` outside the oscillator group, fails
      the run.  Then the licence's kNN flip rate (direct
-     kernel calls) and a small-input check of the card's output against the
-     plain versions on the CPU, neither of them counted.
+     kernel calls; gated on phase 3's library, and reported on four more
+     library draws) and a small-input check of the card's output against the
+     plain versions on the CPU, none of them counted.
   4. the library-sharded path at full width: ``convert_windows_distributed``
      on a ('data', 1) x ('library', 2) mesh as 2 gloo ranks on the one card
      (NCCL takes one rank per card), 16 windows of 144 000 samples, a
@@ -53,6 +54,20 @@ printing the final line:
      extraction='packed')`` and ``kernels.harmonic_source_formants`` at full
      width, counters zeroed before and read after, then each held against
      its exact counterpart (uncounted).
+  6. the realtime path at full width: ``StreamingConverter`` (8-chunk window
+     of 960-sample hops, a target matrix of a 30 s voice decimated x4 plus
+     512 library tokens, 887 rows).  The eager hop, counters zeroed before
+     its 50 hops and read after, must launch the STFT, kNN and filter-level
+     kernels; the hop replayed as one CUDA graph must equal it (<= 1e-5 over
+     50 hops); the pipelined graph (depth 1) must equal the synchronous one
+     delayed by a hop, exactly; one hop on the card against the plain hop on
+     the CPU (f0 given) within 5e-3 (waveform) and 0.25 rad (phi).  Then the
+     kernels at the hop's shapes against their plain versions (each filter
+     level with its grid), the per-hop latency (median, p90, p99 over 200
+     hops) of the eager, graph and pipelined graph forms and the real-time
+     factor, a profile of 20 hops of each form by kernel group, and both
+     CLIs in file mode on a 44.1 kHz wav (counted, each its own window).
+     The phase must finish within 60 s.
 
 Its last lines are the ``kernels`` JSON line, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.  Float32 products run without TF32
@@ -169,18 +184,18 @@ def osc_grid(formant: bool, nh: int = 64) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def check_stft(gen):
+def check_stft(gen, n=N_STEP, length=LW, tag=""):
     import torch
     from alivevc_tpu_torch.kernels.stft import stft_magnitude_cuda, stft_magnitude_plain
 
-    x = 0.3 * torch.randn(N_STEP, LW, generator=gen, device="cuda")
+    x = 0.3 * torch.randn(n, length, generator=gen, device="cuda")
     got = stft_magnitude_cuda(x)
     want = stft_magnitude_plain(x)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     # float32 sums of 1280 products, taken in another order
     need(got.shape == want.shape and err <= 1e-3, f"stft: max abs err {err} > 1e-3")
-    n_frames = N_STEP * got.shape[1]
+    n_frames = n * got.shape[1]
     # the function's least work: read x, write the magnitudes; a real FFT
     # of 1280 points (~2.5 n log2 n operations) and 3 per magnitude
     nbytes = x.numel() * 4 + got.numel() * 4
@@ -193,7 +208,7 @@ def check_stft(gen):
                    return_complex=True).abs()
 
     return {
-        "name": "stft", "variant": f"[{N_STEP}, {LW}] f32",
+        "name": "stft", "variant": f"[{n}, {length}] f32{tag}",
         "max_abs_err": err, "tol": 1e-3,
         "ms": cuda_ms(lambda: stft_magnitude_cuda(x)),
         "plain_ms": cuda_ms(lambda: stft_magnitude_plain(x), 2),
@@ -202,13 +217,14 @@ def check_stft(gen):
     }
 
 
-def check_knn(gen, lib_rows, precision, valid_rows=None, penalty=False, extraction="auto"):
+def check_knn(gen, lib_rows, precision, valid_rows=None, penalty=False, extraction="auto",
+              ls=N_STEP * LF, suffix=""):
     """One kNN variant: ``valid_rows`` (a device scalar, as the sharded path
-    passes it), a 0/-4 ``penalty`` column, or the packed extraction."""
+    passes it), a 0/-4 ``penalty`` column, or the packed extraction; ``ls``
+    queries (the streaming hop's 24)."""
     import torch
     from alivevc_tpu_torch.kernels.knn import knn_topk_cuda, knn_topk_plain, prep_operands
 
-    ls = N_STEP * LF
     q = torch.randn(ls, 768, generator=gen, device="cuda")
     lib = torch.randn(lib_rows, 768, generator=gen, device="cuda")
     kw, tag, rows = {"extraction": extraction}, "", lib_rows
@@ -259,7 +275,7 @@ def check_knn(gen, lib_rows, precision, valid_rows=None, penalty=False, extracti
         b, by = bound_ms(nbytes, 3.0 * flops, PEAK_TF32)
     return {
         "name": "knn_packed" if packed else "knn",
-        "variant": f"{ls} x {lib_rows} x 768 {precision}{tag}",
+        "variant": f"{ls} x {lib_rows} x 768 {precision}{tag}{suffix}",
         "max_abs_err": err, "tol": tol, "index_sets_differing": bad,
         "ms": cuda_ms(lambda: knn_topk_cuda(q, lib, 4, precision, **kw)),
         "plain_ms": cuda_ms(lambda: knn_topk_plain(q, lib, 4, precision, **kw), 2),
@@ -369,23 +385,46 @@ def level_products(x, s, args, rate):
     return run
 
 
-def check_filter_levels(gen, dec):
+def filter_grid(n, l_in, cin, c, r, length, k, dilations):
+    """The grid of a float32 level, by the launch rules of ``csrc/filter.cu``:
+    narrow levels (C = 8, 16) one launch over 256-row tiles (a tile writes
+    256 - lookback - (r - 1) samples; one block a tile, at most one wave of
+    blocks walking them); wide levels 8 launches of ceil(rows / TM) x ceil(cols / TN)
+    blocks (TN 256 where the columns are a multiple of 256, else 64; TM 128,
+    or 64 for float32 at TN 64 with more than 128 input channels)."""
+    from alivevc_tpu_torch.kernels.filter import NARROW_ROWS, lookback
+
+    def wide(rows, cin_, cols):
+        tn = 256 if cols % 256 == 0 else 64
+        tm = 64 if tn == 64 and cin_ > 128 else 128
+        return math.ceil(rows / tm) * math.ceil(cols / tn)
+
+    if c in (8, 16):
+        return {"launches": 1, "tiles": n * math.ceil(length / (NARROW_ROWS - lookback(k, dilations)
+                                                                 - (r - 1)))}
+    return {"launches": 8, "blocks": [wide(n * l_in, cin, r * c), wide(n * length, c, c)]
+            + [wide(n * length, c, c)] * 6}
+
+
+def check_filter_levels(gen, dec, n=N_STEP, lw=LW, dtypes=("f32", "bf16"), tag=""):
+    """The four up levels for ``n`` windows of ``lw`` samples (FiLM at
+    ``lw / 320`` frames), in each of ``dtypes``."""
     import torch
     from alivevc_tpu_torch.infer.offline import cast_params
     from alivevc_tpu_torch.kernels.filter import filter_level_cuda, filter_level_plain
     from alivevc_tpu_torch.models.decoder import level_args
 
     cfg = dec.cfg
-    lens = [LW // 32, LW // 4, LW // 2, LW]          # output length of up level i
-    cond32 = 0.5 * torch.randn(N_STEP, LF, cfg.channels, generator=gen, device="cuda")
+    lens = [lw // 32, lw // 4, lw // 2, lw]          # output length of up level i
+    cond32 = 0.5 * torch.randn(n, lw // 320, cfg.channels, generator=gen, device="cuda")
     rows = []
-    for dt in (torch.float32, torch.bfloat16):
+    for dt in (torch.float32 if d == "f32" else torch.bfloat16 for d in dtypes):
         for i, (up, blk) in enumerate(zip(dec.filter.ups, dec.filter.blocks)):
             up_d, blk_d = cast_params(up, dt), cast_params(blk, dt)
             cin, c, r = up.weight.shape
             l_in = lens[i] // r
-            x = (0.3 * torch.randn(N_STEP, l_in, cin, generator=gen, device="cuda")).to(dt)
-            s = (0.3 * torch.randn(N_STEP, l_in, cin, generator=gen, device="cuda")).to(dt)
+            x = (0.3 * torch.randn(n, l_in, cin, generator=gen, device="cuda")).to(dt)
+            s = (0.3 * torch.randn(n, l_in, cin, generator=gen, device="cuda")).to(dt)
             args = level_args(blk_d, up_d, cond32.to(dt))
             got = filter_level_cuda(x, s, rate=r, **args)
             want = filter_level_plain(x, s, rate=r, **args)
@@ -396,13 +435,13 @@ def check_filter_levels(gen, dec):
             # the same, then rounding to bf16 after every conv may land one
             # bf16 step (2^-8 relative) apart and carry through the level
             tol = 1e-3 * (1.0 + scale) if dt == torch.float32 else 4e-2 * (1.0 + scale)
-            tag = "f32" if dt == torch.float32 else "bf16"
-            need(err <= tol, f"filter level {i} ({tag}, C={c}): max abs err {err} > {tol}")
+            dname = "f32" if dt == torch.float32 else "bf16"
+            need(err <= tol, f"filter level {i} ({dname}{tag}, C={c}): max abs err {err} > {tol}")
             isz = x.element_size()
             nbytes = isz * (2 * x.numel() + got.numel() + args["film"].numel()
                             + sum(p.numel() for p in list(up.parameters()) + list(blk.parameters())))
-            flops = 2.0 * N_STEP * (l_in * cin * r * c + lens[i] * c * c
-                                    + 6 * lens[i] * c * c * cfg.filter_kernel_size)
+            flops = 2.0 * n * (l_in * cin * r * c + lens[i] * c * c
+                               + 6 * lens[i] * c * c * cfg.filter_kernel_size)
             # the products on the tensor cores: bf16, or 3xTF32 (three TF32
             # products each) in float32 storage
             if dt == torch.float32:
@@ -410,13 +449,15 @@ def check_filter_levels(gen, dec):
             else:
                 b, by = bound_ms(nbytes, flops, PEAK_BF16)
             rows.append({
-                "name": "filter_level", "variant": f"level {i} C={c} L={lens[i]} {tag}",
+                "name": "filter_level", "variant": f"level {i} C={c} L={lens[i]} {dname}{tag}",
                 "max_abs_err": err, "tol": tol,
                 "ms": cuda_ms(lambda: filter_level_cuda(x, s, rate=r, **args)),
                 "plain_ms": cuda_ms(lambda: filter_level_plain(x, s, rate=r, **args), 2),
                 "library_ms": None,
                 "products_library_ms": cuda_ms(level_products(x, s, args, r)),
                 "bound_ms": b, "bound_by": by,
+                "grid": filter_grid(n, l_in, cin, c, r, lens[i], cfg.filter_kernel_size,
+                                    args["dilations"]),
             })
             del got, want
     return rows
@@ -427,12 +468,12 @@ def check_filter_levels(gen, dec):
 # ---------------------------------------------------------------------------
 
 
-def request_wave(seconds: float, rng):
+def request_wave(seconds: float, rng, sr: int = 16_000):
     import numpy as np
 
-    t = np.arange(int(seconds * 16_000)) / 16_000.0
+    t = np.arange(int(seconds * sr)) / float(sr)
     f = 110.0 + 60.0 * np.sin(2 * np.pi * 0.3 * t)
-    phase = 2 * np.pi * np.cumsum(f) / 16_000.0
+    phase = 2 * np.pi * np.cumsum(f) / float(sr)
     wave = 0.4 * np.sin(phase) + 0.2 * np.sin(2 * phase) + 0.01 * rng.standard_normal(t.shape)
     return wave.astype(np.float32)
 
@@ -519,6 +560,28 @@ def knn_flip_rate(ce, lib, xa):
     return flips
 
 
+def knn_flip_rates_over_draws(ce, xa, draws: int = 4):
+    """The licence's kNN half on ``draws`` more random libraries of LIB_ROWS
+    rows (their own generators, seeds SEED + 10 ...), on the same content
+    features: reported beside the committed draw's gated rate, not gated."""
+    import torch
+    from alivevc_tpu_torch.kernels.knn import knn_topk_cuda
+    from alivevc_tpu_torch.models.content_encoder import content_encoder
+    from alivevc_tpu_torch.ops.stft import spectrogram
+
+    feat = content_encoder(ce, spectrogram(xa)).reshape(-1, 768)
+    rates = []
+    for d in range(draws):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 10 + d)
+        lib = torch.randn(LIB_ROWS, 768, generator=gen, device="cuda")
+        _, i32 = knn_topk_cuda(feat, lib, 4, "high")
+        _, i16 = knn_topk_cuda(feat, lib, 4, "default")
+        rates.append(float((torch.sort(i32, 1).values != torch.sort(i16, 1).values).any(1).float().mean()))
+    print(f"bf16 licence: kNN flip rate on {draws} more library draws at {LIB_ROWS} rows "
+          f"(reported, not gated): {rates}, mean {statistics.mean(rates):.5f}")
+    return rates
+
+
 KERNEL_GROUPS = (
     ("stft", ("stft_fft",)),
     ("knn", ("knn_tile", "knn_merge")),
@@ -566,10 +629,12 @@ def profile_step(step, card, label="one bench-shape bf16 step"):
     busy = (busy + cur_e - cur_s) / 1e3
     total = sum(groups.values())
     print(f"profile, {label} [{card}]: wall {wall_us / 1e3:.2f} ms, "
-          f"device busy {busy:.2f} ms ({100 * busy * 1e3 / wall_us:.1f} % of wall)")
+          f"device busy {busy:.2f} ms ({100 * busy * 1e3 / wall_us:.1f} % of wall), "
+          f"{len(spans)} device spans")
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"  {g:45s} {ms:9.3f} ms  {100 * ms / total:5.1f} %")
-    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy, "by_group_ms": groups}
+    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy, "by_group_ms": groups,
+            "device_spans": len(spans)}
 
 
 def reference_check(ce, f0m, dec, lib):
@@ -626,7 +691,7 @@ def run_sharded(n_lib: int) -> dict:
     import torch
     import torch.distributed as dist
     from alivevc_tpu_torch.config import ContentEncoderConfig, DecoderConfig, F0EstimatorConfig
-    from alivevc_tpu_torch.infer.offline import float32_math
+    from alivevc_tpu_torch.device import float32_math
     from alivevc_tpu_torch.kernels import LAUNCHES, reset_launches
     from alivevc_tpu_torch.models.content_encoder import ContentEncoder, content_encoder
     from alivevc_tpu_torch.models.decoder import Decoder
@@ -800,6 +865,205 @@ def run_kernel_api(gen, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the realtime path (the streaming hop, eager and as one CUDA graph;
+# the two CLIs in file mode)
+# ---------------------------------------------------------------------------
+
+HOP_CHUNK = 960              # StreamingConfig(): a 60 ms hop at 16 kHz ...
+HOP_PRIME = 8                # ... over a window of buffer_size = 8 chunks
+HOP_WINDOW = HOP_CHUNK * HOP_PRIME
+COMPARE_HOPS = 50
+LATENCY_HOPS = 200
+PROFILE_HOPS = 20
+STREAM_KERNELS = ("stft", "knn", "filter_level")
+PHASE6_LIMIT_S = 60.0
+
+
+def hop_latency_ms(conv, chunks, warmup: int = 3):
+    """Host-clock milliseconds of each ``process_chunk`` call, chunk in to
+    numpy out, after ``warmup`` untimed calls (the first captures the graph)."""
+    for c in chunks[:warmup]:
+        conv.process_chunk(c)
+    times = []
+    for c in chunks[warmup:]:
+        t0 = time.perf_counter()
+        conv.process_chunk(c)
+        times.append((time.perf_counter() - t0) * 1e3)
+    conv.flush()
+    q = statistics.quantiles(times, n=100, method="inclusive")
+    return {"median": statistics.median(times), "p90": q[89], "p99": q[98], "hops": len(times)}
+
+
+def hop_card_vs_cpu(ce, f0m, dec, tgt, state, chunk, rng):
+    """One hop on the card (kernels) against the port's plain hop on the CPU
+    from the same state (window and a carried phi), f0 given: the
+    estimator's argmax may flip on a near-tie between the two devices."""
+    import copy
+
+    import numpy as np
+    from alivevc_tpu_torch.infer.streaming import StreamState, streaming_step
+
+    f0 = (80.0 + 200.0 * rng.random((1, HOP_WINDOW // 320, 1))).astype(np.float32)
+    card_state, got = streaming_step(ce, f0m, dec, StreamState(state.window.clone(), state.phi.clone()),
+                                     chunk, tgt, f0_override=f0)
+    cpu = [copy.deepcopy(m).cpu() for m in (ce, f0m, dec)]
+    cpu_state, want = streaming_step(*cpu, StreamState(state.window.cpu(), state.phi.cpu()), chunk,
+                                     tgt.cpu(), f0_override=f0)
+    return (float((got.cpu() - want).abs().max()),
+            float((card_state.phi.cpu() - cpu_state.phi).abs().max()))
+
+
+def run_cli_phase(card):
+    """Both CLIs in file mode on a 44.1 kHz wav the script writes, with a 10
+    s target voice at 16 kHz (models from seed 0: no checkpoint files),
+    counters zeroed before each and read after; returns the launches,
+    summed."""
+    import os
+    import tempfile
+
+    import numpy as np
+    from alivevc_tpu_torch.cli import inference, realtime_inference
+    from alivevc_tpu_torch.io.audio import read_wav, write_wav
+    from alivevc_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    sr = 44_100
+    total = {k: 0 for k in LAUNCHES}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.makedirs(os.path.join(tmp, "in"))
+        rng = np.random.default_rng(SEED + 7)
+        wave = request_wave(4.0, rng, sr)
+        write_wav(os.path.join(tmp, "in", "voice.wav"), wave, sr)
+        target = os.path.join(tmp, "target.wav")
+        write_wav(target, request_wave(10.0, rng), 16_000)
+        length16 = math.ceil(160 * len(wave) / 441)
+        runs = (
+            ("offline", OFFLINE_KERNELS, lambda: inference.main(
+                ["-i", os.path.join(tmp, "in"), "-o", os.path.join(tmp, "out"), "-t", target])[0],
+             os.path.join(tmp, "out", "0_voice.wav"), sr, math.ceil(441 * length16 / 160)),
+            ("realtime", STREAM_KERNELS, lambda: realtime_inference.main(
+                ["--input-wav", os.path.join(tmp, "in", "voice.wav"),
+                 "--output-wav", os.path.join(tmp, "streamed.wav"), "-t", target]),
+             os.path.join(tmp, "streamed.wav"), 16_000, length16 // HOP_CHUNK * HOP_CHUNK),
+        )
+        for name, kernels, run, path, want_sr, want_len in runs:
+            reset_launches()
+            t0 = time.perf_counter()
+            out = run()
+            dt = time.perf_counter() - t0
+            got = dict(LAUNCHES)
+            written, written_sr = read_wav(path)
+            need(all(got[k] > 0 for k in kernels), f"{name} CLI: a kernel did not launch: {got}")
+            need(out.shape == (want_len,) and written.shape == (1, want_len) and written_sr == want_sr,
+                 f"{name} CLI: output {out.shape} / file {written.shape} at {written_sr} Hz, "
+                 f"expected {want_len} samples at {want_sr} Hz")
+            need(bool(np.isfinite(out).all()), f"{name} CLI: non-finite output")
+            print(f"{name} CLI, file mode, 4 s at {sr} Hz in: {want_len} samples at {want_sr} Hz out, "
+                  f"{dt:.2f} s wall (models built from seed 0, capture included), launches {got} [{card}]")
+            for k in total:
+                total[k] += got[k]
+    return total
+
+
+def run_realtime(ce, f0m, dec, gen, card):
+    """Phase 6: ``StreamingConverter`` at full width over a target matrix of
+    a 30 s synthetic voice (decimated x4: 375 rows) and 512 library tokens
+    from the seed: the eager hop counted, graph against eager, pipelined
+    against synchronous, a hop on the card against the CPU, the hop-shape
+    kernel rows, per-hop latency of each form, the profile, the CLIs."""
+    import numpy as np
+    import torch
+    from alivevc_tpu_torch.infer.offline import build_target_matrix
+    from alivevc_tpu_torch.infer.streaming import StreamingConverter
+    from alivevc_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    t_start = time.perf_counter()
+    rng = np.random.default_rng(SEED + 6)
+    tokens = torch.randn(512, 768, generator=torch.Generator(device="cuda").manual_seed(SEED + 6),
+                         device="cuda")
+    tgt = build_target_matrix(ce, target_wave=request_wave(30.0, rng), library_tokens=tokens,
+                              decimation=4)
+    need(tuple(tgt.shape) == (375 + 512, 768), f"realtime: target matrix {tuple(tgt.shape)}")
+    n_chunks = HOP_PRIME + LATENCY_HOPS + 10
+    stream = request_wave(n_chunks * HOP_CHUNK / 16_000.0, rng).reshape(n_chunks, HOP_CHUNK)
+    prime, hops = stream[:HOP_PRIME].reshape(-1), list(stream[HOP_PRIME:])
+
+    def converter(**kw):
+        conv = StreamingConverter(ce, f0m, dec, tgt, **kw)
+        conv.prime(prime)
+        return conv
+
+    # 1. the eager hop, counted
+    eager = converter(cuda_graph=False)
+    reset_launches()
+    eager_out = [eager.process_chunk(c) for c in hops[:COMPARE_HOPS]]
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    need(all(launches[k] > 0 for k in STREAM_KERNELS), f"realtime: a kernel did not launch: {launches}")
+    per_hop = {k: launches[k] / COMPARE_HOPS for k in launches}
+    print(f"realtime: eager hop launches per hop {per_hop} ({COMPARE_HOPS} hops) [{card}]")
+    # 2. the same hops replayed as one CUDA graph
+    graph = converter()
+    graph_out = [graph.process_chunk(c) for c in hops[:COMPARE_HOPS]]
+    diff = max(float(np.abs(a - b).max()) for a, b in zip(eager_out, graph_out))
+    print(f"realtime: graph replay vs eager hop over {COMPARE_HOPS} hops: max abs diff {diff:.3e} (<= 1e-5)")
+    need(diff <= 1e-5, f"realtime: graph replay differs from the eager hop by {diff}")
+    need(all(bool(np.isfinite(o).all()) for o in graph_out), "realtime: non-finite output")
+    # 3. pipelined at depth 1: the same chunks, one hop late
+    piped = converter(pipeline_depth=1)
+    piped_out = [piped.process_chunk(c) for c in hops[:COMPARE_HOPS]] + piped.flush()
+    same = (len(piped_out) == COMPARE_HOPS + 1 and not piped_out[0].any()
+            and all(np.array_equal(a, b) for a, b in zip(graph_out, piped_out[1:])))
+    print(f"realtime: pipelined (depth 1) equals synchronous delayed by one hop: {same}")
+    need(same, "realtime: the pipelined outputs are not the synchronous ones delayed by one hop")
+    # 4. a hop on the card against the plain hop on the CPU.  phi: the card
+    # sums the float32 phase steps in float32, the CPU's cumsum in float64;
+    # between the crop's start and its end (960 samples) at the top harmonic
+    # (64 x f0 <= 280 Hz: 5 000-8 600 cycles, where float32 values are 2^-11
+    # to 2^-10 cycles apart) that rounding walks ~0.03 rad (one standard
+    # deviation); phi = asin(sin theta) is 1-Lipschitz in theta
+    wave_err, phi_err = hop_card_vs_cpu(ce, f0m, dec, tgt, eager.state, hops[COMPARE_HOPS], rng)
+    print(f"realtime: one hop on the card vs the plain hop on the CPU (fp32, f0 given): waveform "
+          f"max abs err {wave_err:.3e} (<= 5e-3), phi {phi_err:.3e} (<= 0.25 rad)")
+    need(wave_err <= 5e-3 and phi_err <= 0.25, f"realtime: card vs CPU {wave_err}, phi {phi_err}")
+    # 5. the kernels at the hop's shapes against their plain versions (uncounted)
+    rows = [check_stft(gen, 1, HOP_WINDOW, " (hop)"),
+            check_knn(gen, tgt.shape[0], "high", ls=HOP_WINDOW // 320, suffix=" (hop)")]
+    rows += check_filter_levels(gen, dec, n=1, lw=HOP_WINDOW, dtypes=("f32",), tag=" (hop)")
+    # 6. per-hop latency of each form, and the real-time factor
+    latency = {}
+    for name, conv in (("eager, synchronous", eager), ("graph, synchronous", graph),
+                       ("graph, pipelined", piped)):
+        lat = hop_latency_ms(conv, hops[:LATENCY_HOPS + 3])
+        lat["real_time_factor"] = lat["median"] / 60.0
+        latency[name] = lat
+        print(f"realtime: per-hop latency, {name}: median {lat['median']:.3f} ms, p90 {lat['p90']:.3f}, "
+              f"p99 {lat['p99']:.3f} over {lat['hops']} hops; real-time factor "
+              f"{lat['real_time_factor']:.4f} [{card}]")
+    # 7. device time of a hop and the busy share, by kernel group
+    profiles = {}
+    for name, conv in (("graph", graph), ("eager", eager)):
+        prof = profile_step(lambda: [conv.process_chunk(c) for c in hops[:PROFILE_HOPS]], card,
+                            f"{PROFILE_HOPS} hops, {name}, synchronous")
+        if prof is not None:
+            print(f"realtime: {name} hop device time {prof['device_busy_ms'] / PROFILE_HOPS:.4f} ms, "
+                  f"{prof['device_spans'] / PROFILE_HOPS:.1f} device spans a hop")
+        profiles[name] = prof
+    # 8. the CLIs
+    cli_launches = run_cli_phase(card)
+    elapsed = time.perf_counter() - t_start
+    print(f"realtime: phase 6 took {elapsed:.1f} s (<= {PHASE6_LIMIT_S:.0f})")
+    need(elapsed <= PHASE6_LIMIT_S, f"phase 6 took {elapsed:.1f} s > {PHASE6_LIMIT_S}")
+    report = {"launches_per_eager_hop": per_hop, "graph_vs_eager_max_abs": diff,
+              "card_vs_cpu_wave": wave_err, "card_vs_cpu_phi": phi_err, "latency_ms": latency,
+              "hop_device_ms": {k: None if v is None else v["device_busy_ms"] / PROFILE_HOPS
+                                for k, v in profiles.items()},
+              "hop_busy_share": {k: None if v is None else v["device_busy_ms"] / v["wall_ms"]
+                                 for k, v in profiles.items()},
+              "elapsed_s": elapsed}
+    return {k: launches[k] + cli_launches[k] for k in launches}, rows, report
+
+
+# ---------------------------------------------------------------------------
 
 
 REPLACES = {
@@ -820,9 +1084,9 @@ def kernels_line(rows, launches):
     """One entry per kernel.  The numbers are those of the kernel's variant
     on the bf16 main path (kNN 'default' at the 100 352-row library; the
     filter's four up levels in bf16, summed: one step runs all four; the
-    packed kNN at the 100 352-row library); every measured variant is
-    listed under 'variants'.  Launches are summed over the paths driven
-    (phases 3, 4 with both ranks, 5)."""
+    packed kNN at the 100 352-row library); every measured variant, the
+    streaming hop's included, is listed under 'variants'.  Launches are summed over the paths driven
+    (phases 3, 4 with both ranks, 5, 6)."""
     out = []
     for name, (source, replaces) in REPLACES.items():
         mine = [r for r in rows if r["name"] == name]
@@ -832,8 +1096,8 @@ def kernels_line(rows, launches):
             main = [r for r in mine if f" {LIB_ROWS} x 768" in r["variant"]]
         elif name == "filter_level":
             main = [r for r in mine if r["variant"].endswith("bf16")]
-        else:
-            main = mine
+        else:     # the STFT and the oscillators: the offline row, not the hop's
+            main = [r for r in mine if not r["variant"].endswith("(hop)")]
         entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name],
@@ -851,6 +1115,21 @@ def kernels_line(rows, launches):
         }
         out.append(entry)
     return {"kernels": out}
+
+
+def print_rows(rows, card) -> None:
+    for r in rows:
+        lib_ms = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.3f}"
+        prod = f" products_library {r['products_library_ms']:.3f}" if "products_library_ms" in r else ""
+        if "kernel_ms" in r:
+            kms = "not measured" if r["kernel_ms"] is None else f"{r['kernel_ms']:.4f}"
+            prod += (f" kernels alone {kms} ({r['tiles']} tiles on {r['resident_blocks']} resident "
+                     f"blocks, {r['waves']:.2f} waves)")
+        if "grid" in r:
+            prod += f" grid {r['grid']}"
+        print(f"kernel {r['name']:19s} {r['variant']:52s} err {r['max_abs_err']:.3e} "
+              f"(tol {r['tol']:.1e}) ms {r['ms']:.4f} plain {r['plain_ms']:.3f} "
+              f"library {lib_ms}{prod} bound {r['bound_ms']:.4f} ({r['bound_by']}) [{card}]")
 
 
 def main() -> int:
@@ -904,16 +1183,7 @@ def main() -> int:
     rows.append(check_oscillator(gen))
     rows.append(check_formants(gen))
     rows.extend(check_filter_levels(gen, dec))
-    for r in rows:
-        lib_ms = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.3f}"
-        prod = f" products_library {r['products_library_ms']:.3f}" if "products_library_ms" in r else ""
-        if "kernel_ms" in r:
-            kms = "not measured" if r["kernel_ms"] is None else f"{r['kernel_ms']:.4f}"
-            prod += (f" kernels alone {kms} ({r['tiles']} tiles on {r['resident_blocks']} resident "
-                     f"blocks, {r['waves']:.2f} waves)")
-        print(f"kernel {r['name']:19s} {r['variant']:52s} err {r['max_abs_err']:.3e} "
-              f"(tol {r['tol']:.1e}) ms {r['ms']:.4f} plain {r['plain_ms']:.3f} "
-              f"library {lib_ms}{prod} bound {r['bound_ms']:.4f} ({r['bound_by']}) [{card}]")
+    print_rows(rows, card)
     torch.cuda.empty_cache()
     print(f"phase 2 done at {time.perf_counter() - t_start:.1f} s")
 
@@ -927,9 +1197,10 @@ def main() -> int:
     need(all(launches[k] > 0 for k in OFFLINE_KERNELS), f"a kernel was not launched: {launches}")
     print(f"main-path launches: {launches}")
     report["bf16_knn_flip_rate"] = knn_flip_rate(ce, lib, xa)
+    report["bf16_knn_flip_rates_other_draws"] = knn_flip_rates_over_draws(ce, xa)
     reference_check(ce, f0m, dec, lib)
     print(f"phase 3 done at {time.perf_counter() - t_start:.1f} s; report {json.dumps(report)}")
-    del ce, f0m, lib, xa
+    del lib, xa
 
     # phase 4
     sharded_launches, sharded = run_sharded_phase(card)
@@ -939,7 +1210,14 @@ def main() -> int:
     api_launches = run_kernel_api(gen, card)
     print(f"phase 5 done at {time.perf_counter() - t_start:.1f} s")
 
-    total = {k: launches[k] + sharded_launches[k] + api_launches[k] for k in launches}
+    # phase 6
+    torch.cuda.empty_cache()
+    rt_launches, rt_rows, realtime = run_realtime(ce, f0m, dec, gen, card)
+    print_rows(rt_rows, card)
+    rows.extend(rt_rows)
+    print(f"phase 6 done at {time.perf_counter() - t_start:.1f} s; report {json.dumps(realtime)}")
+
+    total = {k: launches[k] + sharded_launches[k] + api_launches[k] + rt_launches[k] for k in launches}
     print(json.dumps(kernels_line(rows, total)))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

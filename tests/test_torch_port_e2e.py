@@ -7,7 +7,8 @@ window-level comparison passes ``f0_override``: a random-init F0 estimator's
 argmax may flip on a near-tie between the frameworks, which would change the
 waveform by far more than any tolerance; the estimator's bins are held by
 test_torch_port_models.py.  The file-level driver runs the estimator on both
-sides.  bf16 is held to the licence: log-mel L1 <= 0.25 against fp32."""
+sides, and at 24 and 44.1 kHz resamples in and back as JAX ``convert``
+does.  bf16 is held to the licence: log-mel L1 <= 0.25 against fp32."""
 
 import numpy as np
 import pytest
@@ -81,14 +82,18 @@ def test_offline_converter_convert_16k(models):
                                        JInferenceConfig(chunk=1600, max_windows_per_step=2),
                                        cfgs[2], impl="pallas")
         want = jc.convert_16k(wave)
+        # any other rate resamples to 16 kHz and back (ops/resample.py)
+        want_sr = {sr: jc.convert(wave, sr) for sr in (24_000, 44_100)}
     tc = toffline.OfflineConverter(ce, f0m, dec, tgt, InferenceConfig(chunk=1600, max_windows_per_step=2),
                                    device="cpu")
     got = tc.convert_16k(wave)
     assert got.shape == wave.shape and np.isfinite(got).all()
     assert np.abs(got - want).max() <= 5e-3
     assert np.abs(tc.convert(wave[None, :], 16_000) - got).max() == 0.0
-    with pytest.raises(NotImplementedError):
-        tc.convert(wave, 24_000)
+    for sr, w in want_sr.items():
+        out = tc.convert(wave, sr)     # the output at the input rate
+        assert out.shape == w.shape and 0 <= out.shape[0] - wave.shape[0] <= 3
+        assert np.abs(out - w).max() <= 5e-3
 
 
 def test_build_target_matrix(models):

@@ -405,7 +405,7 @@ def _sharded_run(world: int) -> dict:
     """The sharded path on a ('data', 1) x ('library', world) mesh at a small
     size: default model widths, 2 windows of 9 600 samples, 4 001 rows."""
     from alivevc_tpu_torch.config import ContentEncoderConfig, F0EstimatorConfig
-    from alivevc_tpu_torch.infer.offline import float32_math
+    from alivevc_tpu_torch.device import float32_math
     from alivevc_tpu_torch.kernels import LAUNCHES, reset_launches
     from alivevc_tpu_torch.models.content_encoder import ContentEncoder, content_encoder
     from alivevc_tpu_torch.models.f0_estimator import F0Estimator
@@ -475,3 +475,207 @@ def test_sharded_path_two_ranks_on_card(tmp_path):
     assert max_err(two["wave"], one["wave"]) <= 1e-4
     for res in (two, two_b, one):
         assert all(res["launches"][k] > 0 for k in ("knn", "oscillator", "filter_level")), res["launches"]
+
+
+# ---------------------------------------------------------------------------
+# the streaming hop's shapes: N = 1, a 24-frame window of 7 680 samples, a
+# library of ~900 rows; and capture in a CUDA graph
+# ---------------------------------------------------------------------------
+
+HOP = 7680                       # StreamingConfig(): buffer_size 8 x chunk 960
+HOP_LEVELS = (HOP // 32, HOP // 4, HOP // 2, HOP)   # output length of up level i
+GUARD = 4096                     # sentinel elements on each side of a guarded buffer
+SENTINEL = -777.0
+
+
+def _at_end(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` placed at the very end of a larger allocation."""
+    buf = torch.empty(GUARD + t.numel(), dtype=t.dtype, device=t.device)
+    view = buf[GUARD:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+class _GuardedTorch:
+    """``torch`` as kernels/filter.py sees it, except that ``empty`` and
+    ``empty_like`` hand out the middle of a sentinel-filled buffer: a
+    kernel that writes past either end of its output or scratch shows."""
+
+    def __init__(self):
+        self.buffers = []
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+    def empty(self, shape, dtype, device):
+        numel = int(np.prod(shape))
+        buf = torch.full((2 * GUARD + numel,), SENTINEL, dtype=dtype, device=device)
+        self.buffers.append((buf, numel))
+        return buf[GUARD:GUARD + numel].view(shape)
+
+    def empty_like(self, t):
+        return self.empty(t.shape, dtype=t.dtype, device=t.device)
+
+    def guards_intact(self) -> bool:
+        return all(bool((buf[:GUARD] == SENTINEL).all()) and bool((buf[GUARD + n:] == SENTINEL).all())
+                   for buf, n in self.buffers)
+
+
+def _hop_level(dec, level, g):
+    """Up level ``level`` at the hop's shapes, float32: (x_prev, skip, rate,
+    args) with the activations and FiLM at the end of their allocations."""
+    cin, _, r = dec.filter.ups[level].weight.shape
+    l_in = HOP_LEVELS[level] // r
+    cond = 0.5 * torch.randn(1, HOP // 320, 512, generator=g, device="cuda")
+    args = level_args(dec.filter.blocks[level], dec.filter.ups[level], cond)
+    args["film"] = _at_end(args["film"])
+    x = _at_end(0.3 * torch.randn(1, l_in, cin, generator=g, device="cuda"))
+    s = _at_end(0.3 * torch.randn(1, l_in, cin, generator=g, device="cuda"))
+    return x, s, r, args
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["stft", "knn_high", "filter_level_0", "filter_level_1",
+                                  "filter_level_2", "filter_level_3"])
+def test_hop_shape_kernels_on_card(name, monkeypatch):
+    """The kernels of the streaming hop at its shapes against their plain
+    versions: the STFT of one 7 680-sample window (25 frames: 7 blocks of
+    4, the last partial, reflect pad at both ends), kNN 'high' for 24
+    queries over 887 rows, and the four float32 filter levels at N = 1 with
+    their inputs at the end of their allocations and every output and
+    scratch buffer between sentinel guards that must stay untouched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; on the card run this file with --noconftest -m gpu")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(5)
+    if name == "stft":
+        x = _at_end(0.3 * torch.randn(1, HOP, generator=g, device="cuda"))
+        got = kstft.stft_magnitude_cuda(x)
+        want = kstft.stft_magnitude_plain(x)
+        assert got.shape == (1, 25, 641)
+        assert max_err(got, want) <= 1e-3
+        assert max_err(got[:, [0, -1]], want[:, [0, -1]]) <= 1e-3
+    elif name == "knn_high":
+        q = _at_end(torch.randn(24, 768, generator=g, device="cuda"))
+        lib = _at_end(torch.randn(887, 768, generator=g, device="cuda"))
+        _knn_vs_plain(q, lib, 4, "high")
+    else:
+        level = int(name[-1])
+        dec = Decoder(DecoderConfig(), generator=torch.Generator().manual_seed(0)).cuda()
+        x, s, r, args = _hop_level(dec, level, g)
+        guarded = _GuardedTorch()
+        monkeypatch.setattr(kfilter, "torch", guarded)
+        with torch.no_grad():
+            got = kfilter.filter_level_cuda(x, s, rate=r, **args)
+            torch.cuda.synchronize()
+            monkeypatch.undo()
+            want = kfilter.filter_level_plain(x, s, rate=r, **args)
+        assert got.shape == (1, HOP_LEVELS[level], dec.filter.ups[level].weight.shape[1])
+        assert guarded.buffers and guarded.guards_intact(), name
+        scale = float(want.abs().max())
+        assert bool(torch.isfinite(got).all())
+        assert max_err(got, want) <= 1e-3 * (1.0 + scale), (name, max_err(got, want))
+
+
+def _graph_cases(g):
+    """(name, wrapper call, inputs it reads) for each kernel wrapper at the
+    hop's shapes (the oscillators at a 24-frame window)."""
+    dec = Decoder(DecoderConfig(), generator=torch.Generator().manual_seed(0)).cuda()
+    f0 = 80.0 + 300.0 * torch.rand(1, 24, 1, generator=g, device="cuda")
+    amps = torch.exp(0.3 * torch.randn(1, 24, 64, generator=g, device="cuda"))
+    formants = f0 * torch.arange(1, 65, device="cuda")
+    q = torch.randn(24, 768, generator=g, device="cuda")
+    lib = torch.randn(887, 768, generator=g, device="cuda")
+    x = 0.3 * torch.randn(1, HOP, generator=g, device="cuda")
+    wide = _hop_level(dec, 1, g)
+    narrow = _hop_level(dec, 3, g)
+    return [
+        ("stft", lambda: kstft.stft_magnitude_cuda(x), [x]),
+        ("knn_high", lambda: kknn.knn_topk_cuda(q, lib, 4, "high")[1], [q, lib]),
+        ("knn_default", lambda: kknn.knn_topk_cuda(q, lib, 4, "default")[1], [q, lib]),
+        ("oscillator", lambda: kosc.harmonic_source_cuda(f0, amps), [f0, amps]),
+        ("oscillator_formants", lambda: kosc.harmonic_source_formants_cuda(formants, amps),
+         [formants, amps]),
+        ("filter_level_wide", lambda: kfilter.filter_level_cuda(wide[0], wide[1], rate=wide[2],
+                                                                **wide[3]), [wide[0], wide[1]]),
+        ("filter_level_narrow", lambda: kfilter.filter_level_cuda(
+            narrow[0], narrow[1], rate=narrow[2], **narrow[3]), [narrow[0], narrow[1]]),
+    ]
+
+
+@pytest.mark.gpu
+def test_kernel_wrappers_replay_in_cuda_graph_on_card():
+    """Each wrapper captured in a CUDA graph: after new values are copied
+    into the captured inputs, a replay equals an eager call on them; a
+    replay adds nothing to the launch counts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; on the card run this file with --noconftest -m gpu")
+    from alivevc_tpu_torch.kernels import LAUNCHES
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(6)
+    with torch.no_grad():
+        for name, call, inputs in _graph_cases(g):
+            call()          # first use: builds, tables on the card
+            torch.cuda.synchronize()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = call()
+            for t in inputs:     # new values, same storage
+                t.copy_(t.roll(1, 0) * 1.01 if t.shape[0] > 1 else t.flip(-2) * 1.01)
+            want = call()
+            counts = dict(LAUNCHES)
+            graph.replay()
+            torch.cuda.synchronize()
+            assert LAUNCHES == counts, name
+            assert torch.equal(out, want), (name, max_err(out, want))
+
+
+@pytest.mark.gpu
+def test_streaming_graph_equals_eager_on_card():
+    """StreamingConverter at full width: the hop replayed as one CUDA graph
+    equals the eager hop over 10 hops from the same primed state (the same
+    kernels on the same inputs: expected identical, held to 1e-5); the
+    pipelined graph returns the same chunks one hop late; reset re-zeroes
+    the state the graph reads."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; on the card run this file with --noconftest -m gpu")
+    from alivevc_tpu_torch.config import ContentEncoderConfig, F0EstimatorConfig
+    from alivevc_tpu_torch.infer.streaming import StreamingConverter
+    from alivevc_tpu_torch.kernels import LAUNCHES, reset_launches
+    from alivevc_tpu_torch.models.content_encoder import ContentEncoder
+    from alivevc_tpu_torch.models.f0_estimator import F0Estimator
+
+    gen = torch.Generator().manual_seed(0)
+    ce = ContentEncoder(ContentEncoderConfig(), generator=gen).cuda()
+    f0m = F0Estimator(F0EstimatorConfig(), generator=gen).cuda()
+    dec = Decoder(DecoderConfig(), generator=gen).cuda()
+    tgt = torch.randn(900, 768, generator=torch.Generator(device="cuda").manual_seed(7), device="cuda")
+    tt = np.arange(960 * 18) / 16000.0
+    wave = (0.4 * np.sin(2 * np.pi * (150 + 40 * np.sin(2 * np.pi * tt)) * tt)).astype(np.float32)
+    chunks = [wave[i * 960:(i + 1) * 960] for i in range(8, 18)]
+    outs = {}
+    for name, kw in (("eager", dict(cuda_graph=False)), ("graph", {}),
+                     ("piped", dict(pipeline_depth=1))):
+        conv = StreamingConverter(ce, f0m, dec, tgt, **kw)
+        assert conv.cuda_graph == (name != "eager")
+        conv.prime(wave[:960 * 8])
+        reset_launches()
+        outs[name] = [conv.process_chunk(c) for c in chunks] + conv.flush()
+        if name == "eager":
+            assert all(LAUNCHES[k] == 10 for k in ("stft", "knn")) and LAUNCHES["filter_level"] == 40
+        else:   # the warm-up hops and the capture only
+            assert LAUNCHES["stft"] == 3
+        conv.reset()
+        conv.prime(wave[:960 * 8])
+        again = conv.process_chunk(chunks[0])
+        if name != "piped":
+            assert np.array_equal(again, outs[name][0])
+    err = max(float(np.abs(a - b).max()) for a, b in zip(outs["eager"], outs["graph"]))
+    assert err <= 1e-5, err
+    assert all(np.isfinite(o).all() for o in outs["graph"])
+    assert np.array_equal(outs["piped"][0], np.zeros(960, np.float32))
+    for a, b in zip(outs["graph"], outs["piped"][1:]):
+        assert np.array_equal(a, b)

@@ -196,6 +196,47 @@ def test_knn_default_within_bf16_licence():
     assert np.all(true >= np.asarray(v32)[:, -1:] - 2e-3)
 
 
+def _content_queries():
+    """768-wide content features of a synthetic voice: the full-width
+    content encoder from seed 0 on four windows of 20 480 samples (256
+    frames), as the conversion path queries the library."""
+    from alivevc_tpu_torch.models.content_encoder import ContentEncoder, content_encoder
+    from alivevc_tpu_torch.ops.stft import spectrogram
+
+    rng = np.random.default_rng(0)
+    tt = np.arange(20_480) / 16_000.0
+    waves = []
+    for f in (110.0, 160.0, 220.0, 300.0):
+        ph = 2 * np.pi * np.cumsum(f * (1.0 + 0.1 * np.sin(2 * np.pi * 0.7 * tt))) / 16_000.0
+        waves.append(0.4 * np.sin(ph) + 0.2 * np.sin(2 * ph) + 0.01 * rng.standard_normal(tt.shape))
+    ce = ContentEncoder(generator=torch.Generator().manual_seed(0)).eval()
+    with torch.no_grad():
+        return content_encoder(ce, spectrogram(t(np.stack(waves)))).reshape(-1, 768)
+
+
+def test_knn_default_flip_rate_vs_jax_over_library_draws(record_property):
+    """The bf16 'default' mode's top-4 flip rate against the exact ranking,
+    port (plain version: bf16-rounded unit rows, float32 sums) and JAX
+    (``knn_topk_pallas`` 'default' in interpret mode), on the same content
+    features over four random 4 096-row libraries.  The port's mean rate may
+    exceed JAX's by at most one percentage point: both round the same unit
+    rows to bf16, and only the order of the float32 sums differs."""
+    src = n(_content_queries())
+    rates = {"port": [], "jax": []}
+    for seed in range(4):
+        lib = np.random.default_rng(100 + seed).standard_normal((4096, 768)).astype(np.float32)
+        _, exact, _ = _exact(src, lib, 4)
+        exact = np.sort(exact, 1)
+        _, port_i = kknn.knn_topk(t(src), t(lib), 4, "default")
+        with pltpu.force_tpu_interpret_mode():
+            _, jax_i = knn_topk_pallas(jnp.asarray(src), jnp.asarray(lib), 4, precision="default")
+        rates["port"].append(float(np.any(np.sort(n(port_i), 1) != exact, 1).mean()))
+        rates["jax"].append(float(np.any(np.sort(np.asarray(jax_i), 1) != exact, 1).mean()))
+    record_property("flip_rates", rates)
+    print(f"bf16 flip rates over 4 library draws: {rates}")
+    assert np.mean(rates["port"]) <= np.mean(rates["jax"]) + 0.01, rates
+
+
 def test_knn_wrapper_checks():
     lib = torch.randn(3, 32)
     with pytest.raises(ValueError):

@@ -80,7 +80,7 @@ def test_config_copies_match_the_jax_package():
     from alivevc_tpu_torch import config as tc
 
     for name in ("AudioConfig", "ContentEncoderConfig", "F0EstimatorConfig", "DecoderConfig",
-                 "KNNConfig", "InferenceConfig"):
+                 "KNNConfig", "InferenceConfig", "StreamingConfig", "VoiceLibraryConfig"):
         assert dataclasses.asdict(getattr(tc, name)()) == dataclasses.asdict(getattr(jc, name)()), name
     assert tc.AudioConfig().n_bins == jc.AudioConfig().n_bins == 641
     assert tc.ContentEncoderConfig().input_channels == 641
