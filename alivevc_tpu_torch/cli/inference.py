@@ -7,7 +7,10 @@ The flags are the JAX package's (``alivevc_tpu/cli/inference.py``, which
 mirrors inference.py:20-43); checkpoints may be reference ``.pt`` files or
 the JAX package's ``.npz``.  ``--device`` (default ``cuda``) picks the card
 or, by name, the CPU.  Every file in ``--inputs`` is converted at its own
-sample rate (resampled to 16 kHz and back).
+sample rate (resampled to 16 kHz and back).  ``-wpe`` takes the pitch from
+WORLD (DIO + StoneMask, on the host) instead of the F0 estimator;
+``--save-spectrograms`` writes input and output log-mel PNGs beside each
+converted file (needs matplotlib).
 """
 
 from __future__ import annotations
@@ -16,13 +19,14 @@ import argparse
 import glob
 import os
 
+import torch
+
 from alivevc_tpu_torch.cli.common import load_params_or_init, log_logo, target_matrix
 from alivevc_tpu_torch.config import InferenceConfig
 from alivevc_tpu_torch.device import resolve_device
 from alivevc_tpu_torch.infer.offline import OfflineConverter
 from alivevc_tpu_torch.io.audio import read_wav, write_wav
-
-LATER_SLICE = "the port's WORLD and plotting slice"
+from alivevc_tpu_torch.ops.stft import log_mel_spectrogram
 
 
 def build_parser():
@@ -43,9 +47,9 @@ def build_parser():
     p.add_argument("-lib", "--voice-library-path", default="NONE")
     p.add_argument("-norm", "--normalize", action="store_true")
     p.add_argument("-wpe", "--world-pitch-estimation", action="store_true",
-                   help="WORLD (DIO+StoneMask) pitch; not ported yet")
+                   help="WORLD (DIO+StoneMask) pitch instead of the F0 estimator's")
     p.add_argument("--save-spectrograms", action="store_true",
-                   help="log-mel PNGs next to each converted file; not ported yet")
+                   help="log-mel PNGs next to each converted file (needs matplotlib)")
     p.add_argument("--impl", default="kernels", choices=["kernels"],
                    help="compute path: the port's hand-written CUDA kernels")
     p.add_argument("-bf16", action="store_true",
@@ -58,10 +62,6 @@ def main(argv=None) -> list:
     """Convert every file of ``--inputs``; returns the outputs, in order."""
     log_logo()
     args = build_parser().parse_args(argv)
-    if args.world_pitch_estimation:
-        raise NotImplementedError(f"-wpe: WORLD pitch comes with {LATER_SLICE}")
-    if args.save_spectrograms:
-        raise NotImplementedError(f"--save-spectrograms: plotting comes with {LATER_SLICE}")
     dev = resolve_device(args.device)
     ce = load_params_or_init(args.content_encoder_path, "content_encoder", dev)
     pe = load_params_or_init(args.f0_estimator_path, "f0_estimator", dev)
@@ -79,8 +79,8 @@ def main(argv=None) -> list:
         gain_db=args.gain,
         normalize=args.normalize,
     )
-    conv = OfflineConverter(ce, pe, dec, tgt, cfg, dtype="bf16" if args.bf16 else "fp32",
-                            device=dev)
+    conv = OfflineConverter(ce, pe, dec, tgt, cfg, world_pitch=args.world_pitch_estimation,
+                            dtype="bf16" if args.bf16 else "fp32", device=dev)
     os.makedirs(args.outputs, exist_ok=True)
     paths = sorted(glob.glob(os.path.join(args.inputs, "*")))
     outs = []
@@ -90,9 +90,24 @@ def main(argv=None) -> list:
         out = conv.convert(wave, sr)
         stem = f"{i}_{os.path.splitext(os.path.basename(path))[0]}"
         write_wav(os.path.join(args.outputs, stem + ".wav"), out, sr)
+        if args.save_spectrograms:
+            save_spectrograms(wave, out, sr, os.path.join(args.outputs, stem), dev)
         outs.append(out)
     print("Complete!")
     return outs
+
+
+def save_spectrograms(wave, out, sr: int, prefix: str, device: torch.device) -> None:
+    """``<prefix>_input_spec.png`` and ``<prefix>_output_spec.png``: the
+    log-mel spectrograms of the (mono) input and the output
+    (inference.py:154-155)."""
+    from alivevc_tpu_torch.utils.plotting import plot_spectrogram
+
+    mono_in = wave.mean(axis=0) if wave.ndim == 2 else wave
+    for tag, w in (("input", mono_in), ("output", out)):
+        x = torch.as_tensor(w, dtype=torch.float32)[None].to(device)
+        mel = log_mel_spectrogram(x, sr)[0].cpu().numpy()
+        plot_spectrogram(mel, f"{prefix}_{tag}_spec.png", log=False)
 
 
 if __name__ == "__main__":

@@ -20,7 +20,6 @@ import argparse
 import numpy as np
 
 from alivevc_tpu_torch.cli.common import load_params_or_init, log_logo, resample_np, target_matrix
-from alivevc_tpu_torch.cli.inference import LATER_SLICE
 from alivevc_tpu_torch.config import StreamingConfig
 from alivevc_tpu_torch.device import resolve_device
 from alivevc_tpu_torch.infer.streaming import StreamingConverter
@@ -55,7 +54,7 @@ def build_parser():
     p.add_argument("-a", "--alpha", default=0.0, type=float)
     p.add_argument("-lib", "--voice-library-path", default="NONE")
     p.add_argument("-wpe", "--world-pitch-estimation", action="store_true",
-                   help="WORLD (DIO+StoneMask) pitch; not ported yet")
+                   help="WORLD (DIO+StoneMask) pitch instead of the F0 estimator's")
     p.add_argument("-pd", "--pipeline-depth", default=1, type=int,
                    help="overlap the device with real time: each hop returns the previous "
                         "hop's output (+1 hop of latency); 0 = the synchronous reference loop")
@@ -64,8 +63,6 @@ def build_parser():
 
 
 def build_converter(args) -> StreamingConverter:
-    if args.world_pitch_estimation:
-        raise NotImplementedError(f"-wpe: WORLD pitch comes with {LATER_SLICE}")
     dev = resolve_device(args.device)
     ce = load_params_or_init(args.content_encoder_path, "content_encoder", dev)
     pe = load_params_or_init(args.f0_estimator_path, "f0_estimator", dev)
@@ -82,8 +79,8 @@ def build_converter(args) -> StreamingConverter:
     # (realtime_inference.py:88)
     tgt = target_matrix(args, ce, dev, decimation=cfg.target_decimation)
     print(f"Loaded {tgt.shape[0]} words.")
-    return StreamingConverter(ce, pe, dec, tgt, cfg, pipeline_depth=args.pipeline_depth,
-                              device=dev)
+    return StreamingConverter(ce, pe, dec, tgt, cfg, world_pitch=args.world_pitch_estimation,
+                              pipeline_depth=args.pipeline_depth, device=dev)
 
 
 def run_file_mode(args) -> np.ndarray:

@@ -12,7 +12,9 @@ converted as one batch ``[N, 3*chunk]`` per step:
 This is the JAX package's ``convert_window`` with ``impl='pallas'``; every
 Pallas kernel on that path is a CUDA kernel here (``kernels/``).  Entry
 points run on CUDA unless the caller passes ``device="cpu"``, where the
-kernels' plain PyTorch versions run.
+kernels' plain PyTorch versions run.  With ``world_pitch`` the F0 estimator
+is bypassed: WORLD's DIO + StoneMask (``ops/world.py``, on the host) labels
+every window's pitch before the first batch goes to the card.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from alivevc_tpu_torch.ops.knn import match_features_kernel
 from alivevc_tpu_torch.ops.pitch import apply_intonation
 from alivevc_tpu_torch.ops.resample import resample
 from alivevc_tpu_torch.ops.stft import spectrogram
+from alivevc_tpu_torch.ops.world import compute_f0
 
 DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
 
@@ -149,11 +152,13 @@ class OfflineConverter:
         cfg: InferenceConfig = InferenceConfig(),
         dec_cfg: Optional[DecoderConfig] = None,
         sample_rate: int = 16_000,
+        world_pitch: bool = False,
         dtype: str = "fp32",
         knn_precision: Optional[str] = None,
         device: DeviceLike = None,
     ):
         self.device = resolve_device(device)
+        self.world_pitch = world_pitch
         if dtype not in DTYPES:
             raise ValueError(f"unknown dtype {dtype!r}")
         self.ce = cast_params(ce.to(self.device).eval(), DTYPES[dtype])
@@ -179,21 +184,26 @@ class OfflineConverter:
         padded = np.concatenate([np.zeros(c, np.float32), wave, np.zeros(4 * c, np.float32)])
         m = (padded.shape[0] - 3 * c) // c + 1
         windows = np.stack([padded[i * c: i * c + 3 * c] for i in range(m)])
+        f0 = compute_f0(windows, self.sample_rate)[..., None] if self.world_pitch else None
 
         # fixed-size window batches bound device memory on long files; the
-        # last batch is zero-padded to the same shape
+        # last batch (and its f0) is zero-padded to the same shape
         bsz = max(1, cfg.max_windows_per_step)
         outs = []
         for i in range(0, m, bsz):
             batch = windows[i: i + bsz]
+            f0_b = None if f0 is None else f0[i: i + bsz]
             n_real = batch.shape[0]
             pad = bsz - n_real if m > bsz else 0
             if pad:
                 batch = np.concatenate([batch, np.zeros((pad,) + batch.shape[1:], batch.dtype)])
+                if f0_b is not None:
+                    f0_b = np.concatenate([f0_b, np.zeros((pad,) + f0_b.shape[1:], f0_b.dtype)])
             got = convert_window(
                 self.ce, self.f0, self.dec, torch.from_numpy(batch), self.tgt,
                 cfg.f0_rate, cfg.pitch_shift, cfg.intonation, cfg.k, cfg.alpha,
-                self.dec_cfg, None, self.dtype, self.knn_precision, self.device,
+                self.dec_cfg, None if f0_b is None else torch.from_numpy(f0_b), self.dtype,
+                self.knn_precision, self.device,
             )
             outs.append(got[:n_real].cpu().numpy())
         out = np.concatenate(outs)[:, c:-c].reshape(-1)[:total]

@@ -20,6 +20,12 @@ card captures it once as a CUDA graph over static tensors (the input chunk,
 the window, phi, the target matrix, the output chunk) and replays it every
 hop; ``cuda_graph=False`` runs the same hop eagerly.  Both forms update the
 state in place, so a hop's output does not depend on which one ran.
+
+With ``world_pitch`` the hop takes WORLD's pitch (``ops/world.py``) in place
+of the F0 estimator's, computed on the host from the window the hop will
+see, as JAX does.  The converter keeps that window's samples on the host as
+well, so nothing is read back from the card, and f0 enters the hop as one
+more static input: the graph is captured with ``f0_override``.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from alivevc_tpu_torch.models.decoder import decoder
 from alivevc_tpu_torch.models.f0_estimator import f0_estimate
 from alivevc_tpu_torch.ops.knn import match_features_kernel
 from alivevc_tpu_torch.ops.pitch import shift_pitch
+from alivevc_tpu_torch.ops.world import compute_f0
 
 WARMUP_HOPS = 2   # eager hops on a side stream before the capture
 
@@ -116,14 +123,19 @@ class StreamingConverter:
     returns hop N - d's output once that hop's event has completed, at the
     price of d more chunks of latency.  The first d calls return silence;
     ``flush`` drains the hops in flight.  d = 0 is the reference's
-    synchronous loop.  The input chunk goes in through a pinned staging
-    buffer of the same ring.
+    synchronous loop.  The input chunk (and WORLD's f0) goes in through a
+    pinned staging buffer of the same ring.
 
     ``cuda_graph`` (None: True on the card) captures the hop as one CUDA
     graph at the first ``process_chunk``, after ``WARMUP_HOPS`` eager hops on
     a side stream (they build the kernels and make the first-use copies,
     then the state is put back).  A capture or replay that fails raises;
-    nothing falls back to the eager hop."""
+    nothing falls back to the eager hop.
+
+    ``world_pitch`` labels each hop's pitch with WORLD on the host, from a
+    host copy of the window (``prime``, ``reset`` and ``process_chunk`` keep
+    it equal to ``state.window``: the same float32 samples).  Pipelined, the
+    host labels hop N while the card runs hop N - 1."""
 
     def __init__(
         self,
@@ -138,10 +150,6 @@ class StreamingConverter:
         cuda_graph: Optional[bool] = None,
         device: DeviceLike = None,
     ):
-        if world_pitch:
-            raise NotImplementedError(
-                "world_pitch: the WORLD pitch path (ops/world.py) is not ported yet; "
-                "it comes with the port's WORLD slice")
         self.device = resolve_device(device)
         on_card = self.device.type == "cuda"
         if cuda_graph is None:
@@ -156,9 +164,11 @@ class StreamingConverter:
         self.tgt = torch.as_tensor(tgt, dtype=torch.float32).to(self.device).contiguous()
         self.cfg = cfg
         self.dec_cfg = dec.cfg if dec_cfg is None else dec_cfg
+        self.world_pitch = world_pitch
         self.pipeline_depth = pipeline_depth
         self.cuda_graph = cuda_graph
         self.state = init_stream_state(cfg, self.dec_cfg, self.device)
+        self._host_window = np.zeros(cfg.buffer_size * cfg.chunk, np.float32)
         self._pending: List = []       # slots (card) or arrays (CPU) not yet returned
         self._graph: Optional[torch.cuda.CUDAGraph] = None
         if on_card:
@@ -166,6 +176,10 @@ class StreamingConverter:
             self._chunk_dev = torch.zeros(cfg.chunk, dtype=torch.float32, device=self.device)
             self._stage = torch.zeros((slots, cfg.chunk), dtype=torch.float32).pin_memory()
             self._host_out = torch.zeros((slots, cfg.chunk), dtype=torch.float32).pin_memory()
+            if world_pitch:
+                frames = cfg.buffer_size * cfg.chunk // self.dec_cfg.segment_size
+                self._f0_dev = torch.zeros((1, frames, 1), dtype=torch.float32, device=self.device)
+                self._f0_stage = torch.zeros((slots, frames), dtype=torch.float32).pin_memory()
             self._events = [torch.cuda.Event() for _ in range(slots)]
             self._slot = 0
 
@@ -173,6 +187,7 @@ class StreamingConverter:
         """Zero the window and phi in place (the graph keeps reading them)."""
         self.state.window.zero_()
         self.state.phi.zero_()
+        self._host_window[:] = 0.0
         self._pending = []
 
     def prime(self, samples: np.ndarray) -> None:
@@ -182,16 +197,18 @@ class StreamingConverter:
         ``buffer_size`` chunks (realtime_inference.py:133-137); priming with
         the first ``buffer_size`` chunks reproduces that warm-up (phi stays
         as it is, zero after a reset)."""
-        w = self.state.window
-        samples = torch.from_numpy(np.asarray(samples, np.float32).reshape(-1).copy()).to(self.device)
-        w.copy_(torch.cat([w[0], samples])[-w.shape[1]:][None, :])
+        samples = np.asarray(samples, np.float32).reshape(-1)
+        hw = self._host_window
+        self._host_window = np.concatenate([hw, samples])[-hw.shape[0]:]
+        self.state.window.copy_(torch.from_numpy(self._host_window)[None, :].to(self.device))
 
-    def _hop(self, chunk: torch.Tensor) -> torch.Tensor:
-        """One hop from ``self.state``, written back into it in place."""
+    def _hop(self, chunk: torch.Tensor, f0: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One hop from ``self.state``, written back into it in place; ``f0``
+        [1, T, 1] Hz bypasses the estimator."""
         cfg = self.cfg
         state, out = streaming_step(self.ce, self.f0, self.dec, self.state, chunk, self.tgt,
                                     cfg.f0_rate, cfg.pitch_shift, cfg.k, cfg.alpha, cfg,
-                                    self.dec_cfg)
+                                    self.dec_cfg, f0)
         self.state.window.copy_(state.window)
         self.state.phi.copy_(state.phi)
         return out
@@ -202,23 +219,28 @@ class StreamingConverter:
         current = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(current)
+        f0 = self._f0_dev if self.world_pitch else None
         with torch.cuda.stream(side):
             for _ in range(WARMUP_HOPS):
-                self._hop(self._chunk_dev)
+                self._hop(self._chunk_dev, f0)
         current.wait_stream(side)
         self.state.window.copy_(saved[0])
         self.state.phi.copy_(saved[1])
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            self._out_dev = self._hop(self._chunk_dev)
+            self._out_dev = self._hop(self._chunk_dev, f0)
         self._graph = graph
 
     def process_chunk(self, chunk: np.ndarray) -> np.ndarray:
         chunk = np.asarray(chunk, np.float32)
         if chunk.shape != (self.cfg.chunk,):
             raise ValueError(f"chunk of shape {chunk.shape}, expected ({self.cfg.chunk},)")
+        self._host_window = np.concatenate([self._host_window[self.cfg.chunk:], chunk])
+        f0 = (compute_f0(self._host_window[None], 16_000, self.dec_cfg.segment_size)[0]
+              if self.world_pitch else None)
         if self.device.type != "cuda":
-            self._pending.append(self._hop(torch.from_numpy(chunk.copy())).numpy().copy())
+            f0 = None if f0 is None else torch.from_numpy(f0)[None, :, None]
+            self._pending.append(self._hop(torch.from_numpy(chunk.copy()), f0).numpy().copy())
         else:
             if self.cuda_graph and self._graph is None:
                 self._capture()
@@ -227,11 +249,15 @@ class StreamingConverter:
             self._events[s].synchronize()     # the slot's last copies are done
             self._stage[s].numpy()[:] = chunk
             self._chunk_dev.copy_(self._stage[s], non_blocking=True)
+            if f0 is not None:
+                self._f0_stage[s].numpy()[:] = f0
+                self._f0_dev.view(-1).copy_(self._f0_stage[s], non_blocking=True)
+                f0 = self._f0_dev
             if self._graph is not None:
                 self._graph.replay()
                 out = self._out_dev
             else:
-                out = self._hop(self._chunk_dev)
+                out = self._hop(self._chunk_dev, f0)
             self._host_out[s].copy_(out, non_blocking=True)
             self._events[s].record()
             self._pending.append(s)

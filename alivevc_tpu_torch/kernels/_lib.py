@@ -1,11 +1,18 @@
-"""Build, load and launch the port's CUDA kernels.
+"""Build, load and launch the port's CUDA kernels, and build its native
+host library.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface and loaded with ``ctypes``; nothing
-includes PyTorch's headers, so a build takes seconds.  Libraries are built
-at first use into ``alivevc_tpu_torch/_build/`` (listed in ``.gitignore``),
-named by a hash of their sources and flags, and ``build_all`` compiles every
-source at once, one ``nvcc`` process each.
+includes PyTorch's headers, so a build takes seconds.  The host library
+``native`` (the WORLD F0 labeler and the audio ring buffer,
+``native/*.cpp``) is compiled by ``g++`` with ``-march=native``, for the CPU
+that builds it.  Libraries are built at first use into
+``alivevc_tpu_torch/_build/`` (listed in ``.gitignore``), named by a hash of
+their sources and flags (and, for the native library, of the host's name),
+and ``build_all`` compiles every source at once, one compiler process each.
+A library is compiled to a temporary name and moved into place with
+``os.replace``, so processes that build the same library at once each load
+a whole file.
 
 ``LAUNCHES`` counts, per kernel, the wrapper calls that launched it on the
 card; nothing else adds to it.
@@ -20,6 +27,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import threading
@@ -31,12 +39,16 @@ import torch
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
+NATIVE = PKG / "native"
 BUILD_DIR = PKG / "_build"
 SOURCES = ("stft", "knn", "oscillator", "filter")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+NATIVE_LIB = "native"
+NATIVE_SOURCES = ("world.cpp", "ringbuffer.cpp")
+CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-shared")   # native/Makefile's
 
 LAUNCHES: Dict[str, int] = {"stft": 0, "knn": 0, "oscillator": 0, "filter_level": 0,
                             "knn_packed": 0, "oscillator_formants": 0}
@@ -63,18 +75,44 @@ def _nvcc() -> str:
     return found
 
 
+def _cxx() -> str:
+    found = shutil.which("g++")
+    if found is None:
+        raise RuntimeError("g++ not found; the native library cannot be built")
+    return found
+
+
+def _recipe(name: str):
+    """The flags of ``lib<name>`` and the files its name hashes (the .cu or
+    .cpp among them are compiled)."""
+    if name == NATIVE_LIB:
+        return CXX_FLAGS, [NATIVE / src for src in NATIVE_SOURCES]
+    return NVCC_FLAGS, [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
+
+
 def _so_path(name: str) -> Path:
+    flags, files = _recipe(name)
     h = hashlib.sha1()
-    h.update(" ".join(NVCC_FLAGS).encode())
-    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+    h.update(" ".join(flags).encode())
+    for src in files:
         h.update(src.read_bytes())
+    if name == NATIVE_LIB:      # -march=native: a build serves only the host that made it
+        h.update(platform.node().encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
+
+
+def _command(name: str, out: Path) -> list:
+    flags, files = _recipe(name)
+    compiled = [str(f) for f in files if f.suffix != ".cuh"]
+    if name == NATIVE_LIB:
+        return [_cxx(), *flags, "-o", str(out), *compiled]
+    return [_nvcc(), *flags, "-I", str(CSRC), "-o", str(out), *compiled]
 
 
 def build_all(names: Iterable[str] = SOURCES) -> float:
     """Compile every missing library in parallel; returns the seconds spent.
     Compiler output (with ptxas register and shared-memory counts) goes to
-    ``_build/<name>.log``."""
+    ``_build/<name>.log``; a failed build raises with it."""
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
@@ -83,9 +121,8 @@ def build_all(names: Iterable[str] = SOURCES) -> float:
         if so.exists():
             continue
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs.append((name, so, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+            _command(name, tmp), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failed = []
     for name, so, tmp, proc in procs:
         log, _ = proc.communicate()
@@ -95,8 +132,20 @@ def build_all(names: Iterable[str] = SOURCES) -> float:
         else:
             os.replace(tmp, so)
     if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        raise RuntimeError("the build failed for " + "\n".join(failed))
     return time.perf_counter() - t0
+
+
+def library(name: str) -> ctypes.CDLL:
+    """``lib<name>``, built and loaded on first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        with _LOCK:
+            if name not in _LIBS:
+                build_all([name])
+                _LIBS[name] = ctypes.CDLL(str(_so_path(name)))
+            lib = _LIBS[name]
+    return lib
 
 
 def function(lib_name: str, symbol: str, argtypes: str):
@@ -106,11 +155,9 @@ def function(lib_name: str, symbol: str, argtypes: str):
     key = (lib_name, symbol)
     fn = _FNS.get(key)
     if fn is None:
+        lib = library(lib_name)
         with _LOCK:
-            if lib_name not in _LIBS:
-                build_all([lib_name])
-                _LIBS[lib_name] = ctypes.CDLL(str(_so_path(lib_name)))
-            fn = getattr(_LIBS[lib_name], symbol)
+            fn = getattr(lib, symbol)
             fn.argtypes = [_CTYPES[c] for c in argtypes]
             fn.restype = ctypes.c_int
             _FNS[key] = fn

@@ -7,8 +7,9 @@ Phases, in order; any failure raises and the script exits non-zero without
 printing the final line:
 
   0. the card's name and power limit (nvidia-smi);
-  1. build every CUDA kernel from ``alivevc_tpu_torch/csrc`` (one nvcc per
-     source, all at once);
+  1. build every CUDA kernel from ``alivevc_tpu_torch/csrc`` and the native
+     host library (the WORLD labeler) from ``alivevc_tpu_torch/native`` (one
+     nvcc per source and one g++, all at once);
   2. each kernel against its plain PyTorch version on the card, at the
      shapes its paths give it (the offline path; the sharded path's
      524 288-row shards with their valid-row counts; a penalty column; the
@@ -31,14 +32,20 @@ printing the final line:
      ``OfflineConverter.convert_16k`` answers three requests (10 s, 30 s,
      61 s) in bf16 and in fp32, one ``convert_window`` step at the bench
      shape (64 windows x 144 000 samples) and the bf16 licence's log-mel L1.
+     The 10 s request also goes through ``OfflineConverter(world_pitch=True)``
+     in bf16 and fp32: WORLD labels the pitch on the host (its host time is
+     printed beside the request's wall time), every offline kernel must
+     launch and the F0 estimator must not run (a forward hook counts its
+     calls, and must see the one plain step after).
      Launch counters are zeroed just before this phase and read just after
      it: every kernel must have run.  The bench-shape step is profiled by
      kernel group, and a device span named ``filter`` outside the
      filter_level group, or ``osc_`` outside the oscillator group, fails
      the run.  Then the licence's kNN flip rate (direct
      kernel calls; gated on phase 3's library, and reported on four more
-     library draws) and a small-input check of the card's output against the
-     plain versions on the CPU, none of them counted.
+     library draws) and small-input checks of the card's output against the
+     plain versions on the CPU (f0 given; and with WORLD's f0, which is the
+     same host computation on both sides), none of them counted.
   4. the library-sharded path at full width: ``convert_windows_distributed``
      on a ('data', 1) x ('library', 2) mesh as 2 gloo ranks on the one card
      (NCCL takes one rank per card), 16 windows of 144 000 samples, a
@@ -65,9 +72,27 @@ printing the final line:
      kernels at the hop's shapes against their plain versions (each filter
      level with its grid), the per-hop latency (median, p90, p99 over 200
      hops) of the eager, graph and pipelined graph forms and the real-time
-     factor, a profile of 20 hops of each form by kernel group, and both
-     CLIs in file mode on a 44.1 kHz wav (counted, each its own window).
-     The phase must finish within 60 s.
+     factor, a profile of 20 hops of each form by kernel group.  Then the
+     same three forms with ``world_pitch=True`` (f0 from WORLD on the host,
+     copied into the graph's static f0 input each hop): the eager hop
+     counted, the F0 estimator never run, the graph hop equal to the eager
+     one (<= 1e-5 over 50 hops), the pipelined graph equal to the
+     synchronous one delayed by a hop, and each form's per-hop latency with
+     WORLD's host ms a hop, over WPE_LATENCY_HOPS = 60 hops, and the
+     device's busy share of 20 graph hops (profiled).  Last, both CLIs in
+     file mode on a 44.1 kHz wav, plain and with ``-wpe`` (counted, each its
+     own window).  The phase must finish within 60 s.  WORLD takes 18-34 ms
+     a hop on the host, by the host, so the ``-wpe`` forms' latency runs 60
+     hops, not the plain forms' 200: at 200, one run's phase 6 took 56.4 s.
+  7. the frame-rate models sharded along time at full width: a 600 s
+     synthetic utterance (30 000 frames, its spectrogram by the STFT kernel,
+     counted) through the content encoder, the F0 estimator and the feature
+     extractor as 2 gloo ranks on the one card, 15 000 frames a rank, with a
+     halo exchange at each depthwise conv; each rank's slice against the
+     dense model on the whole input (<= 1e-4, TF32 off), each rank's time,
+     the dense time (rank 0 alone on the card), the halo bytes each rank
+     sends and gathers a layer, and rank 0's profile of one sharded
+     content-encoder pass.
 
 Its last lines are the ``kernels`` JSON line, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.  Float32 products run without TF32
@@ -78,6 +103,7 @@ mode.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -505,6 +531,7 @@ def run_main_path(ce, f0m, dec, lib, card):
             print(f"request {dtype} {secs:.0f} s audio: {dt:.3f} s wall, "
                   f"{secs / dt:.1f} audio-s/s, launches {grew} [{card}]")
             report[f"request_{dtype}_{secs:.0f}s_wall_s"] = dt
+    report.update(world_requests(ce, f0m, dec, lib, requests[0], card))
 
     # one step at the bench shape: 64 windows x 144 000 samples
     t = np.arange(LW) / 16_000.0
@@ -540,6 +567,103 @@ def run_main_path(ce, f0m, dec, lib, card):
     need(mel_l1 <= 0.25, f"bf16 log-mel L1 {mel_l1} > 0.25")
     report["bf16_mel_l1"] = mel_l1
     return report, xa
+
+
+class HostTimer:
+    """Wraps ``module.<name>`` (a host function, here WORLD's ``compute_f0``)
+    while in use, recording the host seconds of each call."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.seconds = module, name, []
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.name)
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = self.real(*args, **kwargs)
+            self.seconds.append(time.perf_counter() - t0)
+            return out
+
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+@contextlib.contextmanager
+def estimator_calls(f0m):
+    """A list that grows by one each time the F0 estimator runs, while in
+    use (a forward hook on its first layer, which ``f0_estimate`` calls as a
+    module)."""
+    calls = []
+    handle = f0m.input_layer.register_forward_hook(lambda *_: calls.append(1))
+    try:
+        yield calls
+    finally:
+        handle.remove()
+
+
+def world_requests(ce, f0m, dec, lib, wave, card) -> dict:
+    """Phase 3's WORLD-pitch requests: ``wave`` (10 s) through
+    ``OfflineConverter(world_pitch=True)`` in bf16 and fp32.  The STFT, kNN,
+    oscillator and filter kernels must launch, the F0 estimator must not
+    run; prints WORLD's host time beside the request's wall time."""
+    import numpy as np
+    import torch
+    from alivevc_tpu_torch.infer import offline
+    from alivevc_tpu_torch.kernels import LAUNCHES
+
+    report = {}
+    for dtype in ("bf16", "fp32"):
+        conv = offline.OfflineConverter(ce, f0m, dec, lib, world_pitch=True, dtype=dtype)
+        before = dict(LAUNCHES)
+        torch.cuda.synchronize()
+        with HostTimer(offline, "compute_f0") as world, estimator_calls(f0m) as calls:
+            t0 = time.perf_counter()
+            out = conv.convert_16k(wave)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        grew = {k: LAUNCHES[k] - before[k] for k in OFFLINE_KERNELS}
+        need(out.shape == wave.shape and bool(np.isfinite(out).all()), f"-wpe {dtype}: bad output")
+        need(all(v > 0 for v in grew.values()), f"-wpe {dtype}: a kernel did not launch: {grew}")
+        need(not calls, f"-wpe {dtype}: the F0 estimator ran {len(calls)} times")
+        w_s = sum(world.seconds)
+        secs = len(wave) / 16_000.0
+        print(f"request -wpe {dtype} {secs:.0f} s audio: {dt:.3f} s wall, WORLD (compute_f0, host) "
+              f"{w_s:.3f} s = {100 * w_s / dt:.1f} % of it, F0 estimator calls 0, launches {grew} "
+              f"[{card}]")
+        report[f"request_wpe_{dtype}_{secs:.0f}s_wall_s"] = dt
+        report[f"request_wpe_{dtype}_{secs:.0f}s_world_s"] = w_s
+    # the hook does see the estimator when it runs
+    with estimator_calls(f0m) as calls:
+        offline.convert_window(ce, f0m, dec, torch.from_numpy(wave[None, :9600]).cuda(), lib[:2048])
+    need(len(calls) == 1, f"the F0 estimator hook saw {len(calls)} calls of one plain step")
+    return report
+
+
+def world_reference_check(ce, f0m, dec, lib):
+    """``OfflineConverter(world_pitch=True)`` on the card against the plain
+    path on the CPU, fp32, 0.6 s of audio in windows of 14 400 samples: both
+    label the same windows with the same host WORLD, so f0 is the same."""
+    import copy
+
+    import numpy as np
+    from alivevc_tpu_torch.config import InferenceConfig
+    from alivevc_tpu_torch.infer.offline import OfflineConverter
+
+    wave = request_wave(0.6, np.random.default_rng(2))
+    cfg = InferenceConfig(chunk=4800)
+    got = OfflineConverter(ce, f0m, dec, lib[:2048], cfg, world_pitch=True).convert_16k(wave)
+    cpu = [copy.deepcopy(m).cpu() for m in (ce, f0m, dec)]
+    want = OfflineConverter(*cpu, lib[:2048].cpu(), cfg, world_pitch=True,
+                            device="cpu").convert_16k(wave)
+    err = float(np.abs(got - want).max())
+    print(f"reference check -wpe (card kernels vs CPU plain, fp32, same WORLD f0): max abs err "
+          f"{err:.3e} (<= 5e-3)")
+    need(err <= 5e-3, f"-wpe card vs CPU: max abs err {err} > 5e-3")
+    return err
 
 
 def knn_flip_rate(ce, lib, xa):
@@ -877,6 +1001,7 @@ LATENCY_HOPS = 200
 PROFILE_HOPS = 20
 STREAM_KERNELS = ("stft", "knn", "filter_level")
 PHASE6_LIMIT_S = 60.0
+WPE_LATENCY_HOPS = 60        # the -wpe forms' latency hops (WORLD runs on the host each hop)
 
 
 def hop_latency_ms(conv, chunks, warmup: int = 3):
@@ -913,11 +1038,11 @@ def hop_card_vs_cpu(ce, f0m, dec, tgt, state, chunk, rng):
             float((card_state.phi.cpu() - cpu_state.phi).abs().max()))
 
 
-def run_cli_phase(card):
+def run_cli_phase(card, flags=()):
     """Both CLIs in file mode on a 44.1 kHz wav the script writes, with a 10
-    s target voice at 16 kHz (models from seed 0: no checkpoint files),
-    counters zeroed before each and read after; returns the launches,
-    summed."""
+    s target voice at 16 kHz (models from seed 0: no checkpoint files) and
+    ``flags`` added, counters zeroed before each and read after; returns the
+    launches, summed."""
     import os
     import tempfile
 
@@ -938,11 +1063,12 @@ def run_cli_phase(card):
         length16 = math.ceil(160 * len(wave) / 441)
         runs = (
             ("offline", OFFLINE_KERNELS, lambda: inference.main(
-                ["-i", os.path.join(tmp, "in"), "-o", os.path.join(tmp, "out"), "-t", target])[0],
+                ["-i", os.path.join(tmp, "in"), "-o", os.path.join(tmp, "out"), "-t", target,
+                 *flags])[0],
              os.path.join(tmp, "out", "0_voice.wav"), sr, math.ceil(441 * length16 / 160)),
             ("realtime", STREAM_KERNELS, lambda: realtime_inference.main(
                 ["--input-wav", os.path.join(tmp, "in", "voice.wav"),
-                 "--output-wav", os.path.join(tmp, "streamed.wav"), "-t", target]),
+                 "--output-wav", os.path.join(tmp, "streamed.wav"), "-t", target, *flags]),
              os.path.join(tmp, "streamed.wav"), 16_000, length16 // HOP_CHUNK * HOP_CHUNK),
         )
         for name, kernels, run, path, want_sr, want_len in runs:
@@ -957,11 +1083,71 @@ def run_cli_phase(card):
                  f"{name} CLI: output {out.shape} / file {written.shape} at {written_sr} Hz, "
                  f"expected {want_len} samples at {want_sr} Hz")
             need(bool(np.isfinite(out).all()), f"{name} CLI: non-finite output")
-            print(f"{name} CLI, file mode, 4 s at {sr} Hz in: {want_len} samples at {want_sr} Hz out, "
+            print(f"{name} CLI {' '.join(flags)}, file mode, 4 s at {sr} Hz in: {want_len} samples "
+                  f"at {want_sr} Hz out, "
                   f"{dt:.2f} s wall (models built from seed 0, capture included), launches {got} [{card}]")
             for k in total:
                 total[k] += got[k]
     return total
+
+
+def run_realtime_world(ce, f0m, dec, tgt, prime, hops, card):
+    """Phase 6's WORLD-pitch forms of ``StreamingConverter(world_pitch=True)``:
+    the eager hop counted (the F0 estimator must not run), the graph hop
+    against it, the pipelined graph against the synchronous one delayed by a
+    hop, and each form's per-hop latency with WORLD's host ms a hop."""
+    import numpy as np
+    import torch
+    from alivevc_tpu_torch.infer import streaming
+    from alivevc_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    def converter(**kw):
+        conv = streaming.StreamingConverter(ce, f0m, dec, tgt, world_pitch=True, **kw)
+        conv.prime(prime)
+        return conv
+
+    eager = converter(cuda_graph=False)
+    reset_launches()
+    with estimator_calls(f0m) as calls:
+        eager_out = [eager.process_chunk(c) for c in hops[:COMPARE_HOPS]]
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        need(all(launches[k] > 0 for k in STREAM_KERNELS),
+             f"realtime -wpe: a kernel did not launch: {launches}")
+        graph = converter()
+        graph_out = [graph.process_chunk(c) for c in hops[:COMPARE_HOPS]]
+        piped = converter(pipeline_depth=1)
+        piped_out = [piped.process_chunk(c) for c in hops[:COMPARE_HOPS]] + piped.flush()
+    need(not calls, f"realtime -wpe: the F0 estimator ran {len(calls)} times")
+    diff = max(float(np.abs(a - b).max()) for a, b in zip(eager_out, graph_out))
+    same = (len(piped_out) == COMPARE_HOPS + 1 and not piped_out[0].any()
+            and all(np.array_equal(a, b) for a, b in zip(graph_out, piped_out[1:])))
+    print(f"realtime -wpe: eager hop launches per hop "
+          f"{ {k: launches[k] / COMPARE_HOPS for k in launches} }; graph replay vs eager over "
+          f"{COMPARE_HOPS} hops: max abs diff {diff:.3e} (<= 1e-5); pipelined (depth 1) equals "
+          f"synchronous delayed by one hop: {same}; F0 estimator calls 0")
+    need(diff <= 1e-5, f"realtime -wpe: graph replay differs from the eager hop by {diff}")
+    need(all(bool(np.isfinite(o).all()) for o in graph_out), "realtime -wpe: non-finite output")
+    need(same, "realtime -wpe: the pipelined outputs are not the synchronous ones delayed by one hop")
+    latency = {}
+    for name, conv in (("eager, synchronous", eager), ("graph, synchronous", graph),
+                       ("graph, pipelined", piped)):
+        with HostTimer(streaming, "compute_f0") as world:
+            lat = hop_latency_ms(conv, hops[:WPE_LATENCY_HOPS + 3])
+        lat["real_time_factor"] = lat["median"] / 60.0
+        lat["world_ms_median"] = 1e3 * statistics.median(world.seconds)
+        lat["world_ms_mean"] = 1e3 * statistics.mean(world.seconds)
+        latency[name] = lat
+        print(f"realtime -wpe: per-hop latency, {name}: median {lat['median']:.3f} ms, p90 "
+              f"{lat['p90']:.3f}, p99 {lat['p99']:.3f} over {lat['hops']} hops; real-time factor "
+              f"{lat['real_time_factor']:.4f}; WORLD (compute_f0, host) median "
+              f"{lat['world_ms_median']:.3f} ms a hop, mean {lat['world_ms_mean']:.3f} [{card}]")
+    # the device's busy share of a -wpe hop (WORLD keeps the host, not the card, busy)
+    prof = profile_step(lambda: [graph.process_chunk(c) for c in hops[:PROFILE_HOPS]], card,
+                        f"{PROFILE_HOPS} hops, graph, synchronous, -wpe")
+    return launches, {"wpe_graph_vs_eager_max_abs": diff, "wpe_latency_ms": latency,
+                      "wpe_graph_busy_share": None if prof is None
+                      else prof["device_busy_ms"] / prof["wall_ms"]}
 
 
 def run_realtime(ce, f0m, dec, gen, card):
@@ -1048,8 +1234,11 @@ def run_realtime(ce, f0m, dec, gen, card):
             print(f"realtime: {name} hop device time {prof['device_busy_ms'] / PROFILE_HOPS:.4f} ms, "
                   f"{prof['device_spans'] / PROFILE_HOPS:.1f} device spans a hop")
         profiles[name] = prof
-    # 8. the CLIs
+    # 8. WORLD pitch: the same three forms with f0 from the host
+    wpe_launches, wpe_report = run_realtime_world(ce, f0m, dec, tgt, prime, hops, card)
+    # 9. the CLIs, plain and with -wpe
     cli_launches = run_cli_phase(card)
+    wpe_cli_launches = run_cli_phase(card, ("-wpe",))
     elapsed = time.perf_counter() - t_start
     print(f"realtime: phase 6 took {elapsed:.1f} s (<= {PHASE6_LIMIT_S:.0f})")
     need(elapsed <= PHASE6_LIMIT_S, f"phase 6 took {elapsed:.1f} s > {PHASE6_LIMIT_S}")
@@ -1059,8 +1248,184 @@ def run_realtime(ce, f0m, dec, gen, card):
                                 for k, v in profiles.items()},
               "hop_busy_share": {k: None if v is None else v["device_busy_ms"] / v["wall_ms"]
                                  for k, v in profiles.items()},
-              "elapsed_s": elapsed}
-    return {k: launches[k] + cli_launches[k] for k in launches}, rows, report
+              "elapsed_s": elapsed, **wpe_report}
+    return ({k: launches[k] + wpe_launches[k] + cli_launches[k] + wpe_cli_launches[k]
+             for k in launches}, rows, report)
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the frame-rate models sharded along time (halo exchange)
+# ---------------------------------------------------------------------------
+
+HALO_SECONDS = 600.0         # a 600 s utterance: 30 000 frames, 15 000 a rank
+HALO_RANKS = 2
+HALO_TIMEOUT_S = 300
+HALO_TOL = 1e-4
+
+
+def run_halo(world: int) -> dict:
+    """This rank's part of phase 7 on a ('data', world) mesh: the utterance's
+    spectrogram by the STFT kernel (counted), then the content encoder, the
+    F0 estimator and the feature extractor on this rank's slice of time,
+    each timed (host clock, synchronised, after a warm-up), and each dense
+    model on the whole input against this rank's slice.  Needs the default
+    process group."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from alivevc_tpu_torch.config import ContentEncoderConfig, DecoderConfig, F0EstimatorConfig
+    from alivevc_tpu_torch.kernels import LAUNCHES, reset_launches
+    from alivevc_tpu_torch.kernels.stft import stft_magnitude
+    from alivevc_tpu_torch.models.content_encoder import ContentEncoder, content_encoder
+    from alivevc_tpu_torch.models.decoder import Decoder, feature_extractor
+    from alivevc_tpu_torch.models.f0_estimator import F0Estimator, f0_estimator
+    from alivevc_tpu_torch.parallel import (
+        content_encoder_sharded,
+        f0_estimator_sharded,
+        feature_extractor_sharded,
+        make_mesh,
+        shard_along,
+        sharded_frame_model,
+    )
+
+    cpu_gen = torch.Generator().manual_seed(SEED)
+    ce = ContentEncoder(ContentEncoderConfig(), generator=cpu_gen).cuda().eval()
+    f0m = F0Estimator(F0EstimatorConfig(), generator=cpu_gen).cuda().eval()
+    fe = Decoder(DecoderConfig(), generator=cpu_gen).cuda().eval().feature_extractor
+    wave = torch.from_numpy(request_wave(HALO_SECONDS, np.random.default_rng(SEED + 8))).cuda()
+    frames = int(HALO_SECONDS * 50)
+    t = np.arange(frames) * 320 / 16_000.0
+    f0 = torch.from_numpy((110.0 + 60.0 * np.sin(2 * np.pi * 0.3 * t)).astype(np.float32)).cuda()
+    mesh = make_mesh([("data", world)], "cuda")
+
+    reset_launches()
+    spec = stft_magnitude(wave[None])[0, :-1]                                # [30 000, 641]
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    content = content_encoder(ce, spec[None])[0]
+    dense_fns = {
+        "content_encoder": lambda: content_encoder(ce, spec[None])[0],
+        "f0_estimator": lambda: f0_estimator(f0m, spec[None])[0],
+        "feature_extractor": lambda: feature_extractor(fe, content[None], f0[None, :, None])[0],
+    }
+    local = {k: shard_along(v, mesh, "data") for k, v in
+             (("spec", spec), ("content", content), ("f0", f0[:, None]))}
+    sharded_fns = {
+        "content_encoder": lambda: sharded_frame_model(
+            mesh, lambda x, ax: content_encoder_sharded(ce, x, ax), local["spec"]),
+        "f0_estimator": lambda: sharded_frame_model(
+            mesh, lambda x, ax: f0_estimator_sharded(f0m, x, ax), local["spec"]),
+        "feature_extractor": lambda: sharded_frame_model(
+            mesh, lambda x, ax: feature_extractor_sharded(fe, x[:, :-1], x[:, -1:], ax),
+            torch.cat([local["content"], local["f0"]], dim=1)),
+    }
+
+    def timed(fn):
+        fn()                       # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    res = {"launches": launches, "frames": frames, "local_frames": local["spec"].shape[0],
+           "ms": {}, "dense_ms": {}, "err": {}, "channels": {}}
+    for name, fn in sharded_fns.items():
+        dist.barrier()
+        out, res["ms"][name] = timed(fn)
+        want = dense_fns[name]()
+        res["err"][name] = float((out - shard_along(want, mesh, "data")).abs().max())
+        dist.barrier()
+        if dist.get_rank() == 0:   # the dense model alone on the card
+            _, res["dense_ms"][name] = timed(dense_fns[name])
+        dist.barrier()
+        res["channels"][name] = {"content_encoder": ce, "f0_estimator": f0m,
+                                 "feature_extractor": fe}[name].mid_layers[0].dw_conv.weight.shape[0]
+    # one more sharded content-encoder pass, profiled on rank 0 (every rank takes part)
+    dist.barrier()
+    if dist.get_rank() == 0:
+        profile_step(sharded_fns["content_encoder"], card_line(),
+                     f"halo content encoder, rank 0 of {world}")
+    else:
+        sharded_fns["content_encoder"]()
+        torch.cuda.synchronize()
+    res["layers"] = {"content_encoder": len(ce.mid_layers), "f0_estimator": len(f0m.mid_layers),
+                     "feature_extractor": len(fe.mid_layers)}
+    res["halo"] = (ce.mid_layers[0].dw_conv.weight.shape[-1] - 1) // 2
+    return res
+
+
+def halo_rank(rank: int, world: int, tmp: str) -> None:
+    """A spawned rank of phase 7: gloo on cuda:0, results to tmp/halo<r>.pt."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+    from alivevc_tpu_torch.parallel import init_distributed
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_grad_enabled(False)
+    init_distributed("gloo", f"file://{tmp}/rendezvous", world, rank)
+    try:
+        torch.save(run_halo(world), os.path.join(tmp, f"halo{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_halo_phase(card):
+    """Phase 7: the halo models as HALO_RANKS gloo ranks on the one card, each
+    rank's slice against the dense model on the whole input."""
+    import multiprocessing
+    import os
+    import tempfile
+
+    import torch
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=halo_rank, args=(r, HALO_RANKS, tmp)) for r in range(HALO_RANKS)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(max(1.0, HALO_TIMEOUT_S - (time.perf_counter() - t0)))
+            alive = [p.pid for p in procs if p.is_alive()]
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(30)
+        need(not alive, f"halo ranks {alive} did not finish in {HALO_TIMEOUT_S} s")
+        need(all(p.exitcode == 0 for p in procs), f"halo ranks failed: {[p.exitcode for p in procs]}")
+        ranks = [torch.load(os.path.join(tmp, f"halo{r}.pt"), weights_only=False)
+                 for r in range(HALO_RANKS)]
+    report = {"frames": ranks[0]["frames"], "ranks": HALO_RANKS, "models": {}}
+    for name in ranks[0]["ms"]:
+        c, layers, halo = ranks[0]["channels"][name], ranks[0]["layers"][name], ranks[0]["halo"]
+        sent = 2 * halo * c * 4          # bytes each rank contributes a layer (float32 edge slabs)
+        entry = {"rank_ms": [r["ms"][name] for r in ranks],
+                 "dense_ms": ranks[0]["dense_ms"][name],
+                 "max_abs_err": max(r["err"][name] for r in ranks),
+                 "layers": layers, "halo_frames": halo, "channels": c,
+                 "bytes_sent_per_rank_per_layer": sent,
+                 "bytes_gathered_per_rank_per_layer": sent * HALO_RANKS}
+        report["models"][name] = entry
+        print(f"halo [{card}]: {name} on {HALO_RANKS} gloo ranks on one card, {ranks[0]['frames']} "
+              f"frames ({ranks[0]['local_frames']} a rank), full width: rank ms "
+              f"{', '.join(f'{m:.3f}' for m in entry['rank_ms'])}; dense on one rank "
+              f"{entry['dense_ms']:.3f} ms; max abs err vs dense {entry['max_abs_err']:.3e} "
+              f"(<= {HALO_TOL:.0e}); {layers} layers, halo {halo} frames x {c} channels: "
+              f"{sent} bytes sent and {sent * HALO_RANKS} gathered per rank per layer")
+        need(entry["max_abs_err"] <= HALO_TOL,
+             f"halo {name}: {entry['max_abs_err']} from dense > {HALO_TOL}")
+    for r, res in enumerate(ranks):
+        need(res["launches"]["stft"] > 0, f"halo rank {r}: the STFT kernel did not launch")
+    launches = {k: sum(res["launches"][k] for res in ranks) for k in ranks[0]["launches"]}
+    return launches, report
 
 
 # ---------------------------------------------------------------------------
@@ -1086,7 +1451,7 @@ def kernels_line(rows, launches):
     filter's four up levels in bf16, summed: one step runs all four; the
     packed kNN at the 100 352-row library); every measured variant, the
     streaming hop's included, is listed under 'variants'.  Launches are summed over the paths driven
-    (phases 3, 4 with both ranks, 5, 6)."""
+    (phases 3, 4 with both ranks, 5, 6, 7 with both ranks)."""
     out = []
     for name, (source, replaces) in REPLACES.items():
         mine = [r for r in rows if r["name"] == name]
@@ -1144,7 +1509,7 @@ def main() -> int:
         print(f"chip_smoke: the port is not importable here ({e})", file=sys.stderr)
         return 2
     from alivevc_tpu_torch.config import ContentEncoderConfig, DecoderConfig, F0EstimatorConfig
-    from alivevc_tpu_torch.kernels import LAUNCHES, build_all, reset_launches
+    from alivevc_tpu_torch.kernels import LAUNCHES, _lib, build_all, reset_launches
     from alivevc_tpu_torch.models.content_encoder import ContentEncoder
     from alivevc_tpu_torch.models.decoder import Decoder
     from alivevc_tpu_torch.models.f0_estimator import F0Estimator
@@ -1161,8 +1526,9 @@ def main() -> int:
           f"tf32 matmul={torch.backends.cuda.matmul.allow_tf32} cudnn={torch.backends.cudnn.allow_tf32}")
 
     # phase 1
-    secs = build_all()
-    print(f"build: {secs:.1f} s for {', '.join(['stft', 'knn', 'oscillator', 'filter'])}")
+    libs = [*_lib.SOURCES, _lib.NATIVE_LIB]
+    secs = build_all(libs)
+    print(f"build: {secs:.1f} s for {', '.join(libs)} (nvcc, and g++ for the native library)")
 
     # phase 2
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1199,6 +1565,7 @@ def main() -> int:
     report["bf16_knn_flip_rate"] = knn_flip_rate(ce, lib, xa)
     report["bf16_knn_flip_rates_other_draws"] = knn_flip_rates_over_draws(ce, xa)
     reference_check(ce, f0m, dec, lib)
+    world_reference_check(ce, f0m, dec, lib)
     print(f"phase 3 done at {time.perf_counter() - t_start:.1f} s; report {json.dumps(report)}")
     del lib, xa
 
@@ -1217,7 +1584,12 @@ def main() -> int:
     rows.extend(rt_rows)
     print(f"phase 6 done at {time.perf_counter() - t_start:.1f} s; report {json.dumps(realtime)}")
 
-    total = {k: launches[k] + sharded_launches[k] + api_launches[k] + rt_launches[k] for k in launches}
+    # phase 7
+    halo_launches, halo = run_halo_phase(card)
+    print(f"phase 7 done at {time.perf_counter() - t_start:.1f} s; report {json.dumps(halo)}")
+
+    total = {k: launches[k] + sharded_launches[k] + api_launches[k] + rt_launches[k]
+             + halo_launches[k] for k in launches}
     print(json.dumps(kernels_line(rows, total)))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,14 +18,18 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from alivevc_tpu import native_bindings as jnative
 from alivevc_tpu.compat import torch_export
 from alivevc_tpu.config import InferenceConfig as JInferenceConfig
+from alivevc_tpu.config import StreamingConfig as JStreamingConfig
 from alivevc_tpu.config import VoiceLibraryConfig
 from alivevc_tpu.infer import offline as joffline
+from alivevc_tpu.infer import streaming as jstreaming
 from alivevc_tpu.io.checkpoint import load_checkpoint as jload_checkpoint
 from alivevc_tpu.io.checkpoint import save_checkpoint as jsave_checkpoint
 from alivevc_tpu.models.voice_library import init_voice_library
 from alivevc_tpu.ops.resample import resample as jresample
+from alivevc_tpu.ops.stft import log_mel_spectrogram as jlog_mel
 from alivevc_tpu_torch.cli import common, inference, realtime_inference
 from alivevc_tpu_torch.compat import weights
 from alivevc_tpu_torch.config import StreamingConfig
@@ -33,8 +37,10 @@ from alivevc_tpu_torch.infer.streaming import StreamingConverter
 from alivevc_tpu_torch.io import checkpoint
 from alivevc_tpu_torch.io.audio import read_wav, write_wav
 from alivevc_tpu_torch.ops.resample import resample
+from alivevc_tpu_torch.utils import plotting as tplotting
 
-from test_torch_port_util import jax_models
+from test_torch_port_util import build_jax_native, jax_models
+from test_torch_port_world import _speech
 
 KINDS = ("content_encoder", "f0_estimator", "decoder")
 
@@ -181,13 +187,68 @@ def test_realtime_cli_equals_streaming_converter(files, tmp_path):
     np.testing.assert_array_equal(got[0], want16.astype(np.float32))
 
 
-def test_cli_flags_of_later_slices_and_the_device_rule(tmp_path):
-    with pytest.raises(NotImplementedError, match="WORLD"):
-        inference.main(["-i", str(tmp_path), "-wpe", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="plotting"):
-        inference.main(["-i", str(tmp_path), "--save-spectrograms", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="WORLD"):
-        realtime_inference.main(["--input-wav", "x.wav", "-wpe", "--device", "cpu"])
+def test_cli_flags_of_later_slices_and_the_device_rule(files, tmp_path, monkeypatch):
+    """``-wpe`` and ``--save-spectrograms`` (once refused as later slices) on
+    the CPU: the offline CLI against JAX ``OfflineConverter(world_pitch=True)
+    .convert`` (what JAX's CLI runs) within 5e-3, with two PNGs a file whose
+    plotted log-mels are JAX's within 1e-3 (input) and 5e-2 (output: the
+    waves differ by up to 5e-3); the realtime CLI against JAX
+    ``StreamingConverter(world_pitch=True)`` within 5e-3 plus the 16-bit
+    rounding.  Both sides label pitch with a native library built from the
+    same source.  Then the device rule: without CUDA, the CLIs raise."""
+    d, params, cfgs, paths, _ = files
+    monkeypatch.setattr(jnative, "_LIB_PATHS", [build_jax_native(tmp_path)])
+    monkeypatch.setattr(jnative, "_lib", None)
+    plotted = []
+    real_plot = tplotting.plot_spectrogram
+    monkeypatch.setattr(tplotting, "plot_spectrogram",
+                        lambda spec, path, log=True: (plotted.append(spec), real_plot(spec, path, log)))
+
+    sr = 22_050
+    (tmp_path / "in").mkdir()
+    write_wav(str(tmp_path / "in" / "a.wav"), _speech(int(0.4 * sr), sr, 5), sr)
+    write_wav(str(tmp_path / "target.wav"), _wave(16_000, 0.5, 2), 16_000)
+    inference.main([
+        "-i", str(tmp_path / "in"), "-o", str(tmp_path / "out"), "-t", str(tmp_path / "target.wav"),
+        "-cep", paths["content_encoder"][0], "-f0ep", paths["f0_estimator"][1],
+        "-dep", paths["decoder"][0], "-c", "1600", "-g", "-30", "-wpe", "--save-spectrograms",
+        "--device", "cpu"])
+    got, got_sr = read_wav(str(tmp_path / "out" / "0_a.wav"))
+    wave, _ = read_wav(str(tmp_path / "in" / "a.wav"))
+    tw, _ = read_wav(str(tmp_path / "target.wav"))
+    tgt = joffline.build_target_matrix(params[0], target_wave=tw[0] / np.abs(tw).max())
+    want = joffline.OfflineConverter(params[0], params[1], params[2], tgt,
+                                     JInferenceConfig(chunk=1600, gain_db=-30.0), cfgs[2],
+                                     world_pitch=True).convert(wave, sr)
+    assert got_sr == sr and got.shape == (1, want.shape[0])
+    assert 0.05 < np.abs(want).max() < 1.0
+    assert float(np.abs(got[0] - want).max()) <= 5e-3
+    for tag in ("input", "output"):
+        png = tmp_path / "out" / f"0_a_{tag}_spec.png"
+        assert png.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+    assert len(plotted) == 2
+    for spec, w, tol in ((plotted[0], wave[0], 1e-3), (plotted[1], want, 5e-2)):
+        ref = np.asarray(jlog_mel(jnp.asarray(w, jnp.float32)[None], sr))[0]
+        assert spec.shape == ref.shape and float(np.abs(spec - ref).max()) <= tol
+
+    write_wav(str(tmp_path / "rt_in.wav"), _speech(8000, 16_000, 6), 16_000)
+    realtime_inference.main([
+        "--input-wav", str(tmp_path / "rt_in.wav"), "--output-wav", str(tmp_path / "rt_out.wav"),
+        "-t", str(tmp_path / "target.wav"), "-cep", paths["content_encoder"][1],
+        "-f0ep", paths["f0_estimator"][0], "-dep", paths["decoder"][1], "-c", "640", "-b", "4",
+        "-g", "-30", "-wpe", "--device", "cpu"])
+    rt, _ = read_wav(str(tmp_path / "rt_out.wav"))
+    x, _ = read_wav(str(tmp_path / "rt_in.wav"))
+    jtgt = joffline.build_target_matrix(params[0], target_wave=tw[0] / np.abs(tw).max(),
+                                        decimation=4)
+    jconv = jstreaming.StreamingConverter(params[0], params[1], params[2], jtgt,
+                                          JStreamingConfig(chunk=640, buffer_size=4), cfgs[2],
+                                          world_pitch=True, pipeline_depth=1)
+    outs = [jconv.process_chunk(x[0, i * 640:(i + 1) * 640]) for i in range(12)]
+    rt_want = np.concatenate(outs[1:] + jconv.flush()) * 10.0 ** (-30 / 20)
+    assert rt.shape == (1, rt_want.shape[0]) and 0.05 < np.abs(rt_want).max() < 1.0
+    assert float(np.abs(rt[0] - rt_want).max()) <= 5e-3 + 2.0 ** -15
+
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             inference.main(["-i", str(tmp_path), "-o", str(tmp_path / "o")])

@@ -679,3 +679,145 @@ def test_streaming_graph_equals_eager_on_card():
     assert np.array_equal(outs["piped"][0], np.zeros(960, np.float32))
     for a, b in zip(outs["graph"], outs["piped"][1:]):
         assert np.array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# WORLD pitch on the streaming hop; the halo models as gloo ranks on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_streaming_world_pitch_graph_on_card():
+    """StreamingConverter(world_pitch=True) at full width: the graph hop
+    equals the eager hop over 10 hops (held to 1e-5, expected identical),
+    the pipelined graph returns them one hop late, the F0 estimator never
+    runs, and after the capture a graph hop makes no synchronising host-device
+    copy or wait: process_chunk runs under set_sync_debug_mode('error')."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; on the card run this file with --noconftest -m gpu")
+    from alivevc_tpu_torch.config import ContentEncoderConfig, F0EstimatorConfig
+    from alivevc_tpu_torch.infer.streaming import StreamingConverter
+    from alivevc_tpu_torch.kernels import LAUNCHES, reset_launches
+    from alivevc_tpu_torch.models.content_encoder import ContentEncoder
+    from alivevc_tpu_torch.models.f0_estimator import F0Estimator
+
+    gen = torch.Generator().manual_seed(0)
+    ce = ContentEncoder(ContentEncoderConfig(), generator=gen).cuda()
+    f0m = F0Estimator(F0EstimatorConfig(), generator=gen).cuda()
+    dec = Decoder(DecoderConfig(), generator=gen).cuda()
+    calls = []
+    f0m.input_layer.register_forward_hook(lambda *_: calls.append(1))
+    tgt = torch.randn(900, 768, generator=torch.Generator(device="cuda").manual_seed(7), device="cuda")
+    tt = np.arange(960 * 18) / 16000.0
+    wave = (0.4 * np.sin(2 * np.pi * (150 + 40 * np.sin(2 * np.pi * tt)) * tt)).astype(np.float32)
+    chunks = [wave[i * 960:(i + 1) * 960] for i in range(8, 18)]
+    outs = {}
+    for name, kw in (("eager", dict(cuda_graph=False)), ("graph", {}),
+                     ("piped", dict(pipeline_depth=1))):
+        conv = StreamingConverter(ce, f0m, dec, tgt, world_pitch=True, **kw)
+        conv.prime(wave[:960 * 8])
+        reset_launches()
+        outs[name] = [conv.process_chunk(chunks[0])]
+        if name != "eager":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            outs[name] += [conv.process_chunk(c) for c in chunks[1:]]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        outs[name] += conv.flush()
+        assert LAUNCHES["stft"] == (10 if name == "eager" else 3)
+        np.testing.assert_array_equal(conv.state.window[0].cpu().numpy(), conv._host_window)
+    assert not calls, "the F0 estimator ran under world_pitch"
+    err = max(float(np.abs(a - b).max()) for a, b in zip(outs["eager"], outs["graph"]))
+    assert err <= 1e-5, err
+    assert all(np.isfinite(o).all() for o in outs["graph"])
+    assert np.array_equal(outs["piped"][0], np.zeros(960, np.float32))
+    for a, b in zip(outs["graph"], outs["piped"][1:]):
+        assert np.array_equal(a, b)
+
+
+def _halo_rank(rank: int, world: int, tmp: str) -> None:
+    """Rank ``rank`` of ``world`` gloo ranks on cuda:0: the three halo models
+    at default widths on its half of a 200-frame input."""
+    import torch.distributed as dist
+
+    from alivevc_tpu_torch.config import ContentEncoderConfig, F0EstimatorConfig
+    from alivevc_tpu_torch.models.content_encoder import ContentEncoder
+    from alivevc_tpu_torch.models.f0_estimator import F0Estimator
+    from alivevc_tpu_torch.parallel import (
+        content_encoder_sharded,
+        f0_estimator_sharded,
+        feature_extractor_sharded,
+        gather_time,
+        init_distributed,
+        make_mesh,
+        shard_along,
+        sharded_frame_model,
+    )
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_grad_enabled(False)
+    init_distributed("gloo", f"file://{tmp}/halo_rendezvous", world, rank)
+    try:
+        gen = torch.Generator().manual_seed(0)
+        ce = ContentEncoder(ContentEncoderConfig(), generator=gen).cuda()
+        f0m = F0Estimator(F0EstimatorConfig(), generator=gen).cuda()
+        fe = Decoder(DecoderConfig(), generator=gen).cuda().feature_extractor
+        inputs = torch.load(os.path.join(tmp, "inputs.pt"))
+        mesh = make_mesh([("data", world)], "cuda")
+        spec, cf = (shard_along(inputs[k].cuda(), mesh, "data") for k in ("spec", "cf"))
+        out = {
+            "ce": sharded_frame_model(mesh, lambda s, ax: content_encoder_sharded(ce, s, ax), spec),
+            "f0": sharded_frame_model(mesh, lambda s, ax: f0_estimator_sharded(f0m, s, ax), spec),
+            "fe": sharded_frame_model(
+                mesh, lambda x, ax: feature_extractor_sharded(fe, x[:, :-1], x[:, -1:], ax), cf),
+        }
+        torch.save({k: gather_time(mesh, v).cpu() for k, v in out.items()},
+                   os.path.join(tmp, f"halo_r{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_halo_two_ranks_on_card(tmp_path):
+    """The halo content encoder, F0 estimator and feature extractor as 2 gloo
+    ranks on one card equal the dense models within 1e-4 (TF32 off)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; on the card run this file with --noconftest -m gpu")
+    from alivevc_tpu_torch.config import ContentEncoderConfig, F0EstimatorConfig
+    from alivevc_tpu_torch.models.content_encoder import ContentEncoder, content_encoder
+    from alivevc_tpu_torch.models.decoder import feature_extractor
+    from alivevc_tpu_torch.models.f0_estimator import F0Estimator, f0_estimator
+
+    g = torch.Generator().manual_seed(3)
+    spec = torch.rand(200, 641, generator=g)
+    cf = torch.cat([torch.randn(200, 768, generator=g), 80 + 200 * torch.rand(200, 1, generator=g)], 1)
+    torch.save({"spec": spec, "cf": cf}, tmp_path / "inputs.pt")
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_halo_rank, args=(r, 2, str(tmp_path))) for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(300)
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.kill()
+    assert not alive and all(p.exitcode == 0 for p in procs), [p.exitcode for p in procs]
+    got = [torch.load(tmp_path / f"halo_r{r}.pt") for r in range(2)]
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(0)
+    ce = ContentEncoder(ContentEncoderConfig(), generator=gen).cuda()
+    f0m = F0Estimator(F0EstimatorConfig(), generator=gen).cuda()
+    fe = Decoder(DecoderConfig(), generator=gen).cuda().feature_extractor
+    s, c = spec.cuda()[None], cf.cuda()[None]
+    with torch.no_grad():
+        dense = {"ce": content_encoder(ce, s)[0], "f0": f0_estimator(f0m, s)[0],
+                 "fe": feature_extractor(fe, c[..., :-1], c[..., -1:])[0]}
+    for k, want in dense.items():
+        assert torch.equal(got[0][k], got[1][k]), k
+        assert max_err(got[0][k], want.cpu()) <= 1e-4, k

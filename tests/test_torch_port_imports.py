@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: importing every module of
-``alivevc_tpu_torch`` (and ``chip_smoke.py``) in a fresh interpreter leaves
-``jax`` and the JAX package ``alivevc_tpu`` out of ``sys.modules``, and no
-source file of the port names either in an import."""
+``alivevc_tpu_torch`` (and ``chip_smoke.py``) in a fresh interpreter, and
+running the native WORLD labeler, leaves ``jax`` and the JAX package
+``alivevc_tpu`` (its ``native_bindings`` included) out of ``sys.modules``,
+and no source file of the port names either in an import."""
 
 import ast
 import pathlib
@@ -18,6 +19,9 @@ names = [m.name for m in pkgutil.walk_packages(alivevc_tpu_torch.__path__, "aliv
 for name in names:
     importlib.import_module(name)
 runpy.run_path(sys.argv[1], run_name="chip_smoke_probe")
+import numpy as np
+from alivevc_tpu_torch.ops.world import compute_f0
+assert compute_f0(np.zeros((1, 3200), np.float32)).shape == (1, 10)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "alivevc_tpu" or m.startswith("alivevc_tpu."))
 print(len(names), bad, " ".join(names))
@@ -33,7 +37,9 @@ def test_importing_the_port_loads_no_jax():
     assert n_modules >= 30
     for mod in ("parallel.mesh", "parallel.sharded_knn", "parallel.distributed_vc",
                 "infer.streaming", "ops.resample", "io.audio", "io.checkpoint",
-                "models.voice_library", "cli.common", "cli.inference", "cli.realtime_inference"):
+                "models.voice_library", "cli.common", "cli.inference", "cli.realtime_inference",
+                "native_bindings", "ops.world", "parallel.halo", "utils.metrics", "utils.plotting",
+                "utils.profiling", "cli.audio_device_list"):
         assert f"alivevc_tpu_torch.{mod}" in proc.stdout.split()
 
 
@@ -50,7 +56,8 @@ def test_no_source_file_imports_jax_or_the_jax_package():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) >= 30
     for path in ("parallel/sharded_knn.py", "infer/streaming.py", "ops/resample.py", "io/audio.py",
-                 "io/checkpoint.py", "models/voice_library.py", "cli/realtime_inference.py"):
+                 "io/checkpoint.py", "models/voice_library.py", "cli/realtime_inference.py",
+                 "native_bindings.py", "ops/world.py", "parallel/halo.py", "utils/profiling.py"):
         assert PKG / path in files
     for path in files:
         for mod in _imports(path):

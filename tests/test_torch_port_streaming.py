@@ -161,14 +161,18 @@ def test_stream_state_shapes(small_setup):
 
 
 def test_streaming_entry_points_need_cuda_unless_asked_for_cpu(small_setup):
-    """No CPU fallback, no graph on the CPU, no WORLD pitch yet."""
+    """No CPU fallback (WORLD pitch included), no graph on the CPU; WORLD
+    pitch runs on the CPU when asked for by name."""
     ce, f0m, dec, tgt, cfg = small_setup
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             tstreaming.init_stream_state(cfg)
         with pytest.raises(RuntimeError):
             tstreaming.StreamingConverter(ce, f0m, dec, tgt, cfg)
+        with pytest.raises(RuntimeError):
+            tstreaming.StreamingConverter(ce, f0m, dec, tgt, cfg, world_pitch=True)
     with pytest.raises(ValueError):
         tstreaming.StreamingConverter(ce, f0m, dec, tgt, cfg, cuda_graph=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tstreaming.StreamingConverter(ce, f0m, dec, tgt, cfg, world_pitch=True, device="cpu")
+    conv = tstreaming.StreamingConverter(ce, f0m, dec, tgt, cfg, world_pitch=True, device="cpu")
+    out = conv.process_chunk(_tone(cfg.chunk))
+    assert out.shape == (cfg.chunk,) and np.isfinite(out).all()

@@ -18,6 +18,12 @@ import torch
 
 import jax
 
+# The suite runs as several pytest-xdist workers on one host's cores; each
+# worker's PyTorch intra-op pool would spin on cores that the others need (a
+# parallel run took over four times as long), so the port's CPU tests use
+# one thread a process.
+torch.set_num_threads(1)
+
 CE_KW = dict(internal_channels=32, hidden_channels=64, output_channels=64, num_layers=2)
 F0_KW = dict(internal_channels=32, hidden_channels=64, num_layers=2)
 DEC_KW = dict(content_channels=64, channels=32, hidden_channels=64, num_layers=2,
@@ -54,6 +60,22 @@ def port_models(params):
     for m in (ce, f0, dec):
         m.eval().requires_grad_(False)
     return ce, f0, dec
+
+
+def build_jax_native(out_dir) -> str:
+    """The JAX package's native library built from its own sources
+    (``native/*.cpp``, the Makefile's flags) into ``out_dir``; the path.
+    Point JAX's bindings at it with ``native_bindings._LIB_PATHS = [path]``
+    and ``native_bindings._lib = None``, whatever a checkout holds."""
+    import os
+    import subprocess
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    so = os.path.join(str(out_dir), "libalivevc_native.so")
+    srcs = [os.path.join(repo, "native", f) for f in ("world.cpp", "ringbuffer.cpp")]
+    subprocess.run(["g++", "-O3", "-march=native", "-fPIC", "-std=c++17", "-shared", "-o", so,
+                    *srcs], check=True, capture_output=True, timeout=300)
+    return so
 
 
 def t(x) -> torch.Tensor:

@@ -73,3 +73,44 @@ def run_rank(rank: int, world: int, tmp: str) -> None:
         torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
+
+
+def run_halo_rank(rank: int, world: int, tmp: str) -> None:
+    """Rank ``rank`` of ``world`` on a ('data', world) mesh: the halo models
+    on this rank's slice of the time axis (``tmp/halo_inputs.pt``), the
+    slices gathered back; writes ``tmp/halo<world>_rank<rank>.pt``."""
+    from alivevc_tpu_torch.parallel import (
+        content_encoder_sharded,
+        f0_estimator_sharded,
+        feature_extractor_sharded,
+        gather_time,
+        halo_pad,
+        init_distributed,
+        make_mesh,
+        shard_along,
+        sharded_frame_model,
+    )
+    from alivevc_tpu_torch.parallel.halo import time_axis
+
+    torch.set_num_threads(1)
+    spec = torch.load(os.path.join(tmp, "halo_inputs.pt"), weights_only=False)
+    init_distributed("gloo", f"file://{tmp}/halo_rendezvous{world}", world, rank)
+    try:
+        mesh = make_mesh([("data", world)], "cpu")
+        ce, f0m, dec = models(spec)
+        fe = dec.feature_extractor
+        x, content, f0 = (shard_along(torch.from_numpy(spec[k]), mesh, "data")
+                          for k in ("spec", "content", "f0_hz"))
+        out = {
+            "ce": sharded_frame_model(mesh, lambda s, ax: content_encoder_sharded(ce, s, ax), x),
+            "f0": sharded_frame_model(mesh, lambda s, ax: f0_estimator_sharded(f0m, s, ax), x),
+            "fe": sharded_frame_model(
+                mesh, lambda cf, ax: feature_extractor_sharded(fe, cf[:, :-1], cf[:, -1:], ax),
+                torch.cat([content, f0], dim=1)),
+        }
+        res = {k: gather_time(mesh, v).numpy() for k, v in out.items()}
+        ramp = torch.arange(4 * 2, dtype=torch.float32).reshape(4, 2) + 100 * rank
+        res["halo_pad"] = halo_pad(ramp, 3, time_axis(mesh, "data")).numpy()
+        torch.save(res, os.path.join(tmp, f"halo{world}_rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
