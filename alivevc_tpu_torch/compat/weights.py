@@ -22,6 +22,7 @@ from torch import nn
 from alivevc_tpu_torch.config import (
     ContentEncoderConfig,
     DecoderConfig,
+    DiscriminatorConfig,
     F0EstimatorConfig,
     VoiceLibraryConfig,
 )
@@ -140,6 +141,31 @@ def voice_library_state(params) -> StateDict:
     return {"tokens": _np(params["tokens"]).T[None]}       # [1, 768, num_tokens]
 
 
+def wn_conv2d_state(sd: StateDict, prefix: str, p) -> None:
+    sd[f"{prefix}.weight_v"] = np.transpose(_np(p["v"]), (3, 2, 0, 1))   # [out, in/g, kh, kw]
+    sd[f"{prefix}.weight_g"] = _np(p["g"]).reshape(-1, 1, 1, 1)
+    sd[f"{prefix}.bias"] = _np(p["b"])
+
+
+def discriminator_state(params) -> StateDict:
+    """JAX discriminator pytree (``v`` [kh, kw, in/g, out], ``g`` [out]) ->
+    the reference's MPD/MRD state dict."""
+    sd: StateDict = {}
+    for i, p in enumerate(params["mpd"]):
+        pre = f"MPD.sub_discriminators.{i}"
+        wn_conv2d_state(sd, f"{pre}.input_layer", p["input_layer"])
+        for j, lp in enumerate(p["layers"]):
+            wn_conv2d_state(sd, f"{pre}.layers.{j}", lp)
+        wn_conv2d_state(sd, f"{pre}.final_conv", p["final_conv"])
+        wn_conv2d_state(sd, f"{pre}.output_layer", p["output_layer"])
+    for i, p in enumerate(params["mrd"]):
+        pre = f"MRD.sub_discriminators.{i}"
+        for j, lp in enumerate(p["layers"]):
+            wn_conv2d_state(sd, f"{pre}.layers.{j}", lp)
+        wn_conv2d_state(sd, f"{pre}.conv_post", p["conv_post"])
+    return sd
+
+
 def filter_layout(params):
     """(filter_channels, filter_rates) of a JAX decoder pytree, read off its
     down convs' shapes (``w`` [r * C_i, C_{i+1}]): what ``decoder_state``
@@ -189,6 +215,28 @@ def voice_library_config(sd: Mapping[str, np.ndarray]) -> VoiceLibraryConfig:
     return VoiceLibraryConfig(num_tokens=num_tokens, dim=dim)
 
 
+def discriminator_config(sd: Mapping[str, np.ndarray]) -> DiscriminatorConfig:
+    """The widths of a reference discriminator state dict.  The periods and
+    the resolutions' n_fft are not in the weights: a state dict with P
+    period and R resolution sub-discriminators takes the first P and R of
+    the defaults (the reference always has all eight and all three)."""
+    d = DiscriminatorConfig()
+    pre = "MPD.sub_discriminators.0"
+    n_stages = _count(sd, f"{pre}.layers.{{}}.")
+    v_in = sd[f"{pre}.input_layer.weight_v"]                  # [ch, 1, k, 1]
+    stage_v = [sd[f"{pre}.layers.{j}.weight_v"] for j in range(n_stages)]
+    cins = [v_in.shape[0]] + [v.shape[0] for v in stage_v[:-1]]
+    groups = tuple(c // v.shape[1] for c, v in zip(cins, stage_v))
+    return DiscriminatorConfig(
+        periods=d.periods[:_count(sd, "MPD.sub_discriminators.{}.")],
+        period_groups=groups + d.period_groups[len(groups):],
+        period_channels=v_in.shape[0], period_kernel_size=v_in.shape[2],
+        period_stages=n_stages, period_max_channels=max(v.shape[0] for v in stage_v),
+        resolutions=d.resolutions[:_count(sd, "MRD.sub_discriminators.{}.")],
+        resolution_channels=sd["MRD.sub_discriminators.0.layers.0.weight_v"].shape[0],
+    )
+
+
 def decoder_config(sd: Mapping[str, np.ndarray]) -> DecoderConfig:
     fe = "feature_extractor"
     w_in = sd[f"{fe}.input_layer.weight"]                    # [channels, content, 1]
@@ -228,3 +276,11 @@ def load_f0_estimator(module: nn.Module, params) -> nn.Module:
 
 def load_decoder(module: nn.Module, params, cfg: DecoderConfig = DecoderConfig()) -> nn.Module:
     return load_state(module, decoder_state(params, cfg))
+
+
+def load_discriminator(module: nn.Module, params) -> nn.Module:
+    return load_state(module, discriminator_state(params))
+
+
+def load_voice_library(module: nn.Module, params) -> nn.Module:
+    return load_state(module, voice_library_state(params))

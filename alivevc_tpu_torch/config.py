@@ -90,6 +90,22 @@ class DecoderConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class DiscriminatorConfig:
+    """MPD + MRD GAN discriminators (module/discriminator.py:86-174)."""
+
+    periods: Tuple[int, ...] = (2, 3, 5, 7, 11, 17, 23, 37)
+    period_groups: Tuple[int, ...] = (1, 4, 8, 8, 8, 8)
+    period_channels: int = 64
+    period_kernel_size: int = 5
+    period_stride: int = 3
+    period_stages: int = 5
+    period_max_channels: int = 512
+    resolutions: Tuple[int, ...] = (512, 1024, 2048)
+    resolution_channels: int = 64
+    lrelu_slope: float = 0.1
+
+
+@dataclasses.dataclass(frozen=True)
 class VoiceLibraryConfig:
     """Learnable 512-token voice library (module/voice_library.py:7)."""
 
@@ -133,6 +149,21 @@ class StreamingConfig:
     k: int = 4
     alpha: float = 0.0
     target_decimation: int = 4     # realtime_inference.py:88: tgt[:, :, ::4]
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Shared training-loop defaults (train_*.py argparse defaults)."""
+
+    learning_rate: float = 1e-4
+    batch_size: int = 1
+    length: int = 38_400
+    mel_weight: float = 45.0
+    feat_weight: float = 2.0
+    content_weight: float = 1.0
+    adam_b1: float = 0.8
+    adam_b2: float = 0.99
+    cosine_t_max: int = 5000
 
 
 AUDIO = AudioConfig()

@@ -33,7 +33,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Sequence
+from typing import Callable, Dict, Iterable, List, Optional, Sequence
 
 import torch
 
@@ -52,6 +52,10 @@ CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-shared")   # nativ
 
 LAUNCHES: Dict[str, int] = {"stft": 0, "knn": 0, "oscillator": 0, "filter_level": 0,
                             "knn_packed": 0, "oscillator_formants": 0}
+
+# the profiler span each kernel ``Function``'s backward recomputes its
+# plain version in (``plain_vjp``; chip_smoke.py reads the device time under it)
+RECOMPUTE_SPAN = "alivevc_tpu_torch::plain_recompute"
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FNS: Dict[tuple, object] = {}
@@ -192,6 +196,33 @@ def require(t: torch.Tensor, name: str, dtypes: Sequence[torch.dtype], dim: int)
         raise ValueError(f"{name} must have {dim} dimensions, got shape {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise if grad mode is on and a CUDA input of a kernel launch requires
+    grad.  The launches write into fresh tensors through ctypes, so their
+    outputs carry no ``grad_fn``: a kernel with a backward is reached
+    through its ``torch.autograd.Function`` (whose forward runs with grad
+    mode off), and one without a backward must not drop a gradient
+    quietly.  (A CPU input is refused by the launch's device check.)"""
+    if torch.is_grad_enabled() and any(torch.is_tensor(t) and t.is_cuda and t.requires_grad
+                                       for t in tensors):
+        raise RuntimeError(f"{what}: an input requires grad, and this launch has no backward; "
+                           "detach the input or run under torch.no_grad()")
+
+
+def plain_vjp(plain: Callable[..., torch.Tensor], saved: Sequence[torch.Tensor],
+              needs: Sequence[bool], grad_out: torch.Tensor) -> List[Optional[torch.Tensor]]:
+    """The backward of a kernel ``Function``: ``plain(*saved)`` recomputed
+    with autograd on detached copies of the saved inputs, under
+    ``RECOMPUTE_SPAN``; the gradient of each input, None where ``needs``
+    is false."""
+    with torch.enable_grad(), torch.profiler.record_function(RECOMPUTE_SPAN):
+        inputs = [t.detach().requires_grad_(need) for t, need in zip(saved, needs)]
+        out = plain(*inputs)
+        wanted = [t for t, need in zip(inputs, needs) if need]
+        grads = iter(torch.autograd.grad(out, wanted, grad_out, allow_unused=True))
+    return [next(grads) if need else None for need in needs]
 
 
 def route(t: torch.Tensor) -> str:

@@ -39,6 +39,13 @@ implicit GEMM per causal conv).  Every product runs on the tensor cores:
 bf16 operands with float32 accumulation in bf16 storage, 3xTF32 in float32
 storage.  ``filter_level_tiled`` replays the narrow kernel's tiling, and
 optionally its 3xTF32 products, on the CPU for the tests.
+
+Gradients (training): on the card a level runs through
+``FilterLevelFunction``, whose forward is the kernel launch and whose
+backward recomputes ``filter_level_plain`` on detached copies of the saved
+inputs and differentiates it, as ``filter_pallas.py:_fused_cvjp_bwd``
+differentiates the packed XLA version of the Pallas forward.  No backward
+kernel is written: JAX has none either.
 """
 
 from __future__ import annotations
@@ -195,6 +202,8 @@ def filter_level_cuda(x_prev, skip, up_w, up_b, in_w, in_b,
                       film: torch.Tensor, rate: int, dilations: Sequence[int]) -> torch.Tensor:
     """The kernel launches: one ``filter_narrow_kernel`` for C = 8 or 16,
     else 8 ``filter_wide_kernel`` launches (up conv, 1x1, six causal convs)."""
+    _lib.refuse_grad("filter_level_cuda", x_prev, skip, up_w, up_b, in_w, in_b, *conv_w, *conv_b,
+                     film)
     dt = x_prev.dtype
     if dt not in (torch.float32, torch.bfloat16):
         raise TypeError(f"filter level takes float32 or bf16, got {dt}")
@@ -283,9 +292,39 @@ def filter_level_cuda(x_prev, skip, up_w, up_b, in_w, in_b,
     return x
 
 
+def _unpack(n_conv: int, tensors):
+    """(x_prev, skip, up_w, up_b, in_w, in_b, conv_w, conv_b, film) from the
+    flat tensor list ``FilterLevelFunction`` takes."""
+    return (*tensors[:6], list(tensors[6:6 + n_conv]), list(tensors[6 + n_conv:6 + 2 * n_conv]),
+            tensors[6 + 2 * n_conv])
+
+
+class FilterLevelFunction(torch.autograd.Function):
+    """The level on the card with a gradient: forward = the kernels, backward
+    = autograd of ``filter_level_plain`` recomputed on the saved inputs.
+    The tensors arrive flat, (x_prev, skip, up_w, up_b, in_w, in_b,
+    *conv_w, *conv_b, film), so that each one gets its own gradient."""
+
+    @staticmethod
+    def forward(ctx, rate, dilations, n_conv, *tensors):
+        ctx.rate, ctx.dilations, ctx.n_conv = rate, dilations, n_conv
+        ctx.save_for_backward(*tensors)
+        return filter_level_cuda(*_unpack(n_conv, tensors), rate, dilations)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        plain = lambda *t: filter_level_plain(*_unpack(ctx.n_conv, t), ctx.rate,  # noqa: E731
+                                              ctx.dilations)
+        return (None, None, None,
+                *_lib.plain_vjp(plain, ctx.saved_tensors, ctx.needs_input_grad[3:], grad_out))
+
+
 def filter_level(x_prev, skip, up_w, up_b, in_w, in_b, conv_w, conv_b, film, rate,
                  dilations) -> torch.Tensor:
-    """One up level: the kernels on CUDA tensors, the plain version on CPU
-    tensors."""
-    fn = filter_level_cuda if _lib.route(x_prev) == "cuda" else filter_level_plain
-    return fn(x_prev, skip, up_w, up_b, in_w, in_b, conv_w, conv_b, film, rate, dilations)
+    """One up level: the kernels (with a gradient, ``FilterLevelFunction``)
+    on CUDA tensors, the plain version on CPU tensors."""
+    if _lib.route(x_prev) == "cuda":
+        return FilterLevelFunction.apply(rate, tuple(dilations), len(conv_w), x_prev, skip, up_w,
+                                         up_b, in_w, in_b, *conv_w, *conv_b, film)
+    return filter_level_plain(x_prev, skip, up_w, up_b, in_w, in_b, conv_w, conv_b, film, rate,
+                              dilations)

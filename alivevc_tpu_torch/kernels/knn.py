@@ -168,7 +168,10 @@ def knn_topk_plain(source: torch.Tensor, library: torch.Tensor, k: int = 4,
 def knn_topk_cuda(source: torch.Tensor, library: torch.Tensor, k: int = 4,
                   precision: str = "default", valid_rows=None, penalty=None,
                   extraction: str = "auto"):
-    """The kernel launch (tile scores + per-block top-k, then the merge)."""
+    """The kernel launch (tile scores + per-block top-k, then the merge).
+    It has no backward (indices have none): an input that requires grad in
+    grad mode raises."""
+    _lib.refuse_grad("knn_topk_cuda", source, library, penalty)
     if not 1 <= k <= 8:
         raise ValueError(f"k={k} must be in [1, 8]")
     if library.shape[0] < k:

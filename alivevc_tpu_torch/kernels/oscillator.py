@@ -25,6 +25,12 @@ cached per device, and 1 / sample rate is a kernel argument, so a call
 copies nothing between host and device and never waits on the stream.
 ``harmonic_source_replay`` and ``harmonic_source_formants_replay`` repeat
 the kernels' arithmetic in PyTorch, for the tests.
+
+Gradients (training): ``harmonic_source`` on the card runs through
+``HarmonicSourceFunction``: the forward is the Chebyshev kernel, the
+backward differentiates ``harmonic_source_plain`` recomputed on the saved
+f0 and amplitudes.  The formant source has no backward, and its launch
+raises on an input that requires grad in grad mode.
 """
 
 from __future__ import annotations
@@ -140,6 +146,7 @@ def harmonic_source_cuda(f0: torch.Tensor, amps: torch.Tensor, sample_rate: int 
     """The kernel launch: f0 [N, Lf] or [N, Lf, 1] Hz and amps [N, Lf, NH]
     (float32 or bf16, read as they are) on the card.  One launch of
     ``osc_cheb_kernel``, which computes its frames' base phases itself."""
+    _lib.refuse_grad("harmonic_source_cuda", f0, amps)
     if f0.dim() not in (2, 3) or f0.dim() == 3 and f0.shape[2] != 1:
         raise ValueError(f"f0 must be [N, Lf] or [N, Lf, 1], got {tuple(f0.shape)}")
     f, a = _operands(f0, amps, 1, seg)
@@ -153,12 +160,32 @@ def harmonic_source_cuda(f0: torch.Tensor, amps: torch.Tensor, sample_rate: int 
     return out
 
 
+class HarmonicSourceFunction(torch.autograd.Function):
+    """The Chebyshev source on the card with a gradient: forward = the
+    kernel, backward = autograd of ``harmonic_source_plain`` recomputed on
+    the saved f0 and amplitudes."""
+
+    @staticmethod
+    def forward(ctx, f0, amps, sample_rate, seg):
+        ctx.sample_rate, ctx.seg = sample_rate, seg
+        ctx.save_for_backward(f0, amps)
+        return harmonic_source_cuda(f0, amps, sample_rate, seg)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        plain = lambda f0, amps: harmonic_source_plain(f0, amps, ctx.sample_rate,  # noqa: E731
+                                                       ctx.seg)
+        return (*_lib.plain_vjp(plain, ctx.saved_tensors, ctx.needs_input_grad[:2], grad_out),
+                None, None)
+
+
 def harmonic_source(f0: torch.Tensor, amps: torch.Tensor, sample_rate: int = 16_000,
                     seg: int = 320) -> torch.Tensor:
-    """Offline harmonic source: the kernel on CUDA tensors, the plain
-    version on CPU tensors."""
+    """Offline harmonic source: the kernel (with a gradient,
+    ``HarmonicSourceFunction``) on CUDA tensors, the plain version on CPU
+    tensors."""
     if _lib.route(f0) == "cuda":
-        return harmonic_source_cuda(f0, amps, sample_rate, seg)
+        return HarmonicSourceFunction.apply(f0, amps, sample_rate, seg)
     return harmonic_source_plain(f0, amps, sample_rate, seg)
 
 
@@ -183,6 +210,7 @@ def harmonic_source_formants_cuda(formants: torch.Tensor, amps: torch.Tensor,
     """The kernel launch: formants [N, Lf, NH] Hz and amps [N, Lf, NH]
     (float32 or bf16, read as they are) on the card.  Two launches: the
     phase scan into an [N, Lf, NH] scratch, then ``osc_formant_kernel``."""
+    _lib.refuse_grad("harmonic_source_formants_cuda", formants, amps)
     if formants.dim() != 3:
         raise ValueError(f"formants must be [N, Lf, NH], got {tuple(formants.shape)}")
     f, a = _operands(formants, amps, amps.shape[-1], seg)

@@ -12,6 +12,11 @@ complex FFT of its even/odd samples, in the Stockham stages of
 pad by index arithmetic, so no padded copy of x is made.  The twiddle table
 (``fft_twiddles``) is computed here once in float64 and cached per device.
 The plain version is the dense DFT product of ``ops/stft.py``.
+
+Gradients (training): ``stft_magnitude`` on the card runs through
+``StftMagnitudeFunction``, whose backward differentiates the plain version
+recomputed on the saved input (the content loss differentiates the
+spectrogram of the decoder's output).
 """
 
 from __future__ import annotations
@@ -54,6 +59,7 @@ def stft_magnitude_plain(x: torch.Tensor, n_fft: int = 1280, hop_length: int = 3
 
 def stft_magnitude_cuda(x: torch.Tensor, n_fft: int = 1280, hop_length: int = 320) -> torch.Tensor:
     """The kernel launch: x [N, L] float32 on the card, L > 640."""
+    _lib.refuse_grad("stft_magnitude_cuda", x)
     _lib.require(x, "x", (torch.float32,), 2)
     if n_fft != N_FFT:
         raise ValueError(f"the kernel computes n_fft={N_FFT}, not {n_fft}")
@@ -72,10 +78,29 @@ def stft_magnitude_cuda(x: torch.Tensor, n_fft: int = 1280, hop_length: int = 32
     return out
 
 
+class StftMagnitudeFunction(torch.autograd.Function):
+    """The STFT magnitude on the card with a gradient: forward = the kernel,
+    backward = autograd of ``stft_magnitude_plain`` recomputed on the saved
+    input."""
+
+    @staticmethod
+    def forward(ctx, x, n_fft, hop_length):
+        ctx.n_fft, ctx.hop_length = n_fft, hop_length
+        ctx.save_for_backward(x)
+        return stft_magnitude_cuda(x, n_fft, hop_length)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        plain = lambda x: stft_magnitude_plain(x, ctx.n_fft, ctx.hop_length)  # noqa: E731
+        return (*_lib.plain_vjp(plain, ctx.saved_tensors, ctx.needs_input_grad[:1], grad_out),
+                None, None)
+
+
 def stft_magnitude(x: torch.Tensor, n_fft: int = 1280, hop_length: int = 320) -> torch.Tensor:
     """Magnitude STFT, upcast to float32 as the JAX kernel does: the kernel
-    on a CUDA tensor, the plain version on a CPU tensor."""
+    (with a gradient, ``StftMagnitudeFunction``) on a CUDA tensor, the plain
+    version on a CPU tensor."""
     x = x.float().contiguous()
     if _lib.route(x) == "cuda":
-        return stft_magnitude_cuda(x, n_fft, hop_length)
+        return StftMagnitudeFunction.apply(x, n_fft, hop_length)
     return stft_magnitude_plain(x, n_fft, hop_length)

@@ -96,8 +96,12 @@ def stft_magnitude(
 
 def spectrogram(x: torch.Tensor, n_fft: int = 1280, hop_length: int = 320) -> torch.Tensor:
     """The reference front end, channels-last: x [N, L] -> [N, L//hop, 641],
-    last torch.stft frame dropped, cast back to x.dtype."""
-    return stft_magnitude(x, n_fft, hop_length)[:, :-1, :].to(x.dtype)
+    last torch.stft frame dropped, cast back to x.dtype.  The magnitude is
+    ``kernels/stft.py:stft_magnitude``: the kernel (differentiable) on a
+    CUDA tensor, this module's plain version on a CPU tensor."""
+    from alivevc_tpu_torch.kernels.stft import stft_magnitude as magnitude   # it imports this module
+
+    return magnitude(x, n_fft, hop_length)[:, :-1, :].to(x.dtype)
 
 
 @functools.lru_cache(maxsize=None)

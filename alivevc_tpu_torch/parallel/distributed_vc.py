@@ -3,7 +3,7 @@
 
 Windows split over ``data``, the voice library over ``library``, models
 replicated.  Each rank converts its windows against its library shard: the
-plain spectrogram (as the JAX path uses the XLA one here), the F0
+spectrogram (the STFT kernel on the card; the JAX path uses the XLA one), the F0
 estimator, intonation, the content encoder, ``local_topk_merge`` over the
 ``library`` group, and the decoder (Chebyshev source kernel, the filter
 kernel on every up level).  The windows are then gathered over ``data``, so

@@ -94,6 +94,23 @@ printing the final line:
      sends and gathers a layer, and rank 0's profile of one sharded
      content-encoder pass.
 
+  8. training at full width, float32, random weights from seed 0 (the F0
+     estimator's output bias raised at 120 Hz, so its f0 is a speech pitch):
+     each kernel ``Function`` (the four filter levels at 8 x 38 400 samples,
+     the Chebyshev source, the STFT) against its plain version, forward and
+     the gradient of every input, with the backward's time; five
+     ``gan_train_step``s at 8 x 38 400 after two warm-ups (ms/step, peak
+     memory, launches a step: filter_level 8, oscillator 2, stft 2; one step
+     profiled by group, the plain backward recompute apart); every decoder
+     and discriminator parameter with a finite, nonzero gradient; one GAN
+     step on the card against the CPU at 1 x 9 600 (losses, per-module
+     gradient norms); two ``fine_tune_step``s with a 512-token library (the
+     kNN kernel once a step), five ``f0_train_step``s at 8 x 65 536,
+     ``generate_voice_library`` over 512 chunks; ``dp_gan_grads`` on 2 gloo
+     ranks on the one card against the same semantics computed densely; the
+     ``train_decoder`` and ``train_f0_estimator`` CLIs on synthetic WAVs.
+     The phase must finish within 90 s.
+
 Its last lines are the ``kernels`` JSON line, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.  Float32 products run without TF32
 (``torch.backends.cuda.matmul.allow_tf32 = False``); float32 convolutions
@@ -1429,6 +1446,615 @@ def run_halo_phase(card):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: training (the GAN decoder trainer with gradients through the
+# filter, oscillator and STFT kernels; fine-tuning with the voice library;
+# the F0 trainer; library generation; data parallel; two training CLIs)
+# ---------------------------------------------------------------------------
+
+DEV = "cuda"
+TRAIN_N = 8                  # GAN batch: 8 x 38 400 samples (TrainConfig.length)
+TRAIN_LEN = 38_400
+F0_TRAIN_N, F0_TRAIN_LEN = 8, 65_536     # the F0 trainer's chunk
+LIB_CHUNKS, LIB_CHUNK_LEN = 512, 7_680   # generate_voice_library's input
+GAN_WARMUP, GAN_STEPS = 2, 5
+TRAIN_RANKS = 2
+TRAIN_TIMEOUT_S = 300
+# the dp gradients' worst tensor vs the dense semantics, set from the readings of
+# train_dp_probe.py and this check on an H100 (G <= 1.05e-5, D <= 5.7e-7; a reference whose
+# roll row came from another batch's content encoder run, 5e-6 apart, read D 7.4e-4 to 3.5e-3)
+DP_GRAD_TOL = {"G": 1e-4, "D": 1e-5}
+PHASE8_LIMIT_S = 90.0
+PITCH_HZ = 120
+PER_GAN_STEP = {"filter_level": 8, "oscillator": 2, "stft": 2}   # 4 levels x 2 decoder calls
+
+
+def train_models():
+    """Full-width models from seed 0 (float32): the frozen content encoder
+    and F0 estimator, and a decoder and discriminator to train.  The F0
+    estimator's output bias is raised by 50 at bin 120, so its f0 is a
+    speech pitch: a random estimator's argmax falls anywhere in 0-4095 Hz,
+    and a near-tie there could flip between the card and the CPU."""
+    import torch
+    from alivevc_tpu_torch.config import (ContentEncoderConfig, DecoderConfig,
+                                          DiscriminatorConfig, F0EstimatorConfig)
+    from alivevc_tpu_torch.models.content_encoder import ContentEncoder
+    from alivevc_tpu_torch.models.decoder import Decoder
+    from alivevc_tpu_torch.models.discriminator import Discriminator
+    from alivevc_tpu_torch.models.f0_estimator import F0Estimator
+
+    g = torch.Generator().manual_seed(SEED)
+    ce = ContentEncoder(ContentEncoderConfig(), generator=g)
+    f0m = F0Estimator(F0EstimatorConfig(), generator=g)
+    dec = Decoder(DecoderConfig(), generator=g)
+    disc = Discriminator(DiscriminatorConfig(), generator=g)
+    with torch.no_grad():
+        f0m.output_layer.bias[PITCH_HZ] += 50.0
+    for m in (ce, f0m):
+        m.eval().requires_grad_(False)
+    return [m.to(DEV) for m in (ce, f0m, dec, disc)]
+
+
+def train_batch(n: int, length: int, seed: int):
+    """[n, length] float32 on the card: gliding tones with noise, one pitch
+    an item, from ``seed``; and each item's pitch in Hz."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(length) / 16_000.0
+    base = rng.uniform(100.0, 250.0, n)
+    rows = [0.4 * np.sin(2 * np.pi * np.cumsum(b * (1.0 + 0.2 * np.sin(2 * np.pi * 0.5 * t))) / 16_000.0)
+            + 0.02 * rng.standard_normal(length) for b in base]
+    return torch.from_numpy(np.stack(rows).astype(np.float32)).to(DEV), base
+
+
+def _rel_err(got, want) -> float:
+    return max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+               for a, b in zip(got, want) if b is not None)
+
+
+def worst_tensor(names, got, want) -> dict:
+    """``_rel_err`` with its tensor: the largest max |got - want| / max
+    |want| over same-ordered tensors, the tensor's name and its max |want|."""
+    errs = [(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30), nm, float(b.abs().max()))
+            for nm, a, b in zip(names, got, want)]
+    err, name, peak = max(errs)
+    return {"rel_err": err, "tensor": name, "max_abs_grad": peak}
+
+
+def function_row(name, variant, run_fn, run_plain, inputs, gen, fwd_tol):
+    """A kernel ``Function`` against its plain version on the same inputs:
+    the forward's max abs error, and the gradient of every input for one
+    random grad_out (max over inputs of max |diff| / max |plain|, held to
+    1e-4: the backward is the plain version's own autograd, recomputed, so
+    only cuDNN's non-deterministic weight-gradient sums differ).  Times: the
+    kernel forward alone (no graph), the Function's forward + backward, the
+    plain version's forward and its forward + backward (CUDA events)."""
+    import torch
+
+    out, want = run_fn(), run_plain()
+    fwd_err = float((out - want).detach().abs().max())
+    g_out = torch.randn(want.shape, generator=gen, device=want.device)
+    got_g = torch.autograd.grad(out, inputs, g_out)
+    want_g = torch.autograd.grad(want, inputs, g_out)
+    grad_err = _rel_err(got_g, want_g)
+    del out, want, got_g, want_g
+    need(fwd_err <= fwd_tol, f"{name} {variant}: forward max abs err {fwd_err} > {fwd_tol}")
+    need(grad_err <= 1e-4, f"{name} {variant}: gradient rel err {grad_err} > 1e-4")
+
+    def fwd():
+        with torch.no_grad():
+            run_fn()
+
+    def plain_fwd():
+        with torch.no_grad():
+            run_plain()
+
+    fb = cuda_ms(lambda: torch.autograd.grad(run_fn(), inputs, g_out))
+    ms = cuda_ms(fwd)
+    row = {"name": name, "variant": f"{variant} (train)", "max_abs_err": fwd_err, "tol": fwd_tol,
+           "grad_rel_err": grad_err, "ms": ms, "function_fwd_bwd_ms": fb, "backward_ms": fb - ms,
+           "plain_ms": cuda_ms(plain_fwd, 2),
+           "plain_fwd_bwd_ms": cuda_ms(lambda: torch.autograd.grad(run_plain(), inputs, g_out), 2)}
+    return row
+
+
+def check_train_functions(dec, gen):
+    """Phase 8, step 1: each kernel Function at the GAN step's shapes: the
+    filter's four levels for N = 8 x 38 400 samples (FiLM at 120 frames),
+    the Chebyshev source, and the STFT, forward and gradients against the
+    plain versions."""
+    import torch
+    from alivevc_tpu_torch.kernels.filter import filter_level, filter_level_plain
+    from alivevc_tpu_torch.kernels.oscillator import harmonic_source, harmonic_source_plain
+    from alivevc_tpu_torch.kernels.stft import stft_magnitude, stft_magnitude_plain
+    from alivevc_tpu_torch.models.decoder import level_args
+
+    cfg = dec.cfg
+    rows = []
+    lens = [TRAIN_LEN // 32, TRAIN_LEN // 4, TRAIN_LEN // 2, TRAIN_LEN]
+    cond = (0.5 * torch.randn(TRAIN_N, TRAIN_LEN // 320, cfg.channels, generator=gen,
+                              device=DEV)).requires_grad_(True)
+    for i, (up, blk) in enumerate(zip(dec.filter.ups, dec.filter.blocks)):
+        cin, c, r = up.weight.shape
+        l_in = lens[i] // r
+        x = (0.3 * torch.randn(TRAIN_N, l_in, cin, generator=gen, device=DEV)).requires_grad_(True)
+        s = (0.3 * torch.randn(TRAIN_N, l_in, cin, generator=gen, device=DEV)).requires_grad_(True)
+        with torch.no_grad():
+            scale = float(filter_level_plain(x, s, rate=r, **level_args(blk, up, cond)).abs().max())
+        rows.append(function_row(
+            "filter_level", f"level {i} C={c} L={lens[i]} N={TRAIN_N} f32",
+            lambda: filter_level(x, s, rate=r, **level_args(blk, up, cond)),
+            lambda: filter_level_plain(x, s, rate=r, **level_args(blk, up, cond)),
+            [x, s, cond, *up.parameters(), *blk.parameters()], gen, 1e-3 * (1.0 + scale)))
+    lf = TRAIN_LEN // 320
+    f0 = (100.0 + 150.0 * torch.rand(TRAIN_N, lf, 1, generator=gen, device=DEV)).requires_grad_(True)
+    amps = torch.exp(0.5 * torch.randn(TRAIN_N, lf, cfg.num_harmonics, generator=gen,
+                                       device=DEV)).requires_grad_(True)
+    # sinf/cosf rounding grown by the Chebyshev recurrence (phase 2's tolerance)
+    rows.append(function_row("oscillator", f"[{TRAIN_N}, {lf}] x {cfg.num_harmonics} f32",
+                             lambda: harmonic_source(f0, amps), lambda: harmonic_source_plain(f0, amps),
+                             [f0, amps], gen, 5e-3))
+    x = (0.3 * torch.randn(TRAIN_N, TRAIN_LEN, generator=gen, device=DEV)).requires_grad_(True)
+    rows.append(function_row("stft", f"[{TRAIN_N}, {TRAIN_LEN}] f32", lambda: stft_magnitude(x),
+                             lambda: stft_magnitude_plain(x), [x], gen, 1e-3))
+    return rows
+
+
+def print_train_rows(rows, card) -> None:
+    for r in rows:
+        print(f"train function {r['name']:13s} {r['variant']:42s} fwd err {r['max_abs_err']:.3e} "
+              f"(tol {r['tol']:.1e}) grad rel err {r['grad_rel_err']:.3e} (tol 1e-4) kernel fwd "
+              f"{r['ms']:.4f} ms, Function fwd+bwd {r['function_fwd_bwd_ms']:.3f} (backward "
+              f"{r['backward_ms']:.3f}), plain fwd {r['plain_ms']:.3f}, plain fwd+bwd "
+              f"{r['plain_fwd_bwd_ms']:.3f} [{card}]")
+
+
+TRAIN_GROUPS = (
+    ("filter kernels", ("filter_wide_kernel", "filter_narrow_kernel")),
+    ("oscillator kernel", ("osc_cheb",)),
+    ("STFT kernel", ("stft_fft",)),
+    ("kNN kernels", ("knn_tile", "knn_merge")),
+    ("cuDNN/cuBLAS", ("gemm", "cudnn", "cutlass", "xmma", "cublas", "implicit_convolve",
+                      "fprop", "dgrad", "wgrad")),
+)
+
+
+def _group(name: str) -> str:
+    return next((g for g, keys in TRAIN_GROUPS if any(k in name for k in keys)), "other")
+
+
+def profile_train_step(step, card, label):
+    """Device time of one training step by group, the plain backward
+    recompute (the device time launched under the Functions'
+    ``RECOMPUTE_SPAN``) as a group of its own, and the device's busy share
+    of the step's wall time."""
+    import torch
+    from alivevc_tpu_torch.kernels import _lib
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    # kernels and copies; the device-side copies of profiler annotations
+    # (the recompute span, torch.optim's "Optimizer.step#...") are ranges over
+    # kernels, not work, and are left out
+    spans = [(e.time_range.start, e.time_range.end, e.name) for e in events
+             if e.device_type == cuda and not getattr(e, "is_user_annotation", False)
+             and e.name != _lib.RECOMPUTE_SPAN]
+    if not spans:
+        print(f"profile, {label}: the profiler recorded no device time (not measured)")
+        return None
+    total = {g: 0.0 for g, _ in TRAIN_GROUPS}
+    total["other"] = 0.0
+    for start, end, name in spans:
+        total[_group(name)] += (end - start) / 1e3
+    inside = {g: 0.0 for g in total}
+    n_inside = 0
+    stack = [e for e in events if e.name == _lib.RECOMPUTE_SPAN and e.device_type != cuda]
+    n_spans = len(stack)
+    while stack:
+        e = stack.pop()
+        for k in getattr(e, "kernels", []):
+            inside[_group(k.name)] += k.duration / 1e3
+            n_inside += 1
+        stack.extend(e.cpu_children)
+    recompute = sum(inside.values())
+    groups = {g: total[g] - inside[g] for g in total}
+    groups["plain backward recompute"] = recompute if n_inside else None
+
+    def union_ms(ranges):
+        covered, cur_s, cur_e = 0.0, None, None
+        for start, end in sorted(ranges):
+            if cur_e is None or start > cur_e:
+                covered += 0.0 if cur_e is None else cur_e - cur_s
+                cur_s, cur_e = start, end
+            else:
+                cur_e = max(cur_e, end)
+        return (covered + cur_e - cur_s) / 1e3 if cur_e is not None else 0.0
+
+    busy = union_ms([(a, b) for a, b, _ in spans])
+    # the recompute spans' device-side copies: from the first kernel launched
+    # under a span to its last, on the device's timeline
+    under = union_ms([(e.time_range.start, e.time_range.end) for e in events
+                      if e.device_type == cuda and e.name == _lib.RECOMPUTE_SPAN])
+    streams = len({getattr(e, "device_resource_id", None) for e in events if e.device_type == cuda})
+    dev_total = sum(total.values())
+    print(f"profile, {label} [{card}]: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms "
+          f"({100 * busy / wall_ms:.1f} % of wall), {len(spans)} device spans on {streams} streams "
+          f"(cuDNN's own streams overlap the main one, so the groups may sum past the busy time), "
+          f"{n_spans} recompute spans holding {n_inside} kernels and covering {under:.2f} ms "
+          f"({100 * under / wall_ms:.1f} %) of the wall on the device's timeline")
+    for g, ms in sorted(groups.items(), key=lambda kv: -(kv[1] or 0.0)):
+        if ms is None:
+            print(f"  {g:45s} not measured (no kernel linked under {_lib.RECOMPUTE_SPAN})")
+        else:
+            print(f"  {g:45s} {ms:9.3f} ms  {100 * ms / dev_total:5.1f} %")
+    print("  of which in the recompute: " + ", ".join(f"{g} {ms:.3f}" for g, ms in inside.items()))
+    other = {}
+    for start, end, name in spans:
+        if _group(name) == "other":
+            other[name] = other.get(name, (0, 0.0))
+            other[name] = (other[name][0] + 1, other[name][1] + (end - start) / 1e3)
+    for name, (count, ms) in sorted(other.items(), key=lambda kv: -kv[1][1])[:8]:
+        print(f"  other: {ms:8.3f} ms in {count:5d} spans  {name[:110]}")
+    return {"wall_ms": wall_ms, "device_busy_ms": busy, "by_group_ms": groups,
+            "recompute_by_group_ms": inside, "recompute_covers_ms": under,
+            "device_spans": len(spans), "streams": streams}
+
+
+def group_norms(names, grads, prefixes):
+    import torch
+
+    out = {}
+    for pre in prefixes:
+        sq = [g.double().pow(2).sum() for nm, g in zip(names, grads) if nm.startswith(pre)]
+        out[pre] = float(torch.stack(sq).sum().sqrt())
+    return out
+
+
+def gan_card_vs_cpu(ce, f0m, dec, disc):
+    """Phase 8, step 4: one GAN step's losses and per-module gradient norms
+    at batch 1 x 9 600, full width, on the card (kernels) and on the CPU
+    (plain versions), the same draws, TF32 off."""
+    import copy
+
+    import torch
+    from alivevc_tpu_torch.train.gan import gan_draws, gan_grads, init_gan
+
+    wave, _ = train_batch(1, 9600, SEED + 20)
+    amp, jitter = gan_draws(1, torch.Generator().manual_seed(SEED + 21), "cpu")
+    res = {}
+    for where in ("card", "cpu"):
+        dev = DEV if where == "card" else "cpu"
+        mods = [copy.deepcopy(m).to(dev) for m in (ce, f0m, dec, disc)]
+        st = init_gan(mods[2], mods[3])
+        g, d, m = gan_grads(st, mods[0], mods[1], wave.to(dev), amp.to(dev), jitter.to(dev))
+        norms = group_norms([k for k, _ in st.dec.named_parameters()], g,
+                            ("feature_extractor", "harmonic_oscillator", "filter"))
+        norms.update(group_norms([k for k, _ in st.disc.named_parameters()], d, ("MPD", "MRD")))
+        res[where] = ({k: float(v) for k, v in m.items()}, norms)
+    loss_err = max(abs(res["card"][0][k] - v) / max(abs(v), 1e-12) for k, v in res["cpu"][0].items())
+    norm_err = max(abs(res["card"][1][k] - v) / max(v, 1e-30) for k, v in res["cpu"][1].items())
+    return res, loss_err, norm_err
+
+
+def dp_reference(ce, f0m, dec, disc, wave, amp, jitter):
+    """The JAX package's data-parallel semantics computed densely on the
+    card: each of the 2 ranks' halves through ``gan_grads`` with the roll
+    crossing ranks, averaged; and the dense step on the whole batch."""
+    import torch
+    from alivevc_tpu_torch.train.gan import frozen_features, gan_grads, init_gan
+
+    st = init_gan(dec, disc)
+    half = wave.shape[0] // TRAIN_RANKS
+    parts = [slice(half * j, half * (j + 1)) for j in range(TRAIN_RANKS)]
+    # each rank's content from its own half, as the rank computes it
+    last = [frozen_features(ce, f0m, wave[sl] * amp[sl])[0][-1:] for sl in parts]
+    shards = []
+    for j, sl in enumerate(parts):
+        prev = last[j - 1]
+        shards.append(gan_grads(st, ce, f0m, wave[sl], amp[sl], jitter,
+                                roll=lambda c, prev=prev: torch.cat([prev, c[:-1]])))
+    mean_g = [sum(s[0][i] for s in shards) / TRAIN_RANKS for i in range(len(shards[0][0]))]
+    mean_d = [sum(s[1][i] for s in shards) / TRAIN_RANKS for i in range(len(shards[0][1]))]
+    _, _, dense_m = gan_grads(st, ce, f0m, wave, amp, jitter)
+    return mean_g, mean_d, dense_m
+
+
+def train_rank(rank: int, world: int, tmp: str) -> None:
+    """A spawned rank of phase 8's data-parallel check: gloo on cuda:0, this
+    rank's half of the batch through ``dp_gan_grads``; rank 0 writes the
+    averaged gradients and metrics to tmp/train0.pt."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+    from alivevc_tpu_torch.parallel import init_distributed
+    from alivevc_tpu_torch.train.gan import dp_gan_grads, gan_draws, init_gan
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed("gloo", f"file://{tmp}/rendezvous", world, rank)
+    try:
+        ce, f0m, dec, disc = train_models()
+        wave, _ = train_batch(2 * world, TRAIN_LEN, SEED + 30)
+        amp, jitter = gan_draws(2 * world, torch.Generator().manual_seed(SEED + 31), DEV)
+        sl = slice(2 * rank, 2 * rank + 2)
+        g, d, m = dp_gan_grads(init_gan(dec, disc), ce, f0m, wave[sl], amp[sl], jitter)
+        torch.cuda.synchronize()
+        if rank == 0:
+            torch.save({"g": [x.cpu() for x in g], "d": [x.cpu() for x in d],
+                        "m": {k: float(v) for k, v in m.items()}}, os.path.join(tmp, "train0.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_train_dp(card):
+    """Phase 8, step 6: ``dp_gan_train_step``'s gradients on 2 gloo ranks on
+    the one card (batch 2 each) against the same semantics computed densely
+    (the mean of the two halves' gradients, the roll crossing them), and its
+    metrics against the dense step at batch 4 (every one but 'feat', whose
+    MRD part is a sum over the batch)."""
+    import multiprocessing
+    import os
+    import tempfile
+
+    import torch
+    from alivevc_tpu_torch.train.gan import gan_draws
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=train_rank, args=(r, TRAIN_RANKS, tmp)) for r in range(TRAIN_RANKS)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        try:
+            ce, f0m, dec, disc = train_models()
+            wave, _ = train_batch(2 * TRAIN_RANKS, TRAIN_LEN, SEED + 30)
+            amp, jitter = gan_draws(2 * TRAIN_RANKS, torch.Generator().manual_seed(SEED + 31), DEV)
+            mean_g, mean_d, dense_m = dp_reference(ce, f0m, dec, disc, wave, amp, jitter)
+            for p in procs:
+                p.join(max(1.0, TRAIN_TIMEOUT_S - (time.perf_counter() - t0)))
+            alive = [p.pid for p in procs if p.is_alive()]
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(30)
+        need(not alive, f"training ranks {alive} did not finish in {TRAIN_TIMEOUT_S} s")
+        need(all(p.exitcode == 0 for p in procs), f"training ranks failed: {[p.exitcode for p in procs]}")
+        got = torch.load(os.path.join(tmp, "train0.pt"), weights_only=False)
+    g = worst_tensor([k for k, _ in dec.named_parameters()], [x.to(DEV) for x in got["g"]], mean_g)
+    d = worst_tensor([k for k, _ in disc.named_parameters()], [x.to(DEV) for x in got["d"]], mean_d)
+    m_err = max(abs(got["m"][k] - float(dense_m[k])) / max(abs(float(dense_m[k])), 1e-12)
+                for k in ("loss_d", "mel", "con", "adv"))
+    dt = time.perf_counter() - t0
+    print(f"train dp [{card}]: dp_gan_grads on {TRAIN_RANKS} gloo ranks on one card (batch 2 each, "
+          f"{TRAIN_LEN} samples): gradients vs the two halves' mean, worst tensor's rel err: G "
+          f"{g['rel_err']:.3e} at {g['tensor']} (max |grad| {g['max_abs_grad']:.3e}); D "
+          f"{d['rel_err']:.3e} at {d['tensor']} (max |grad| {d['max_abs_grad']:.3e}) (<= "
+          f"{DP_GRAD_TOL}); metrics but 'feat' vs the dense step at batch 4, rel err "
+          f"{m_err:.3e} (<= 1e-4); 'feat' {got['m']['feat']:.6f} (ranks' mean) vs dense "
+          f"{float(dense_m['feat']):.6f}; {dt:.1f} s with the ranks' start")
+    need(g["rel_err"] <= DP_GRAD_TOL["G"] and d["rel_err"] <= DP_GRAD_TOL["D"],
+         f"train dp: gradient rel err G {g}, D {d} over {DP_GRAD_TOL}")
+    need(m_err <= 1e-4, f"train dp: metrics rel err {m_err} > 1e-4")
+    return {"dp_grad_rel_err_g": g["rel_err"], "dp_grad_rel_err_d": d["rel_err"],
+            "dp_grad_worst": {"G": g, "D": d}, "dp_metric_rel_err": m_err}
+
+
+def run_train_clis(card):
+    """Phase 8, step 7: ``cli/train_decoder.py`` (2 steps at 1 x 38 400) and
+    ``cli/train_f0_estimator.py`` (2 steps at 1 x 65 536, WORLD labels on
+    the host) on a temporary directory of synthetic WAVs, full width, models
+    from seed 0 (no checkpoint files)."""
+    import os
+    import tempfile
+
+    import numpy as np
+    from alivevc_tpu_torch.cli import train_decoder, train_f0_estimator
+    from alivevc_tpu_torch.io.audio import write_wav
+    from alivevc_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        os.makedirs(data)
+        rng = np.random.default_rng(SEED + 40)
+        for i in range(2):
+            write_wav(os.path.join(data, f"{i}.wav"), request_wave(4.5, rng), 16_000)
+        runs = (("train_decoder", lambda: train_decoder.main(
+                    [data, "-sp", os.path.join(tmp, "gan_state.pt"), "-e", "1", "-b", "1",
+                     "-cep", os.path.join(tmp, "none.ckpt"), "-f0ep", os.path.join(tmp, "none.ckpt")]), 2),
+                ("train_f0_estimator", lambda: train_f0_estimator.main(
+                    [data, "-mp", os.path.join(tmp, "f0_state.pt"), "-e", "1", "-b", "1"]), 2))
+        for name, run, steps in runs:
+            reset_launches()
+            t0 = time.perf_counter()
+            state = run()
+            dt = time.perf_counter() - t0
+            need(state.step == steps and os.path.exists(os.path.join(tmp, "gan_state.pt" if name ==
+                 "train_decoder" else "f0_state.pt")), f"{name} CLI: {state.step} steps, expected {steps}")
+            print(f"{name} CLI, full width, {steps} steps, models from seed 0: {dt:.2f} s wall "
+                  f"(dataset load, model build and steps), launches {dict(LAUNCHES)} [{card}]")
+            out[name] = dt
+    return out
+
+
+def run_training(card):
+    """Phase 8: training at full width, float32, random weights from seed 0;
+    counters zeroed before the GAN steps and read after.  Returns (launches
+    over the phase, the Functions' rows, the report)."""
+    import copy
+
+    import numpy as np
+    import torch
+    from alivevc_tpu_torch.config import VoiceLibraryConfig
+    from alivevc_tpu_torch.kernels import LAUNCHES, reset_launches
+    from alivevc_tpu_torch.models.voice_library import VoiceLibrary
+    from alivevc_tpu_torch.train.f0 import f0_amp_draws, f0_train_step, init_f0_train
+    from alivevc_tpu_torch.train.fine_tune import amp_draws, fine_tune_step, init_fine_tune
+    from alivevc_tpu_torch.train.gan import gan_draws, gan_grads, gan_train_step, init_gan
+    from alivevc_tpu_torch.train.library_gen import generate_voice_library
+
+    t_phase = time.perf_counter()
+    total = {k: 0 for k in LAUNCHES}
+
+    def add(counts):
+        for k in total:
+            total[k] += counts[k]
+
+    report = {}
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 10)
+    ce, f0m, dec, disc = train_models()
+
+    # 1. each Function against its plain version (uncounted)
+    rows = check_train_functions(copy.deepcopy(dec), gen)
+    print_train_rows(rows, card)
+
+    # the plain backward recompute a GAN step runs, from the rows' CUDA-event
+    # times: each level twice (two decoder calls), the source twice, the STFT
+    # once (the content loss)
+    by = {r["variant"]: r["backward_ms"] for r in rows}
+    recompute_ms = sum(2 * v for k, v in by.items() if k.startswith("level")) + sum(
+        (2 if r["name"] == "oscillator" else 1) * r["backward_ms"] for r in rows
+        if r["name"] in ("oscillator", "stft"))
+    print(f"train: the Functions' backward (plain recompute) a GAN step, from the rows above: "
+          f"{recompute_ms:.3f} ms [{card}]")
+    report["recompute_ms_per_step"] = recompute_ms
+
+    # 2. GAN steps at 8 x 38 400
+    state = init_gan(copy.deepcopy(dec), copy.deepcopy(disc))
+    wave, _ = train_batch(TRAIN_N, TRAIN_LEN, SEED + 11)
+    draw_gen = torch.Generator().manual_seed(SEED + 12)
+    times = []
+    reset_launches()
+    for i in range(GAN_WARMUP + GAN_STEPS):
+        if i == GAN_WARMUP:
+            torch.cuda.reset_peak_memory_stats()
+            add(LAUNCHES)
+            reset_launches()
+        amp, jitter = gan_draws(TRAIN_N, draw_gen, DEV)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = gan_train_step(state, ce, f0m, wave, amp, jitter)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    per_step = {k: v / GAN_STEPS for k, v in LAUNCHES.items()}
+    add(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    timed = times[GAN_WARMUP:]
+    print(f"train GAN [{card}]: {GAN_STEPS} gan_train_steps at {TRAIN_N} x {TRAIN_LEN} after "
+          f"{GAN_WARMUP} warm-up: ms/step median {statistics.median(timed):.2f}, min {min(timed):.2f}, "
+          f"max {max(timed):.2f} (all {', '.join(f'{x:.2f}' for x in timed)}); peak memory "
+          f"{peak:.1f} MiB; launches a step {per_step} (expected {PER_GAN_STEP}); losses "
+          f"{ {k: round(float(v), 5) for k, v in m.items()} }")
+    need(all(per_step[k] == v for k, v in PER_GAN_STEP.items()),
+         f"GAN step launches {per_step} != {PER_GAN_STEP}")
+    need(all(np.isfinite(float(v)) for v in m.values()), f"GAN step: non-finite metrics {m}")
+    amp, jitter = gan_draws(TRAIN_N, draw_gen, DEV)
+    prof = profile_train_step(lambda: gan_train_step(state, ce, f0m, wave, amp, jitter), card,
+                              f"one GAN step at {TRAIN_N} x {TRAIN_LEN}")
+    report["gan"] = {"ms_median": statistics.median(timed), "ms_min": min(timed),
+                     "ms_max": max(timed), "peak_mib": peak, "launches_per_step": per_step,
+                     "profile": prof}
+
+    # 3. every parameter learns (one step's gradients, uncounted)
+    amp, jitter = gan_draws(TRAIN_N, draw_gen, DEV)
+    g, d, _ = gan_grads(state, ce, f0m, wave, amp, jitter)
+    for label, model, grads in (("decoder", state.dec, g), ("discriminator", state.disc, d)):
+        bad = [nm for (nm, _), x in zip(model.named_parameters(), grads)
+               if not bool(torch.isfinite(x).all()) or not bool((x != 0).any())]
+        print(f"train: every {label} parameter learns: {len(grads) - len(bad)} of {len(grads)} "
+              f"tensors have a finite, nonzero gradient{'' if not bad else f'; not: {bad}'} [{card}]")
+        need(not bad, f"{label} parameters without a finite, nonzero gradient: {bad}")
+    del g, d
+
+    # 4. card against CPU
+    res, loss_err, norm_err = gan_card_vs_cpu(ce, f0m, dec, disc)
+    print(f"train card vs CPU [{card}]: one GAN step at 1 x 9600, full width, TF32 off: losses "
+          f"max rel err {loss_err:.3e} (<= 1e-3), per-module gradient norms max rel err "
+          f"{norm_err:.3e} (<= 1e-2); card {res['card']}; CPU {res['cpu']}")
+    need(loss_err <= 1e-3 and norm_err <= 1e-2,
+         f"card vs CPU: losses {loss_err}, gradient norms {norm_err}")
+    report["card_vs_cpu"] = {"loss_rel_err": loss_err, "grad_norm_rel_err": norm_err}
+    del state
+    torch.cuda.empty_cache()
+
+    # 5. the other trainers
+    lib_cfg = VoiceLibraryConfig(dim=ce.cfg.output_channels)
+    vl = VoiceLibrary(lib_cfg, generator=torch.Generator().manual_seed(SEED + 13)).to(DEV)
+    ft = init_fine_tune(copy.deepcopy(dec), copy.deepcopy(disc), vl)
+    tokens0 = vl.tokens.detach().clone()
+    reset_launches()
+    ft_ms = []
+    for _ in range(2):
+        amp = amp_draws(TRAIN_N, draw_gen, DEV)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fine_tune_step(ft, ce, f0m, wave, amp)
+        torch.cuda.synchronize()
+        ft_ms.append((time.perf_counter() - t0) * 1e3)
+    ft_launches = dict(LAUNCHES)
+    add(LAUNCHES)
+    moved = float((vl.tokens.detach() - tokens0).abs().max())
+    print(f"train fine-tune [{card}]: 2 fine_tune_steps at {TRAIN_N} x {TRAIN_LEN} with a 512-token "
+          f"library: ms/step {', '.join(f'{x:.2f}' for x in ft_ms)}; launches {ft_launches}; tokens "
+          f"moved by up to {moved:.3e}")
+    need(ft_launches["knn"] == 2 and moved > 0, f"fine-tune: kNN launches {ft_launches['knn']}, "
+         f"tokens moved {moved}")
+    del ft, vl
+    f0s = init_f0_train(copy.deepcopy(f0m))
+    f0_wave, base = train_batch(F0_TRAIN_N, F0_TRAIN_LEN, SEED + 14)
+    labels = torch.from_numpy(np.repeat(base[:, None], F0_TRAIN_LEN // 320, 1).astype(np.float32)).to(DEV)
+    reset_launches()
+    f0_ms, losses = [], []
+    for _ in range(5):
+        amp = f0_amp_draws(F0_TRAIN_N, draw_gen, DEV)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(f0_train_step(f0s, f0_wave, labels, amp)["loss"]))
+        f0_ms.append((time.perf_counter() - t0) * 1e3)
+    f0_launches = dict(LAUNCHES)
+    add(LAUNCHES)
+    print(f"train F0 [{card}]: 5 f0_train_steps at {F0_TRAIN_N} x {F0_TRAIN_LEN}: ms/step "
+          f"{', '.join(f'{x:.2f}' for x in f0_ms)}; losses {losses}; launches {f0_launches}")
+    need(f0_launches["stft"] == 5 and all(np.isfinite(losses)), f"F0 trainer: {f0_launches}, {losses}")
+    chunks = train_batch(LIB_CHUNKS, LIB_CHUNK_LEN, SEED + 15)[0].cpu().numpy()
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lib = generate_voice_library(ce, chunks, seed=SEED, cfg=lib_cfg, device=DEV)
+    torch.cuda.synchronize()
+    lib_ms = (time.perf_counter() - t0) * 1e3
+    lib_launches = dict(LAUNCHES)
+    add(LAUNCHES)
+    print(f"train library generation [{card}]: {LIB_CHUNKS} chunks of {LIB_CHUNK_LEN}: {lib_ms:.2f} ms, "
+          f"launches {lib_launches}, tokens {tuple(lib.tokens.shape)}")
+    need(bool(torch.isfinite(lib.tokens).all()) and lib_launches["stft"] == LIB_CHUNKS // 64,
+         f"library generation: {lib_launches}")
+    report["fine_tune_ms"], report["f0_ms"], report["library_ms"] = ft_ms, f0_ms, lib_ms
+
+    # 6. data parallel, 7. the CLIs
+    torch.cuda.empty_cache()
+    report["dp"] = run_train_dp(card)
+    torch.cuda.empty_cache()
+    report["cli_s"] = run_train_clis(card)
+    elapsed = time.perf_counter() - t_phase
+    report["phase_s"] = elapsed
+    print(f"train: phase 8 took {elapsed:.1f} s (<= {PHASE8_LIMIT_S:.0f})")
+    need(elapsed <= PHASE8_LIMIT_S, f"phase 8 took {elapsed:.1f} s > {PHASE8_LIMIT_S}")
+    return total, rows, report
+
+
+# ---------------------------------------------------------------------------
 
 
 REPLACES = {
@@ -1450,8 +2076,8 @@ def kernels_line(rows, launches):
     on the bf16 main path (kNN 'default' at the 100 352-row library; the
     filter's four up levels in bf16, summed: one step runs all four; the
     packed kNN at the 100 352-row library); every measured variant, the
-    streaming hop's included, is listed under 'variants'.  Launches are summed over the paths driven
-    (phases 3, 4 with both ranks, 5, 6, 7 with both ranks)."""
+    streaming hop's and the training Functions' included, is listed under 'variants'.  Launches
+    are summed over the paths driven (phases 3, 4 with both ranks, 5, 6, 7 with both ranks, 8)."""
     out = []
     for name, (source, replaces) in REPLACES.items():
         mine = [r for r in rows if r["name"] == name]
@@ -1461,8 +2087,8 @@ def kernels_line(rows, launches):
             main = [r for r in mine if f" {LIB_ROWS} x 768" in r["variant"]]
         elif name == "filter_level":
             main = [r for r in mine if r["variant"].endswith("bf16")]
-        else:     # the STFT and the oscillators: the offline row, not the hop's
-            main = [r for r in mine if not r["variant"].endswith("(hop)")]
+        else:     # the STFT and the oscillators: the offline row, not the hop's or training's
+            main = [r for r in mine if not r["variant"].endswith(("(hop)", "(train)"))]
         entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name],
@@ -1588,8 +2214,15 @@ def main() -> int:
     halo_launches, halo = run_halo_phase(card)
     print(f"phase 7 done at {time.perf_counter() - t_start:.1f} s; report {json.dumps(halo)}")
 
+    # phase 8
+    torch.cuda.empty_cache()
+    with torch.enable_grad():
+        train_launches, train_rows, training = run_training(card)
+    rows.extend(train_rows)
+    print(f"phase 8 done at {time.perf_counter() - t_start:.1f} s; report {json.dumps(training)}")
+
     total = {k: launches[k] + sharded_launches[k] + api_launches[k] + rt_launches[k]
-             + halo_launches[k] for k in launches}
+             + halo_launches[k] + train_launches[k] for k in launches}
     print(json.dumps(kernels_line(rows, total)))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -821,3 +821,140 @@ def test_halo_two_ranks_on_card(tmp_path):
     for k, want in dense.items():
         assert torch.equal(got[0][k], got[1][k]), k
         assert max_err(got[0][k], want.cpu()) <= 1e-4, k
+
+
+# ---------------------------------------------------------------------------
+# training: the kernels' autograd Functions, the wrappers without a
+# backward, and every parameter learning through the kernels
+# ---------------------------------------------------------------------------
+
+SMALL_DEC = dict(content_channels=64, channels=32, hidden_channels=64, num_layers=2, num_harmonics=16)
+SMALL_DISC = dict(periods=(2, 3), period_channels=8, period_max_channels=32, resolutions=(512,),
+                  resolution_channels=8)
+
+
+@pytest.mark.gpu
+def test_wrappers_without_backward_refuse_grad_inputs_on_card():
+    """The kNN and formant-oscillator launches have no backward: a CUDA
+    input that requires grad raises in grad mode (the public ``knn_topk``
+    included) and runs under no_grad; the three wrappers with a Function
+    return outputs with a grad_fn."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; on the card run this file with --noconftest -m gpu")
+    g = torch.Generator(device="cuda").manual_seed(8)
+    q = torch.randn(40, 768, generator=g, device="cuda").requires_grad_(True)
+    lib = torch.randn(512, 768, generator=g, device="cuda")
+    f0 = 80 + 300 * torch.rand(1, 8, 1, generator=g, device="cuda")
+    amps = torch.rand(1, 8, 16, generator=g, device="cuda").requires_grad_(True)
+    formants = f0 * torch.arange(1, 17, device="cuda")
+    for call in (lambda: kknn.knn_topk_cuda(q, lib, 4, "highest"),
+                 lambda: kknn.knn_topk(q, lib, 4, "highest"),
+                 lambda: kknn.knn_topk_cuda(q.detach(), lib.requires_grad_(True), 4, "default"),
+                 lambda: kosc.harmonic_source_formants_cuda(formants, amps),
+                 lambda: kosc.harmonic_source_cuda(f0, amps),
+                 lambda: kstft.stft_magnitude_cuda(0.1 * q.reshape(1, -1))):
+        with pytest.raises(RuntimeError, match="requires grad"):
+            call()
+        with torch.no_grad():
+            call()
+    lib.requires_grad_(False)
+    assert kosc.harmonic_source(f0, amps).grad_fn is not None
+    assert kstft.stft_magnitude(0.1 * q.reshape(1, -1)).grad_fn is not None
+
+
+@pytest.mark.gpu
+def test_training_functions_match_plain_autograd_on_card():
+    """Each kernel Function on the card: forward within the kernel's
+    tolerance of the plain version (filter 1e-3 (1 + scale), source 5e-3,
+    STFT 1e-3) and every input's gradient within 1e-4 of the plain
+    version's autograd (the backward recomputes it; cuDNN's weight-gradient
+    sums are not deterministic); one launch each, none in the backward."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; on the card run this file with --noconftest -m gpu")
+    from alivevc_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(9)
+    dec = Decoder(DecoderConfig(), generator=torch.Generator().manual_seed(0)).cuda()
+    cases = []
+    for level, n, l_in in ((0, 2, 30), (1, 2, 60), (3, 2, 480)):
+        up, blk = dec.filter.ups[level], dec.filter.blocks[level]
+        cin, _, r = up.weight.shape
+        x = (0.3 * torch.randn(n, l_in, cin, generator=g, device="cuda")).requires_grad_(True)
+        s = 0.3 * torch.randn(n, l_in, cin, generator=g, device="cuda")
+        cond = (0.5 * torch.randn(n, l_in * r // 320 or 1, 512, generator=g, device="cuda")
+                ).requires_grad_(True)
+        cases.append((f"filter_level {level}", "filter_level", 1e-3,
+                      lambda up=up, blk=blk, x=x, s=s, cond=cond, r=r:
+                      kfilter.filter_level(x, s, rate=r, **level_args(blk, up, cond)),
+                      lambda up=up, blk=blk, x=x, s=s, cond=cond, r=r:
+                      kfilter.filter_level_plain(x, s, rate=r, **level_args(blk, up, cond)),
+                      [x, cond, up.weight, blk.input_conv.weight, blk.blocks[2].c2.to_shift.bias]))
+    f0 = (80 + 200 * torch.rand(2, 12, 1, generator=g, device="cuda")).requires_grad_(True)
+    amps = torch.exp(0.3 * torch.randn(2, 12, 64, generator=g, device="cuda")).requires_grad_(True)
+    cases.append(("oscillator", "oscillator", 5e-3, lambda: kosc.harmonic_source(f0, amps),
+                  lambda: kosc.harmonic_source_plain(f0, amps), [f0, amps]))
+    w = (0.3 * torch.randn(2, 9600, generator=g, device="cuda")).requires_grad_(True)
+    cases.append(("stft", "stft", 1e-3, lambda: kstft.stft_magnitude(w),
+                  lambda: kstft.stft_magnitude_plain(w), [w]))
+    for name, counter, tol, run, plain, inputs in cases:
+        reset_launches()
+        out = run()
+        assert LAUNCHES[counter] == 1, name
+        want = plain()
+        scale = float(want.detach().abs().max()) if counter == "filter_level" else 0.0
+        assert max_err(out.detach(), want.detach()) <= tol * (1.0 + scale), name
+        g_out = torch.randn(want.shape, generator=g, device="cuda")
+        got_g = torch.autograd.grad(out, inputs, g_out)
+        assert LAUNCHES[counter] == 1, name          # the backward launches nothing
+        for a, b in zip(got_g, torch.autograd.grad(want, inputs, g_out)):
+            assert max_err(a, b) <= 1e-4 * float(b.abs().max()), name
+
+
+@pytest.mark.gpu
+def test_every_parameter_learns_on_card():
+    """One GAN step's gradients on the card (small widths, the kernels'
+    Functions in the decoder): every decoder and discriminator parameter
+    has a finite, nonzero gradient; the step launches the filter level 8
+    times, the oscillator and the STFT twice; a fine-tuning step with a
+    library launches the kNN kernel once and moves the tokens."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; on the card run this file with --noconftest -m gpu")
+    from alivevc_tpu_torch.config import (ContentEncoderConfig, DiscriminatorConfig,
+                                          F0EstimatorConfig, VoiceLibraryConfig)
+    from alivevc_tpu_torch.kernels import LAUNCHES, reset_launches
+    from alivevc_tpu_torch.models.content_encoder import ContentEncoder
+    from alivevc_tpu_torch.models.discriminator import Discriminator
+    from alivevc_tpu_torch.models.f0_estimator import F0Estimator
+    from alivevc_tpu_torch.models.voice_library import VoiceLibrary
+    from alivevc_tpu_torch.train.fine_tune import fine_tune_step, init_fine_tune
+    from alivevc_tpu_torch.train.gan import gan_draws, gan_grads, init_gan
+
+    gen = torch.Generator().manual_seed(0)
+    ce = ContentEncoder(ContentEncoderConfig(internal_channels=32, hidden_channels=64,
+                                             output_channels=64, num_layers=2), generator=gen)
+    f0m = F0Estimator(F0EstimatorConfig(internal_channels=32, hidden_channels=64, num_layers=2),
+                      generator=gen)
+    with torch.no_grad():
+        f0m.output_layer.bias[120] += 50.0
+    ce, f0m = (m.cuda().eval().requires_grad_(False) for m in (ce, f0m))
+    dec = Decoder(DecoderConfig(**SMALL_DEC), generator=gen).cuda()
+    disc = Discriminator(DiscriminatorConfig(**SMALL_DISC), generator=gen).cuda()
+    t = torch.arange(9600, device="cuda") / 16_000.0
+    wave = torch.stack([0.4 * torch.sin(2 * np.pi * f * t) for f in (130.0, 210.0)])
+    amp, jitter = gan_draws(2, gen, "cuda")
+    state = init_gan(dec, disc)
+    reset_launches()
+    g, d, m = gan_grads(state, ce, f0m, wave, amp, jitter)
+    assert {k: LAUNCHES[k] for k in ("filter_level", "oscillator", "stft")} == \
+        {"filter_level": 8, "oscillator": 2, "stft": 2}
+    for model, grads in ((dec, g), (disc, d)):
+        for (name, _), x in zip(model.named_parameters(), grads):
+            assert bool(torch.isfinite(x).all()) and bool((x != 0).any()), name
+    vl = VoiceLibrary(VoiceLibraryConfig(dim=64), generator=gen).cuda()
+    tokens = vl.tokens.detach().clone()
+    ft = init_fine_tune(dec, disc, vl)
+    reset_launches()
+    fine_tune_step(ft, ce, f0m, wave, amp)
+    assert LAUNCHES["knn"] == 1 and not torch.equal(vl.tokens, tokens)

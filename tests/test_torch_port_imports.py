@@ -2,7 +2,8 @@
 ``alivevc_tpu_torch`` (and ``chip_smoke.py``) in a fresh interpreter, and
 running the native WORLD labeler, leaves ``jax`` and the JAX package
 ``alivevc_tpu`` (its ``native_bindings`` included) out of ``sys.modules``,
-and no source file of the port names either in an import."""
+and no source file of the port (``train_dp_probe.py`` included) names
+either in an import."""
 
 import ast
 import pathlib
@@ -39,7 +40,10 @@ def test_importing_the_port_loads_no_jax():
                 "infer.streaming", "ops.resample", "io.audio", "io.checkpoint",
                 "models.voice_library", "cli.common", "cli.inference", "cli.realtime_inference",
                 "native_bindings", "ops.world", "parallel.halo", "utils.metrics", "utils.plotting",
-                "utils.profiling", "cli.audio_device_list"):
+                "utils.profiling", "cli.audio_device_list", "models.discriminator", "train.losses",
+                "train.optim", "train.gan", "train.fine_tune", "train.f0", "train.library_gen",
+                "train.dp", "train.state", "io.dataset", "cli.train_decoder", "cli.fine_tune",
+                "cli.train_f0_estimator", "cli.generate_voice_library"):
         assert f"alivevc_tpu_torch.{mod}" in proc.stdout.split()
 
 
@@ -53,11 +57,13 @@ def _imports(path: pathlib.Path):
 
 
 def test_no_source_file_imports_jax_or_the_jax_package():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "train_dp_probe.py"]
     assert len(files) >= 30
     for path in ("parallel/sharded_knn.py", "infer/streaming.py", "ops/resample.py", "io/audio.py",
                  "io/checkpoint.py", "models/voice_library.py", "cli/realtime_inference.py",
-                 "native_bindings.py", "ops/world.py", "parallel/halo.py", "utils/profiling.py"):
+                 "native_bindings.py", "ops/world.py", "parallel/halo.py", "utils/profiling.py",
+                 "models/discriminator.py", "train/gan.py", "train/fine_tune.py", "train/f0.py",
+                 "train/optim.py", "io/dataset.py", "cli/train_decoder.py"):
         assert PKG / path in files
     for path in files:
         for mod in _imports(path):

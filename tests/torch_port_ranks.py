@@ -114,3 +114,57 @@ def run_halo_rank(rank: int, world: int, tmp: str) -> None:
         torch.save(res, os.path.join(tmp, f"halo{world}_rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
+
+
+def train_models(spec, disc_kw):
+    """The port's (ce, f0, dec, disc, vl) from ``spec``'s state dicts, the
+    discriminator at ``disc_kw`` (its state dict filtered to those keys)."""
+    from alivevc_tpu_torch import config as tc
+    from alivevc_tpu_torch.models.discriminator import Discriminator
+    from alivevc_tpu_torch.models.voice_library import VoiceLibrary
+
+    ce, f0m, dec = models(spec)
+    disc = Discriminator(tc.DiscriminatorConfig(**disc_kw))
+    disc.load_state_dict({k: v for k, v in spec["disc"].items() if k in disc.state_dict()})
+    vl = VoiceLibrary(tc.VoiceLibraryConfig(**spec["vl_kw"]))
+    vl.load_state_dict(spec["vl"])
+    return ce, f0m, dec, disc, vl
+
+
+def run_train_rank(rank: int, world: int, tmp: str) -> None:
+    """Rank ``rank`` of the data-parallel training steps: this rank's slice
+    of ``tmp/train_inputs.pt``'s batches through ``dp_gan_grads`` (with and
+    without the MRD), ``dp_gan_train_step``, ``dp_fine_tune_step`` and
+    ``dp_f0_train_step``; writes ``tmp/train_rank<rank>.pt``."""
+    from alivevc_tpu_torch.parallel import init_distributed
+    from alivevc_tpu_torch.train import dp
+    from alivevc_tpu_torch.train.f0 import dp_f0_train_step, init_f0_train
+    from alivevc_tpu_torch.train.fine_tune import dp_fine_tune_step, init_fine_tune
+    from alivevc_tpu_torch.train.gan import dp_gan_grads, dp_gan_train_step, init_gan
+
+    torch.set_num_threads(1)
+    spec = torch.load(os.path.join(tmp, "train_inputs.pt"), weights_only=False)
+    init_distributed("gloo", f"file://{tmp}/train_rendezvous", world, rank)
+    try:
+        mine = lambda x: x[rank * (x.shape[0] // world):(rank + 1) * (x.shape[0] // world)]  # noqa: E731
+        out = {"roll": dp.global_roll(mine(torch.arange(8.0)[:, None]))}
+        wave, amp, jitter = spec["wave"], spec["amp"], spec["jitter"]
+        for name, disc_kw in (("mpd", spec["mpd_kw"]), ("mrd", spec["disc_kw"])):
+            ce, f0m, dec, disc, _ = train_models(spec, disc_kw)
+            state = init_gan(dec, disc)
+            out[f"gan_{name}"] = dp_gan_grads(state, ce, f0m, mine(wave), mine(amp), jitter)
+        ce, f0m, dec, disc, vl = train_models(spec, spec["mpd_kw"])
+        state = init_gan(dec, disc)
+        dp_gan_train_step(state, ce, f0m, mine(wave), mine(amp), jitter)
+        out["gan_step"] = {k: v.clone() for k, v in state.dec.state_dict().items()}
+        ce, f0m, dec, disc, vl = train_models(spec, spec["mpd_kw"])
+        state = init_fine_tune(dec, disc, vl)
+        out["fine_tune_metrics"] = dp_fine_tune_step(state, ce, f0m, mine(wave), mine(amp))
+        out["fine_tune"] = {"dec": state.dec.state_dict(), "vl": state.vl.state_dict()}
+        state = init_f0_train(f0m)
+        out["f0_metrics"] = dp_f0_train_step(state, mine(spec["f0_wave"]), mine(spec["f0_hz"]),
+                                             mine(spec["f0_amp"]))
+        out["f0"] = state.model.state_dict()
+        torch.save(out, os.path.join(tmp, f"train_rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
