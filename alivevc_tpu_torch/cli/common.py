@@ -1,7 +1,8 @@
-"""Shared CLI helpers: model loading with ``.pt`` / ``.npz`` detection, the
-reference's resume-by-existence convention (train_decoder.py:57-64), the
-target matrix both conversion CLIs build, and the training CLIs' output
-paths, process group and epoch length.
+"""Shared CLI helpers: model loading (``compat/torch_import.py:
+load_params_or_init``: ``.pt`` / ``.npz`` detection and the reference's
+resume-by-existence convention, train_decoder.py:57-64), the target matrix
+both conversion CLIs build, and the training CLIs' output paths, process
+group and epoch length.
 
 A model file is a reference-format ``.pt`` state dict (the reference's key
 names, loaded with ``torch.load(weights_only=True)``), a training state
@@ -15,66 +16,16 @@ file gives a model initialised from seed 0.
 from __future__ import annotations
 
 import os
-from typing import Optional
 
 import numpy as np
 import torch
 from torch import nn
 
-from alivevc_tpu_torch.compat import weights
-from alivevc_tpu_torch.config import DecoderConfig
+from alivevc_tpu_torch.compat.torch_import import load_params_or_init
 from alivevc_tpu_torch.device import resolve_device
 from alivevc_tpu_torch.infer.offline import build_target_matrix
 from alivevc_tpu_torch.io.audio import read_wav
-from alivevc_tpu_torch.io.checkpoint import load_checkpoint
-from alivevc_tpu_torch.models.content_encoder import ContentEncoder
-from alivevc_tpu_torch.models.decoder import Decoder
-from alivevc_tpu_torch.models.discriminator import Discriminator
-from alivevc_tpu_torch.models.f0_estimator import F0Estimator
-from alivevc_tpu_torch.models.voice_library import VoiceLibrary
 from alivevc_tpu_torch.ops.resample import resample
-from alivevc_tpu_torch.train.state import is_train_state
-
-
-def _decoder_state(tree) -> dict:
-    chans, rates = weights.filter_layout(tree)
-    return weights.decoder_state(tree, DecoderConfig(filter_channels=chans, filter_rates=rates))
-
-
-# kind -> (module class, JAX pytree -> reference state dict, state dict -> config)
-MODELS = {
-    "content_encoder": (ContentEncoder, weights.content_encoder_state,
-                        weights.content_encoder_config),
-    "f0_estimator": (F0Estimator, weights.f0_estimator_state, weights.f0_estimator_config),
-    "decoder": (Decoder, _decoder_state, weights.decoder_config),
-    "voice_library": (VoiceLibrary, weights.voice_library_state, weights.voice_library_config),
-    "discriminator": (Discriminator, weights.discriminator_state, weights.discriminator_config),
-}
-
-
-def reference_state(path: str, kind: str) -> dict:
-    """The reference-format state dict of the model file at ``path``."""
-    if path.endswith(".pt"):
-        sd = torch.load(path, map_location="cpu", weights_only=True)
-        if is_train_state(sd):
-            if kind not in sd["models"]:
-                raise ValueError(f"{path}: the training state holds no {kind}")
-            return sd["models"][kind]
-        return sd
-    return MODELS[kind][1](load_checkpoint(path))
-
-
-def load_params_or_init(path: Optional[str], kind: str, device: torch.device) -> nn.Module:
-    """The ``kind`` model from ``path`` if the file exists, else initialised
-    from seed 0; in eval mode on ``device``."""
-    cls, _, config_of = MODELS[kind]
-    gen = torch.Generator().manual_seed(0)
-    if path and os.path.exists(path):
-        sd = reference_state(path, kind)
-        module = weights.load_state(cls(config_of(sd), generator=gen), sd)
-    else:
-        module = cls(generator=gen)
-    return module.to(device).eval().requires_grad_(False)
 
 
 def resample_np(x: np.ndarray, orig: int, new: int, device: torch.device) -> np.ndarray:

@@ -284,3 +284,85 @@ def load_discriminator(module: nn.Module, params) -> nn.Module:
 
 def load_voice_library(module: nn.Module, params) -> nn.Module:
     return load_state(module, voice_library_state(params))
+
+
+# ---------------------------------------------------------------------------
+# WavLM (the distillation teacher): Hugging Face ``WavLMModel`` keys
+# ---------------------------------------------------------------------------
+
+_WAVLM_POS = "encoder.pos_conv_embed.conv"
+
+
+def wavlm_state(params) -> StateDict:
+    """The JAX package's WavLM pytree (``alivevc_tpu/models/wavlm.py:
+    import_wavlm``'s output) -> a Hugging Face state dict in the port's
+    keys (the positional conv's weight norm as ``parametrizations.weight.
+    original0`` / ``original1``; no ``masked_spec_embed``)."""
+    sd: StateDict = {}
+
+    def lin(prefix, p):
+        sd[f"{prefix}.weight"] = _np(p["w"]).T
+        sd[f"{prefix}.bias"] = _np(p["b"])
+
+    def ln(prefix, p):
+        sd[f"{prefix}.weight"] = _np(p["w"])
+        sd[f"{prefix}.bias"] = _np(p["b"])
+
+    for i, layer in enumerate(params["feature_encoder"]["conv_layers"]):
+        pre = f"feature_extractor.conv_layers.{i}"
+        sd[f"{pre}.conv.weight"] = np.transpose(_np(layer["conv"]["w"]), (2, 1, 0))
+        if "b" in layer["conv"]:
+            sd[f"{pre}.conv.bias"] = _np(layer["conv"]["b"])
+        if "norm" in layer:
+            ln(f"{pre}.layer_norm", layer["norm"])
+    ln("feature_projection.layer_norm", params["fp_norm"])
+    lin("feature_projection.projection", params["fp_proj"])
+    pc = params["pos_conv"]
+    sd[f"{_WAVLM_POS}.bias"] = _np(pc["b"])
+    sd[f"{_WAVLM_POS}.parametrizations.weight.original0"] = np.transpose(_np(pc["g"]), (2, 1, 0))
+    sd[f"{_WAVLM_POS}.parametrizations.weight.original1"] = np.transpose(_np(pc["v"]), (2, 1, 0))
+    ln("encoder.layer_norm", params["enc_norm"])
+    for i, layer in enumerate(params["layers"]):
+        pre = f"encoder.layers.{i}"
+        att = layer["attention"]
+        sd[f"{pre}.attention.gru_rel_pos_const"] = _np(att["gru_rel_pos_const"])
+        for name in ("k_proj", "v_proj", "q_proj", "out_proj", "gru_rel_pos_linear"):
+            lin(f"{pre}.attention.{name}", att[name])
+        if i == 0:
+            sd[f"{pre}.attention.rel_attn_embed.weight"] = _np(params["rel_attn_embed"])
+        ln(f"{pre}.layer_norm", layer["layer_norm"])
+        lin(f"{pre}.feed_forward.intermediate_dense", layer["ff_in"])
+        lin(f"{pre}.feed_forward.output_dense", layer["ff_out"])
+        ln(f"{pre}.final_layer_norm", layer["final_layer_norm"])
+    return sd
+
+
+def wavlm_config(sd: Mapping[str, np.ndarray]):
+    """The widths of a Hugging Face WavLM state dict (either weight-norm
+    form): layers by count, hidden width from the feature projection, heads
+    from ``gru_rel_pos_const``, the conv encoder's widths and taps, the
+    positional conv's taps and groups from its v, the bucket count.  The
+    strides, the bucket distance and the norms' eps are not in the weights
+    and keep their defaults."""
+    from alivevc_tpu_torch.models.wavlm import WavLMConfig
+
+    n_conv = _count(sd, "feature_extractor.conv_layers.{}.")
+    convs = [sd[f"feature_extractor.conv_layers.{i}.conv.weight"] for i in range(n_conv)]
+    v = sd.get(f"{_WAVLM_POS}.parametrizations.weight.original1")
+    if v is None:
+        v = sd[f"{_WAVLM_POS}.weight_v"]                     # [C, C / groups, k]
+    hidden = sd["feature_projection.projection.weight"].shape[0]
+    d = WavLMConfig()
+    return WavLMConfig(
+        hidden_size=hidden,
+        num_layers=_count(sd, "encoder.layers.{}."),
+        num_heads=sd["encoder.layers.0.attention.gru_rel_pos_const"].shape[1],
+        intermediate_size=sd["encoder.layers.0.feed_forward.intermediate_dense.weight"].shape[0],
+        conv_dim=tuple(w.shape[0] for w in convs),
+        conv_kernel=tuple(w.shape[2] for w in convs),
+        conv_stride=d.conv_stride[:n_conv],
+        conv_bias="feature_extractor.conv_layers.0.conv.bias" in sd,
+        num_conv_pos_embeddings=v.shape[2],
+        num_conv_pos_embedding_groups=hidden // v.shape[1],
+        num_buckets=sd["encoder.layers.0.attention.rel_attn_embed.weight"].shape[0],
+    )

@@ -8,7 +8,7 @@ caller asks for it by name (``device="cpu"``), as the tests do.
 from __future__ import annotations
 
 import contextlib
-from typing import Optional, Union
+from typing import Callable, Optional, Union
 
 import torch
 
@@ -44,3 +44,20 @@ def float32_math():
         yield
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def cached(cache: dict, key, make: Callable):
+    """``cache[key]``, made by ``make()`` on first use: the port's tables of
+    device tensors (interpolation weights, DFT basis, twiddles), which a
+    CUDA graph needs to find on the card without a host copy.  Only plain
+    tensors are stored: while ``torch.export`` traces, ``make()`` returns
+    fakes that stand for shapes, and a fake left in the cache would be what
+    every later eager call computes with.  A stored tensor that tracing
+    reads becomes a constant of the traced program."""
+    value = cache.get(key)
+    if value is None:
+        value = make()
+        parts = value if isinstance(value, (tuple, list)) else (value,)
+        if all(type(t) is torch.Tensor for t in parts):
+            cache[key] = value
+    return value

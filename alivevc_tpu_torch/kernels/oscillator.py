@@ -42,6 +42,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from alivevc_tpu_torch.device import cached
 from alivevc_tpu_torch.kernels import _lib
 from alivevc_tpu_torch.ops.interp import upsample_weights_np
 
@@ -66,13 +67,13 @@ def _tables(seg: int, device):
 
 def _device_table(seg: int, t: torch.Tensor) -> torch.Tensor:
     """[6, seg] float32 on ``t``'s card, w then ws, cached per card.  The
-    first call copies it from pinned host memory without a stream wait."""
-    key = (seg, t.get_device())
-    tab = _DEVICE_TABLES.get(key)
-    if tab is None:
+    first call copies it from pinned host memory without a stream wait
+    (``device.cached``)."""
+    def make():
         host = torch.from_numpy(np.concatenate(interp_weights_np(seg))).pin_memory()
-        tab = _DEVICE_TABLES[key] = host.to(t.device, non_blocking=True)
-    return tab
+        return host.to(t.device, non_blocking=True)
+
+    return cached(_DEVICE_TABLES, (seg, t.get_device()), make)
 
 
 @functools.lru_cache(maxsize=None)

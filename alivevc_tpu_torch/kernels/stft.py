@@ -27,6 +27,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from alivevc_tpu_torch.device import cached
 from alivevc_tpu_torch.kernels import _lib
 from alivevc_tpu_torch.ops.stft import stft_magnitude as _stft_plain
 
@@ -45,10 +46,8 @@ def fft_twiddles_np() -> np.ndarray:
 
 
 def fft_twiddles(device) -> torch.Tensor:
-    key = str(torch.device(device))
-    if key not in _TWIDDLES:
-        _TWIDDLES[key] = torch.from_numpy(fft_twiddles_np()).to(device)
-    return _TWIDDLES[key]
+    return cached(_TWIDDLES, str(torch.device(device)),
+                  lambda: torch.from_numpy(fft_twiddles_np()).to(device))
 
 
 def stft_magnitude_plain(x: torch.Tensor, n_fft: int = 1280, hop_length: int = 320) -> torch.Tensor:

@@ -238,9 +238,12 @@ class Filter(nn.Module):
         self.source_out = Conv(chans[0], 1, 7, generator=generator)
 
 
-def filter_unet(m: Filter, source: torch.Tensor, c: torch.Tensor, cfg: DecoderConfig) -> torch.Tensor:
+def filter_unet(m: Filter, source: torch.Tensor, c: torch.Tensor, cfg: DecoderConfig,
+                level=filter_level) -> torch.Tensor:
     """source [N, Lw, 1], c [N, Lf, C] -> filtered wave [N, Lw, 1]; each up
-    level runs through ``kernels/filter.py`` (``filter_block`` o ``_up``)."""
+    level runs through ``level``: ``kernels/filter.py:filter_level``
+    (``filter_block`` o ``_up``; the kernel on the card), or another
+    function of its arguments (``cli/export.py`` passes the plain one)."""
     rates = list(cfg.filter_rates)
     x = conv1d(source, m.source_in.weight, m.source_in.bias, padding=3)
     skips = []
@@ -249,7 +252,7 @@ def filter_unet(m: Filter, source: torch.Tensor, c: torch.Tensor, cfg: DecoderCo
         skips.append(x)
     x = m.mid_conv(x)
     for up, blk, s, r in zip(m.ups, m.blocks, reversed(skips), reversed(rates)):
-        x = filter_level(x, s, rate=r, **level_args(blk, up, c))
+        x = level(x, s, rate=r, **level_args(blk, up, c))
     return conv1d(x, m.source_out.weight, m.source_out.bias, padding=3)
 
 

@@ -16,6 +16,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from alivevc_tpu_torch.device import cached
+
 _WEIGHTS: Dict[Tuple[int, str, torch.dtype], Tuple[torch.Tensor, ...]] = {}
 
 
@@ -33,13 +35,12 @@ def upsample_weights_np(factor: int):
 
 def _upsample_weights(factor: int, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """The three weight rows as [1, 1, factor, 1] tensors on ``x``'s device in
-    its dtype, cached: after the first call an upsample copies nothing from
-    the host, so it never waits on the stream and a CUDA graph can hold it."""
-    key = (factor, str(x.device), x.dtype)
-    if key not in _WEIGHTS:
-        _WEIGHTS[key] = tuple(torch.from_numpy(w).to(x.device).to(x.dtype)[None, None, :, None]
-                              for w in upsample_weights_np(factor))
-    return _WEIGHTS[key]
+    its dtype, cached (``device.cached``: plain tensors only): after the first
+    call an upsample copies nothing from the host, so it never waits on the
+    stream and a CUDA graph can hold it."""
+    return cached(_WEIGHTS, (factor, str(x.device), x.dtype), lambda: tuple(
+        torch.from_numpy(w).to(x.device).to(x.dtype)[None, None, :, None]
+        for w in upsample_weights_np(factor)))
 
 
 def _upsample_int_time(x: torch.Tensor, factor: int) -> torch.Tensor:

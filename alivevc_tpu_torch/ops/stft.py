@@ -24,6 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from alivevc_tpu_torch.device import cached
 
 @functools.lru_cache(maxsize=None)
 def _window_np(kind: str, win_length: int) -> np.ndarray:
@@ -56,12 +57,9 @@ _BASIS: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def dft_basis(n_fft: int, window: str, win_length: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The DFT basis as float32 tensors on ``device`` (cached)."""
-    key = (n_fft, window, win_length, str(torch.device(device)))
-    if key not in _BASIS:
-        c, s = dft_basis_np(n_fft, window, win_length)
-        _BASIS[key] = (torch.from_numpy(c).to(device), torch.from_numpy(s).to(device))
-    return _BASIS[key]
+    """The DFT basis as float32 tensors on ``device`` (``device.cached``)."""
+    return cached(_BASIS, (n_fft, window, win_length, str(torch.device(device))), lambda: tuple(
+        torch.from_numpy(b).to(device) for b in dft_basis_np(n_fft, window, win_length)))
 
 
 def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:

@@ -110,6 +110,23 @@ printing the final line:
      ranks on the one card against the same semantics computed densely; the
      ``train_decoder`` and ``train_f0_estimator`` CLIs on synthetic WAVs.
      The phase must finish within 90 s.
+  9. distillation and export at full width, float32 without TF32: the
+     default WavLM teacher (94 M parameters, a Hugging Face state dict drawn
+     from the seed, written to a temporary ``.pt`` and loaded by
+     ``io/teacher.py``) extracting features for 16 x 65 536 (ms, peak
+     memory; one chunk against the CPU within 1e-4); five ``distill_step``s
+     of the default content encoder at 16 x 65 536 after a warm-up (ms/step,
+     peak memory, the STFT kernel exactly once a step and nothing else, one
+     step profiled); one step's loss and per-module gradient norms against
+     the CPU at 2 x 65 536; ``dp_distill_grads`` on 2 gloo ranks on the one
+     card against the dense gradients (the worst tensor); the
+     ``train_content_encoder`` CLI for 2 steps with ``--wavlm-checkpoint``
+     and with ``--teacher-features``, then ``inference -cep`` on the
+     training state; ``cli/export.py`` at --length 256 on the card, each
+     ``.pt2`` loaded and held against the port's eager kernel path, the
+     ``--torch-out`` files loaded strictly, the eager path unchanged after
+     the export; the STFT kernel's row at [16, 65 536].  The phase must
+     finish within 90 s.
 
 Its last lines are the ``kernels`` JSON line, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.  Float32 products run without TF32
@@ -1628,17 +1645,25 @@ def profile_train_step(step, card, label):
     """Device time of one training step by group, the plain backward
     recompute (the device time launched under the Functions'
     ``RECOMPUTE_SPAN``) as a group of its own, and the device's busy share
-    of the step's wall time."""
+    of the step's wall time.  ``step`` runs twice; the second is recorded."""
     import torch
     from alivevc_tpu_torch.kernels import _lib
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
+    # one step under the profiler before the recorded one: without it the
+    # trace lost the step's first kernels (the distill step's one STFT
+    # launch, which comes first, left no span)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        step()
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        prof.step()
     events = prof.events()
     cuda = torch.autograd.DeviceType.CUDA
     # kernels and copies; the device-side copies of profiler annotations
@@ -2055,6 +2080,489 @@ def run_training(card):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: distillation (the WavLM teacher, the distill step, its dp step,
+# the CLI) and export (the six torch.export graphs)
+# ---------------------------------------------------------------------------
+
+DISTILL_N, DISTILL_LEN = 16, 65_536      # the distillation CLI's default -b and -len
+DISTILL_STEPS = 5
+DISTILL_RANKS = 2
+DISTILL_TIMEOUT_S = 300
+TEACHER_TOL = 1e-4           # card vs CPU features, float32 without TF32 (the CPU tests' tolerance)
+# the dp gradients' worst tensor (max abs err / its max): vs the two halves'
+# mean on the card (the ranks read 0.0); vs the dense step on the whole batch,
+# where each L1 sign that the two batch shapes round apart moves an entry by
+# 2 |x| / (N T C) (over the four batches: 3, 1, 0, 0 flips reading 8.8e-4,
+# 8.2e-4, 7.1e-7, 6.3e-7); vs the dense step with the halves' L1 signs, the
+# float32 floor if the flips are the whole dense error (6.1e-7 to 7.1e-7; one
+# flip left out reads ~8e-4).  A rank without the all-reduce (the control)
+# reads 0.23-0.51 and must read above the dense gate.
+DISTILL_DP_TOL = 1e-5
+DISTILL_DENSE_TOL = 1e-2
+DISTILL_SIGNED_TOL = 1e-5
+# (wave seed, teacher seed) of the batches read; the ranks run the first
+DISTILL_DP_BATCHES = ((SEED + 50, SEED + 51), (SEED + 53, SEED + 54), (SEED + 55, SEED + 56),
+                      (SEED + 57, SEED + 58))
+EXPORT_LEN = 256
+EXPORT_TOL = 1e-5            # graph vs eager: |diff| / max(1, max |eager|)
+PHASE9_LIMIT_S = 90.0
+
+
+def distill_student():
+    """The default content encoder from seed 0, on the card."""
+    import torch
+    from alivevc_tpu_torch.models.content_encoder import ContentEncoder
+
+    return ContentEncoder(generator=torch.Generator().manual_seed(SEED)).to(DEV)
+
+
+def distill_target(n: int, seed: int):
+    """A teacher-shaped target [n, 204, 768] on the card, N(0, 0.1^2) from ``seed``."""
+    import numpy as np
+    import torch
+
+    t = 0.1 * np.random.default_rng(seed).standard_normal((n, DISTILL_LEN // 320, 768), dtype=np.float32)
+    return torch.from_numpy(t).to(DEV)
+
+
+def distill_rank(rank: int, world: int, tmp: str) -> None:
+    """A spawned rank of phase 9's dp check: gloo on cuda:0, this rank's
+    slice of the batch through ``dp_distill_grads``; rank 0 writes the
+    gradients and the loss to tmp/distill0.pt."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+    from alivevc_tpu_torch.parallel import init_distributed
+    from alivevc_tpu_torch.train.distill import dp_distill_grads, init_distill
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed("gloo", f"file://{tmp}/rendezvous", world, rank)
+    try:
+        wave, _ = train_batch(DISTILL_N, DISTILL_LEN, SEED + 50)
+        teacher = distill_target(DISTILL_N, SEED + 51)
+        per = DISTILL_N // world
+        sl = slice(rank * per, (rank + 1) * per)
+        g, loss = dp_distill_grads(init_distill(distill_student()), wave[sl], teacher[sl])
+        torch.cuda.synchronize()
+        if rank == 0:
+            torch.save({"g": [x.cpu() for x in g], "loss": float(loss)}, os.path.join(tmp, "distill0.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def start_distill_ranks(tmp: str):
+    """Spawn phase 9's dp ranks (their start, ~20 s of imports and CUDA
+    set-up, overlaps the CLIs and the export); returns (processes, start)."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=distill_rank, args=(r, DISTILL_RANKS, tmp)) for r in range(DISTILL_RANKS)]
+    for p in procs:
+        p.start()
+    return procs, time.perf_counter()
+
+
+def distill_dense_readings(state, names, wave_seed: int, target_seed: int):
+    """Phase 9's dp readings on one batch of 16, on the card: the halves'
+    mean (the two halves' ``distill_grads`` averaged, what the ranks'
+    all-reduce computes) against the dense gradients on the whole batch;
+    the L1 signs that differ between the dense forward and the halves'
+    (cuBLAS and cuDNN choose by shape, so ``out`` rounds apart where it
+    meets the teacher); the halves' mean against the dense gradients taken
+    with the halves' signs (d loss / d out = sign(out_halves - teacher) /
+    (N T C)), which reads the float32 floor if those flips account for the
+    whole dense error; and the control, one half's gradients alone (a rank
+    without the all-reduce), against both.  Returns (the readings, (dense
+    gradients, dense loss, halves' mean, signed gradients))."""
+    import torch
+    from alivevc_tpu_torch.models.content_encoder import content_encoder
+    from alivevc_tpu_torch.ops.stft import spectrogram
+    from alivevc_tpu_torch.train.distill import distill_grads
+
+    wave, _ = train_batch(DISTILL_N, DISTILL_LEN, wave_seed)
+    teacher = distill_target(DISTILL_N, target_seed)
+    dense_g, dense_loss = distill_grads(state, wave, teacher)
+    per = DISTILL_N // DISTILL_RANKS
+    parts = [slice(per * j, per * (j + 1)) for j in range(DISTILL_RANKS)]
+    halves = [distill_grads(state, wave[sl], teacher[sl])[0] for sl in parts]
+    mean_g = [sum(h[i] for h in halves) / DISTILL_RANKS for i in range(len(dense_g))]
+    with torch.no_grad():
+        signs = torch.cat([torch.sign(content_encoder(state.model, spectrogram(wave[sl])) - teacher[sl])
+                           for sl in parts])
+    out = content_encoder(state.model, spectrogram(wave))
+    flips = int((torch.sign(out.detach() - teacher) != signs).sum())
+    signed_g = list(torch.autograd.grad(torch.mean((out - teacher) * signs),
+                                        list(state.model.parameters())))
+    readings = {"seeds": [wave_seed, target_seed], "l1_sign_flips": flips, "elements": signs.numel(),
+                "mean_vs_dense": worst_tensor(names, mean_g, dense_g),
+                "mean_vs_signed": worst_tensor(names, mean_g, signed_g),
+                "control_vs_dense": worst_tensor(names, halves[0], dense_g),
+                "control_vs_mean": worst_tensor(names, halves[0], mean_g)}
+    return readings, (dense_g, dense_loss, mean_g, signed_g)
+
+
+def finish_distill_dp(card, procs, t0, tmp):
+    """Phase 9: ``dp_distill_grads`` (the gradients ``dp_distill_step``
+    applies) on 2 gloo ranks on the one card, 8 x 65 536 each, against the
+    halves' mean, the dense step on the whole batch of 16, and the dense
+    step with the halves' L1 signs (``distill_dense_readings``, which also
+    reads the last three over the other batches of ``DISTILL_DP_BATCHES``
+    and the control)."""
+    import os
+
+    import torch
+    from alivevc_tpu_torch.train.distill import init_distill
+
+    try:
+        state = init_distill(distill_student())
+        names = [k for k, _ in state.model.named_parameters()]
+        readings = []
+        for ws, ts in DISTILL_DP_BATCHES:
+            r, tensors = distill_dense_readings(state, names, ws, ts)
+            if not readings:
+                dense_g, dense_loss, mean_g, signed_g = tensors
+            del tensors
+            readings.append(r)
+        for p in procs:
+            p.join(max(1.0, DISTILL_TIMEOUT_S - (time.perf_counter() - t0)))
+        alive = [p.pid for p in procs if p.is_alive()]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+    need(not alive, f"distill ranks {alive} did not finish in {DISTILL_TIMEOUT_S} s")
+    need(all(p.exitcode == 0 for p in procs), f"distill ranks failed: {[p.exitcode for p in procs]}")
+    got = torch.load(os.path.join(tmp, "distill0.pt"), weights_only=False)
+    g = [x.to(DEV) for x in got["g"]]
+    w = worst_tensor(names, g, mean_g)
+    wd = worst_tensor(names, g, dense_g)
+    ws = worst_tensor(names, g, signed_g)
+    loss_err = abs(got["loss"] - float(dense_loss)) / abs(float(dense_loss))
+    dt = time.perf_counter() - t0
+
+    def at(x):
+        return f"{x['rel_err']:.3e} at {x['tensor']}"
+
+    for r in readings:
+        print(f"distill dp batch (seeds {r['seeds'][0]}, {r['seeds'][1]}) [{card}]: {r['l1_sign_flips']} "
+              f"of {r['elements']} L1 signs differ between the dense and the halves' forwards; the "
+              f"halves' mean vs dense {at(r['mean_vs_dense'])} (<= {DISTILL_DENSE_TOL:.0e}), vs dense "
+              f"with the halves' signs {at(r['mean_vs_signed'])} (<= {DISTILL_SIGNED_TOL:.0e}); control, "
+              f"one half alone (no all-reduce): vs dense {at(r['control_vs_dense'])} (> "
+              f"{DISTILL_DENSE_TOL:.0e}), vs the halves' mean {at(r['control_vs_mean'])}")
+    print(f"distill dp [{card}]: dp_distill_grads on {DISTILL_RANKS} gloo ranks on one card "
+          f"({DISTILL_N // DISTILL_RANKS} x {DISTILL_LEN} each, seeds {DISTILL_DP_BATCHES[0]}): worst "
+          f"tensor's max abs err / its max vs the two halves' mean {at(w)} (max |grad| "
+          f"{w['max_abs_grad']:.3e}; <= {DISTILL_DP_TOL:.0e}); vs the dense step at {DISTILL_N} {at(wd)} "
+          f"(<= {DISTILL_DENSE_TOL:.0e}); vs the dense step with the halves' L1 signs {at(ws)} (<= "
+          f"{DISTILL_SIGNED_TOL:.0e}); loss rel err vs dense {loss_err:.3e} (<= 1e-5); {dt:.1f} s since "
+          f"the ranks' start")
+    need(w["rel_err"] <= DISTILL_DP_TOL and wd["rel_err"] <= DISTILL_DENSE_TOL
+         and ws["rel_err"] <= DISTILL_SIGNED_TOL and loss_err <= 1e-5,
+         f"distill dp: gradients vs halves {w}, vs dense {wd}, vs signed dense {ws}, loss rel err {loss_err}")
+    need(all(r["mean_vs_dense"]["rel_err"] <= DISTILL_DENSE_TOL
+             and r["mean_vs_signed"]["rel_err"] <= DISTILL_SIGNED_TOL
+             and r["control_vs_dense"]["rel_err"] > DISTILL_DENSE_TOL for r in readings),
+         f"distill dp readings: {readings}")
+    return {"dp_grad_rel_err": w["rel_err"], "dp_grad_worst": w, "dense_grad_rel_err": wd["rel_err"],
+            "dense_grad_worst": wd, "signed_dense_grad_worst": ws, "dp_loss_rel_err": loss_err,
+            "batches": readings}
+
+
+def run_distill_clis(card, teacher, wavlm_path, tmp):
+    """Phase 9: ``cli/train_content_encoder.py`` for 2 steps (-b 2 over four
+    65 536-sample chunks of synthetic WAVs), with ``--wavlm-checkpoint`` and
+    with ``--teacher-features`` (features from the phase's teacher), then
+    ``cli/inference.py -cep`` on the training state the first run wrote.
+    Counters zeroed before each run and read after; returns (launches,
+    summed; the first training state's path; the report)."""
+    import os
+
+    import numpy as np
+    import torch
+    from alivevc_tpu_torch.cli import inference, train_content_encoder
+    from alivevc_tpu_torch.cli.common import load_params_or_init
+    from alivevc_tpu_torch.io.audio import read_wav, write_wav
+    from alivevc_tpu_torch.io.dataset import WaveChunkDataset
+    from alivevc_tpu_torch.kernels import LAUNCHES, reset_launches
+    from alivevc_tpu_torch.train.state import load_train_state
+
+    data = os.path.join(tmp, "data")
+    os.makedirs(data)
+    rng = np.random.default_rng(SEED + 60)
+    for i in range(2):
+        write_wav(os.path.join(data, f"{i}.wav"), request_wave(8.5, rng), 16_000)
+    chunks = WaveChunkDataset([data], length=DISTILL_LEN).chunks
+    np.savez(os.path.join(tmp, "feats.npz"), features=teacher.extract(chunks).cpu().numpy())
+    total = {k: 0 for k in LAUNCHES}
+    report = {}
+    paths = {}
+    for name, flags in (("wavlm", ["--wavlm-checkpoint", wavlm_path]),
+                        ("features", ["--teacher-features", os.path.join(tmp, "feats.npz")])):
+        paths[name] = os.path.join(tmp, f"ce_{name}.pt")
+        reset_launches()
+        t0 = time.perf_counter()
+        state = train_content_encoder.main([data, "-mp", paths[name], "-e", "1", "-b", "2",
+                                            "--device", DEV, *flags])
+        dt = time.perf_counter() - t0
+        got = dict(LAUNCHES)
+        need(state.step == 2 and os.path.exists(paths[name]) and got["stft"] == 2,
+             f"train_content_encoder {name}: {state.step} steps, launches {got}")
+        print(f"train_content_encoder CLI with {flags[0]}, full width, 2 steps at 2 x {DISTILL_LEN}: "
+              f"{dt:.2f} s wall (dataset, teacher, model build and steps), launches {got} [{card}]")
+        report[f"cli_{name}_s"] = dt
+        for k in total:
+            total[k] += got[k]
+    a, b = (load_train_state(p)["models"]["content_encoder"] for p in paths.values())
+    report["cli_runs_max_abs_diff"] = max(float((v - b[k]).abs().max()) for k, v in a.items())
+    in_dir, target = os.path.join(tmp, "in"), os.path.join(tmp, "target.wav")
+    os.makedirs(in_dir)
+    write_wav(os.path.join(in_dir, "voice.wav"), request_wave(2.0, rng), 16_000)
+    write_wav(target, request_wave(10.0, rng), 16_000)
+    reset_launches()
+    t0 = time.perf_counter()
+    out = inference.main(["-i", in_dir, "-o", os.path.join(tmp, "out"), "-t", target,
+                          "-cep", paths["wavlm"], "--device", DEV])[0]
+    dt = time.perf_counter() - t0
+    got = dict(LAUNCHES)
+    written, _ = read_wav(os.path.join(tmp, "out", "0_voice.wav"))
+    ce = load_params_or_init(paths["wavlm"], "content_encoder", torch.device(DEV))
+    same = all(torch.equal(ce.state_dict()[k].cpu(), v) for k, v in a.items())
+    need(out.shape == (32_000,) and written.shape == (1, 32_000) and bool(np.isfinite(out).all())
+         and same and all(got[k] > 0 for k in OFFLINE_KERNELS),
+         f"inference -cep: output {out.shape}, file {written.shape}, encoder as trained {same}, {got}")
+    print(f"inference CLI -cep <the distillation's training state>: 2 s in, {out.shape[0]} samples "
+          f"out, {dt:.2f} s wall, the encoder read as trained, launches {got}; the two distillation "
+          f"runs' encoders differ by at most {report['cli_runs_max_abs_diff']:.3e} [{card}]")
+    report["cli_inference_s"] = dt
+    for k in total:
+        total[k] += got[k]
+    return total, paths["wavlm"], report
+
+
+def run_export(card, ce_path, tmp):
+    """Phase 9: ``cli/export.py`` at --length 256 on the card (the encoder
+    from ``ce_path``, the other models from seed 0), each ``.pt2`` loaded and
+    run against the port's eager function on the kernel path (uncounted),
+    the ``--torch-out`` files loaded strictly, and the eager path after the
+    export equal to the one before (with ``ops/interp.py``'s cache emptied
+    first, so that tracing would meet it empty)."""
+    import os
+
+    import torch
+    from alivevc_tpu_torch.cli import export
+    from alivevc_tpu_torch.cli.common import load_params_or_init
+    from alivevc_tpu_torch.compat import torch_import
+    from alivevc_tpu_torch.models.content_encoder import content_encoder
+    from alivevc_tpu_torch.models.decoder import feature_extractor, filter_unet
+    from alivevc_tpu_torch.models.f0_estimator import f0_estimate, f0_estimator
+    from alivevc_tpu_torch.models.voice_library import voice_library_match
+    from alivevc_tpu_torch.ops import interp
+    from alivevc_tpu_torch.ops.stft import spectrogram
+
+    dev = torch.device(DEV)
+    paths = {"content_encoder": ce_path, **{k: os.path.join(tmp, f"none_{k}.pt")
+                                            for k in ("f0_estimator", "decoder", "voice_library")}}
+    m = {k: load_params_or_init(p, k, dev) for k, p in paths.items()}
+    t = EXPORT_LEN
+    wave, _ = train_batch(1, t * 320, SEED + 70)
+    source = wave[:, :, None]
+    with torch.no_grad():
+        spec = spectrogram(wave)
+        content = content_encoder(m["content_encoder"], spec)
+        f0 = f0_estimate(m["f0_estimator"], spec)
+        feats = feature_extractor(m["decoder"].feature_extractor, content, f0)
+        osc, seg = m["decoder"].harmonic_oscillator, m["decoder"].cfg.segment_size
+        eager = {"amps": export.oscillator_amps(osc, feats, seg),
+                 "filter": filter_unet(m["decoder"].filter, source, feats, m["decoder"].cfg)[..., 0]}
+    interp._WEIGHTS.clear()
+    t0 = time.perf_counter()
+    written = export.main(["-o", os.path.join(tmp, "export"), "--length", str(t), "--torch-out",
+                           os.path.join(tmp, "torch_out"), "-cep", paths["content_encoder"],
+                           "-f0ep", paths["f0_estimator"], "-dep", paths["decoder"],
+                           "-lib", paths["voice_library"], "--device", DEV])
+    export_s = time.perf_counter() - t0
+    with torch.no_grad():
+        after = {"amps": export.oscillator_amps(osc, feats, seg),
+                 "filter": filter_unet(m["decoder"].filter, source, feats, m["decoder"].cfg)[..., 0]}
+    real = all(type(v) is torch.Tensor and torch.equal(v, eager[k]) for k, v in after.items())
+    need(real, "export: an eager call after the export is not a real tensor equal to the one before")
+    t0 = time.perf_counter()
+    graphs = {k: torch.export.load(p).module() for k, p in written.items()}
+    load_s = time.perf_counter() - t0
+    errs = {}
+    with torch.no_grad():
+        cases = {
+            "content_encoder": ((spec,), content),
+            "feature_extractor": ((content, f0), feats),
+            "harmonic_oscillator": ((feats,), eager["amps"]),
+            "voice_library": ((content,), voice_library_match(m["voice_library"], content)),
+            "filter": ((source, feats), eager["filter"]),
+        }
+        for name, (args, want) in cases.items():
+            got = graphs[name](*args)
+            need(got.shape == want.shape and got.device == want.device,
+                 f"export {name}: {tuple(got.shape)} on {got.device}")
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            if name == "filter":    # the kernel's 3xTF32 products against float32 (phase 2)
+                tol = 1e-3 * (1.0 + scale)
+            elif name == "voice_library":   # identical index sets
+                tol = 1e-6
+            else:
+                tol = EXPORT_TOL * max(1.0, scale)
+            errs[name] = {"max_abs_err": err, "tol": tol, "max_abs": scale}
+            need(err <= tol, f"export {name}: graph vs eager max abs err {err} > {tol}")
+        # f0: the argmax bins, identical wherever the top two logits are more
+        # than 1e-4 apart (the CPU tests' rule for a discrete output)
+        bins = graphs["f0_estimator"](spec)
+        top2 = torch.topk(f0_estimator(m["f0_estimator"], spec), 2, dim=-1).values
+        clear = (top2[..., 0] - top2[..., 1]) > 1e-4
+        differ = int((bins[..., 0] != f0[..., 0]).sum())
+        differ_clear = int(((bins[..., 0] != f0[..., 0]) & clear).sum())
+        errs["f0_estimator"] = {"bins_differing": differ, "bins_differing_clear": differ_clear,
+                                "frames": t, "clear_frames": int(clear.sum())}
+        need(differ_clear == 0, f"export f0_estimator: {differ_clear} clear bins differ")
+    for kind, cls_import in (("content_encoder", torch_import.import_content_encoder),
+                             ("f0_estimator", torch_import.import_f0_estimator),
+                             ("decoder", torch_import.import_decoder),
+                             ("voice_library", torch_import.import_voice_library)):
+        sd = torch_import.load_torch_state_dict(os.path.join(tmp, "torch_out", f"{kind}.pt"))
+        loaded = cls_import(sd)      # strict key matching
+        need(all(torch.equal(v, m[kind].state_dict()[k].cpu()) for k, v in loaded.state_dict().items()),
+             f"export --torch-out {kind}: weights differ")
+    sizes = {k: os.path.getsize(p) for k, p in written.items()}
+    print(f"export [{card}]: cli.export at --length {t} on the card, 6 graphs in {export_s:.2f} s "
+          f"(tracing and saving), loaded in {load_s:.2f} s, {sum(sizes.values()) / 2**20:.1f} MiB; graph "
+          f"vs the eager kernel path: {json.dumps(errs)}; --torch-out loads strictly; the eager path "
+          f"after the export returns real tensors equal to the ones before")
+    return {"export_s": export_s, "load_s": load_s, "errors": errs, "bytes": sizes}
+
+
+def run_distillation(card):
+    """Phase 9: distillation at full width (the default WavLM teacher from a
+    seed-drawn state dict, the default content encoder, batch 16 x 65 536),
+    float32 without TF32, and export; counters zeroed before the timed
+    distill steps and the CLI runs and read after.  Returns (launches, the
+    STFT row at the distillation's shape, the report)."""
+    import copy
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from alivevc_tpu_torch.io.teacher import WavLMTeacher
+    from alivevc_tpu_torch.kernels import LAUNCHES, reset_launches
+    from alivevc_tpu_torch.models.wavlm import WavLMConfig, seeded_state, wavlm_features
+    from alivevc_tpu_torch.train.distill import distill_grads, distill_step, init_distill
+
+    t_phase = time.perf_counter()
+    total = {k: 0 for k in LAUNCHES}
+    report = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # 1. the teacher
+        wavlm_path = os.path.join(tmp, "wavlm.pt")
+        torch.save({k: torch.from_numpy(v) for k, v in seeded_state(WavLMConfig(), SEED).items()},
+                   wavlm_path)
+        teacher = WavLMTeacher(wavlm_path)
+        n_params = sum(p.numel() for p in teacher.model.parameters())
+        wave, _ = train_batch(DISTILL_N, DISTILL_LEN, SEED + 52)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        feats = teacher.extract(wave)
+        t_ms = cuda_ms(lambda: teacher.extract(wave))
+        t_peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        with torch.no_grad():
+            cpu_feat = wavlm_features(copy.deepcopy(teacher.model).cpu(), wave[:1].cpu())
+        t_err = float((feats[:1].cpu() - cpu_feat).abs().max())
+        print(f"distill teacher [{card}]: WavLM ({n_params / 1e6:.1f} M parameters, seed-drawn, HF keys) "
+              f"features for {DISTILL_N} x {DISTILL_LEN}: {tuple(feats.shape)}, {t_ms:.3f} ms (CUDA "
+              f"events, median), peak memory above the weights {t_peak:.1f} MiB; card vs CPU, one chunk, "
+              f"TF32 off: max abs err {t_err:.3e} (<= {TEACHER_TOL:.0e}; max |feature| "
+              f"{float(cpu_feat.abs().max()):.3f})")
+        need(feats.shape == (DISTILL_N, DISTILL_LEN // 320, 768) and bool(torch.isfinite(feats).all())
+             and t_err <= TEACHER_TOL, f"teacher: {tuple(feats.shape)}, card vs CPU {t_err}")
+        report["teacher"] = {"ms": t_ms, "peak_mib": t_peak, "card_vs_cpu": t_err, "params": n_params}
+
+        # 2. distill steps at 16 x 65 536
+        state = init_distill(distill_student())
+        distill_step(state, wave, feats)          # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        times, losses = [], []
+        reset_launches()
+        for _ in range(DISTILL_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(distill_step(state, wave, feats)["loss"]))
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches = dict(LAUNCHES)
+        for k in total:
+            total[k] += launches[k]
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        print(f"distill step [{card}]: {DISTILL_STEPS} distill_steps at {DISTILL_N} x {DISTILL_LEN} after "
+              f"1 warm-up: ms/step median {statistics.median(times):.2f}, min {min(times):.2f}, max "
+              f"{max(times):.2f} (all {', '.join(f'{x:.2f}' for x in times)}); peak memory above the "
+              f"models {peak:.1f} MiB; launches {launches} (expected stft {DISTILL_STEPS}, nothing else); "
+              f"losses {losses}")
+        need(launches == {**{k: 0 for k in launches}, "stft": DISTILL_STEPS}
+             and all(np.isfinite(losses)), f"distill steps: launches {launches}, losses {losses}")
+        prof = profile_train_step(lambda: distill_step(state, wave, feats), card,
+                                  f"one distill step at {DISTILL_N} x {DISTILL_LEN}")
+        report["step"] = {"ms_median": statistics.median(times), "ms_min": min(times),
+                          "ms_max": max(times), "peak_mib": peak, "launches": launches,
+                          "profile": prof}
+
+        # 3. card against CPU at 2 x 65 536
+        res = {}
+        for where in ("card", "cpu"):
+            dev = DEV if where == "card" else "cpu"
+            st = init_distill(copy.deepcopy(distill_student()).to(dev))
+            g, loss = distill_grads(st, wave[:2].to(dev), feats[:2].to(dev))
+            names = [k for k, _ in st.model.named_parameters()]
+            res[where] = (float(loss), group_norms(names, g, ("input_layer", "mid_layers", "output_layer")))
+        loss_err = abs(res["card"][0] - res["cpu"][0]) / abs(res["cpu"][0])
+        norm_err = max(abs(res["card"][1][k] - v) / max(v, 1e-30) for k, v in res["cpu"][1].items())
+        print(f"distill card vs CPU [{card}]: one step at 2 x {DISTILL_LEN}, full width, TF32 off: loss "
+              f"rel err {loss_err:.3e} (<= 1e-4), per-module gradient norms max rel err {norm_err:.3e} "
+              f"(<= 1e-3); card {res['card']}; CPU {res['cpu']}")
+        need(loss_err <= 1e-4 and norm_err <= 1e-3, f"distill card vs CPU: {loss_err}, {norm_err}")
+        report["card_vs_cpu"] = {"loss_rel_err": loss_err, "grad_norm_rel_err": norm_err}
+        del state
+
+        # 4. the CLIs and 5. export, while 6. the dp ranks start
+        dp_tmp = os.path.join(tmp, "dp")
+        os.makedirs(dp_tmp)
+        procs, t_ranks = start_distill_ranks(dp_tmp)
+        try:
+            cli_launches, ce_path, report["cli"] = run_distill_clis(card, teacher, wavlm_path, tmp)
+            for k in total:
+                total[k] += cli_launches[k]
+            del teacher
+            torch.cuda.empty_cache()
+            report["export"] = run_export(card, ce_path, tmp)
+        except BaseException:
+            for p in procs:
+                p.kill()
+                p.join(30)
+            raise
+        report["dp"] = finish_distill_dp(card, procs, t_ranks, dp_tmp)
+    stft_row = check_stft(torch.Generator(device="cuda").manual_seed(SEED + 9), DISTILL_N, DISTILL_LEN,
+                          " (distill)")
+    elapsed = time.perf_counter() - t_phase
+    report["phase_s"] = elapsed
+    print(f"distill: phase 9 took {elapsed:.1f} s (<= {PHASE9_LIMIT_S:.0f})")
+    need(elapsed <= PHASE9_LIMIT_S, f"phase 9 took {elapsed:.1f} s > {PHASE9_LIMIT_S}")
+    return total, stft_row, report
+
+
+# ---------------------------------------------------------------------------
 
 
 REPLACES = {
@@ -2077,7 +2585,7 @@ def kernels_line(rows, launches):
     filter's four up levels in bf16, summed: one step runs all four; the
     packed kNN at the 100 352-row library); every measured variant, the
     streaming hop's and the training Functions' included, is listed under 'variants'.  Launches
-    are summed over the paths driven (phases 3, 4 with both ranks, 5, 6, 7 with both ranks, 8)."""
+    are summed over the paths driven (phases 3, 4 with both ranks, 5, 6, 7 with both ranks, 8, 9)."""
     out = []
     for name, (source, replaces) in REPLACES.items():
         mine = [r for r in rows if r["name"] == name]
@@ -2087,8 +2595,8 @@ def kernels_line(rows, launches):
             main = [r for r in mine if f" {LIB_ROWS} x 768" in r["variant"]]
         elif name == "filter_level":
             main = [r for r in mine if r["variant"].endswith("bf16")]
-        else:     # the STFT and the oscillators: the offline row, not the hop's or training's
-            main = [r for r in mine if not r["variant"].endswith(("(hop)", "(train)"))]
+        else:     # the STFT and the oscillators: the offline row, not the hop's, training's or distillation's
+            main = [r for r in mine if not r["variant"].endswith(("(hop)", "(train)", "(distill)"))]
         entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name],
@@ -2221,8 +2729,16 @@ def main() -> int:
     rows.extend(train_rows)
     print(f"phase 8 done at {time.perf_counter() - t_start:.1f} s; report {json.dumps(training)}")
 
+    # phase 9
+    torch.cuda.empty_cache()
+    with torch.enable_grad():
+        distill_launches, distill_stft, distill = run_distillation(card)
+    print_rows([distill_stft], card)
+    rows.append(distill_stft)
+    print(f"phase 9 done at {time.perf_counter() - t_start:.1f} s; report {json.dumps(distill)}")
+
     total = {k: launches[k] + sharded_launches[k] + api_launches[k] + rt_launches[k]
-             + halo_launches[k] + train_launches[k] for k in launches}
+             + halo_launches[k] + train_launches[k] + distill_launches[k] for k in launches}
     print(json.dumps(kernels_line(rows, total)))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -958,3 +958,102 @@ def test_every_parameter_learns_on_card():
     reset_launches()
     fine_tune_step(ft, ce, f0m, wave, amp)
     assert LAUNCHES["knn"] == 1 and not torch.equal(vl.tokens, tokens)
+
+
+WAVLM_NARROW = dict(hidden_size=64, num_layers=10, num_heads=4, intermediate_size=128,
+                    conv_dim=(32,) * 7, num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4)
+
+
+@pytest.mark.gpu
+def test_wavlm_card_vs_cpu_on_card():
+    """The narrow WavLM teacher on the card against the CPU, float32 without
+    TF32: every hidden state and the features within 1e-4 abs (the CPU
+    tests' tolerance against JAX)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; on the card run this file with --noconftest -m gpu")
+    import copy
+
+    from alivevc_tpu_torch.models.wavlm import (WavLMConfig, import_wavlm, seeded_state,
+                                                wavlm_features, wavlm_hidden_states)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    m = import_wavlm(seeded_state(WavLMConfig(**WAVLM_NARROW), seed=0))
+    wave = torch.from_numpy((0.1 * np.random.default_rng(1).standard_normal((2, 16_000))).astype(np.float32))
+    card = copy.deepcopy(m).cuda()
+    with torch.no_grad():
+        for a, b in zip(wavlm_hidden_states(m, wave), wavlm_hidden_states(card, wave.cuda())):
+            assert max_err(a, b.cpu()) <= 1e-4
+        assert max_err(wavlm_features(m, wave), wavlm_features(card, wave.cuda()).cpu()) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_distill_step_launches_the_stft_once_on_card():
+    """One distill step on the card launches the STFT kernel once (forward
+    only: the wave carries no gradient) and nothing else; its loss within
+    1e-5 relative and its parameters within 1e-6 abs of the CPU's step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; on the card run this file with --noconftest -m gpu")
+    import copy
+
+    from alivevc_tpu_torch.config import ContentEncoderConfig
+    from alivevc_tpu_torch.kernels import LAUNCHES, reset_launches
+    from alivevc_tpu_torch.models.content_encoder import ContentEncoder
+    from alivevc_tpu_torch.train.distill import distill_step, init_distill
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ce = ContentEncoder(ContentEncoderConfig(internal_channels=32, hidden_channels=64,
+                                             output_channels=64, num_layers=2),
+                        generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(2)
+    wave = torch.from_numpy((0.3 * rng.standard_normal((2, 6400))).astype(np.float32))
+    teacher = torch.from_numpy((0.1 * rng.standard_normal((2, 20, 64))).astype(np.float32))
+    cpu, card = init_distill(copy.deepcopy(ce)), init_distill(copy.deepcopy(ce).cuda())
+    want = distill_step(cpu, wave, teacher)["loss"]
+    reset_launches()
+    got = distill_step(card, wave.cuda(), teacher.cuda())["loss"]
+    assert dict(LAUNCHES) == {**{k: 0 for k in LAUNCHES}, "stft": 1}
+    assert abs(float(got) - float(want)) <= 1e-5 * abs(float(want))
+    for k, v in cpu.model.state_dict().items():
+        assert max_err(card.model.state_dict()[k].cpu(), v) <= 1e-6, k
+
+
+@pytest.mark.gpu
+def test_exported_graphs_match_the_kernel_path_on_card(tmp_path):
+    """``cli/export.py``'s filter and voice_library graphs, traced on the
+    card, saved and loaded, against the port's eager functions on the
+    kernel path: the filter within 1e-3 (1 + max |out|) (phase 2's float32
+    filter tolerance: 3xTF32 products against float32), the library match
+    with identical index sets, so within 1e-6."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; on the card run this file with --noconftest -m gpu")
+    from alivevc_tpu_torch.cli import export
+    from alivevc_tpu_torch.config import VoiceLibraryConfig
+    from alivevc_tpu_torch.kernels import LAUNCHES, reset_launches
+    from alivevc_tpu_torch.models.decoder import filter_unet
+    from alivevc_tpu_torch.models.voice_library import VoiceLibrary, voice_library_match
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(0)
+    dec = Decoder(DecoderConfig(**SMALL_DEC), generator=gen).cuda().eval().requires_grad_(False)
+    vl = VoiceLibrary(VoiceLibraryConfig(num_tokens=64, dim=64), generator=gen).cuda().requires_grad_(False)
+    graphs = export.graphs(None, None, dec, vl)
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy((0.3 * rng.standard_normal((1, 16 * 320, 1))).astype(np.float32)).cuda()
+    c = torch.from_numpy((0.5 * rng.standard_normal((1, 16, 32))).astype(np.float32)).cuda()
+    content = torch.from_numpy(rng.standard_normal((1, 16, 64)).astype(np.float32)).cuda()
+    loaded = {}
+    with torch.no_grad():
+        for name, args in (("filter", (x, c)), ("voice_library", (content,))):
+            path = str(tmp_path / f"{name}.pt2")
+            torch.export.save(torch.export.export(graphs[name], args), path)
+            loaded[name] = torch.export.load(path).module()
+        reset_launches()
+        want_f = filter_unet(dec.filter, x, c, dec.cfg)[..., 0]
+        want_v = voice_library_match(vl, content)
+        assert LAUNCHES["filter_level"] == 4 and LAUNCHES["knn"] == 1
+        got_f, got_v = loaded["filter"](x, c), loaded["voice_library"](content)
+    assert got_f.is_cuda and max_err(got_f, want_f) <= 1e-3 * (1.0 + float(want_f.abs().max()))
+    assert max_err(got_v, want_v) <= 1e-6

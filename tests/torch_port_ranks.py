@@ -168,3 +168,32 @@ def run_train_rank(rank: int, world: int, tmp: str) -> None:
         torch.save(out, os.path.join(tmp, f"train_rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
+
+
+def run_distill_rank(rank: int, world: int, tmp: str) -> None:
+    """Rank ``rank`` of the data-parallel distillation step: this rank's
+    slice of ``tmp/distill_inputs.pt``'s batch through ``dp_distill_grads``,
+    then ``dp_distill_step`` twice; writes ``tmp/distill_rank<rank>.pt`` (the
+    gradients, the losses, and the parameters after each step)."""
+    from alivevc_tpu_torch import config as tc
+    from alivevc_tpu_torch.models.content_encoder import ContentEncoder
+    from alivevc_tpu_torch.parallel import init_distributed
+    from alivevc_tpu_torch.train.distill import dp_distill_grads, dp_distill_step, init_distill
+
+    torch.set_num_threads(1)
+    spec = torch.load(os.path.join(tmp, "distill_inputs.pt"), weights_only=False)
+    init_distributed("gloo", f"file://{tmp}/distill_rendezvous", world, rank)
+    try:
+        ce = ContentEncoder(tc.ContentEncoderConfig(**spec["ce_kw"]))
+        ce.load_state_dict(spec["ce"])
+        state = init_distill(ce)
+        per = spec["wave"].shape[0] // world
+        mine = slice(rank * per, (rank + 1) * per)
+        out = {"grads": dp_distill_grads(state, spec["wave"][mine], spec["teacher"][mine]),
+               "loss": [], "params": []}
+        for _ in range(2):
+            out["loss"].append(dp_distill_step(state, spec["wave"][mine], spec["teacher"][mine])["loss"])
+            out["params"].append({k: v.clone() for k, v in state.model.state_dict().items()})
+        torch.save(out, os.path.join(tmp, f"distill_rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
