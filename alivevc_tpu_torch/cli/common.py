@@ -1,16 +1,23 @@
 """Shared CLI helpers: model loading (``compat/torch_import.py:
-load_params_or_init``: ``.pt`` / ``.npz`` detection and the reference's
-resume-by-existence convention, train_decoder.py:57-64), the target matrix
-both conversion CLIs build, and the training CLIs' output paths, process
-group and epoch length.
+load_params_or_init``: ``.pt`` / ``.npz`` / ``.ckpt`` detection and the
+reference's resume-by-existence convention, train_decoder.py:57-64), the
+target matrix both conversion CLIs build, and the training CLIs' files,
+process group and epoch length.
 
 A model file is a reference-format ``.pt`` state dict (the reference's key
 names, loaded with ``torch.load(weights_only=True)``), a training state
 ``.pt`` of this package (``train/state.py``; the model of that kind is read
-out of it), or the JAX package's ``.npz`` checkpoint (``io/checkpoint.py``,
-carried over by ``compat/weights.py``).  Either way the model is built at
-the widths the file holds and loaded with strict key matching; a missing
-file gives a model initialised from seed 0.
+out of it), or the JAX package's ``.npz`` / ``.ckpt`` checkpoint: a
+parameter tree or a training state (``io/checkpoint.py``, carried over by
+``compat/weights.py`` and ``compat/jax_train_state.py``).  Either way the
+model is built at the widths the file holds and loaded with strict key
+matching; a missing file gives a model initialised from seed 0.
+
+The training CLIs read and write their states and models by the file's
+extension, here and nowhere else: ``.pt`` is this package's format,
+``.ckpt`` the JAX package's (a training state with its optax moments, or a
+parameter tree), so a run moves between the two packages either way;
+another extension is refused before training.
 """
 
 from __future__ import annotations
@@ -21,11 +28,14 @@ import numpy as np
 import torch
 from torch import nn
 
+from alivevc_tpu_torch.compat import jax_train_state, weights
 from alivevc_tpu_torch.compat.torch_import import load_params_or_init
 from alivevc_tpu_torch.device import resolve_device
 from alivevc_tpu_torch.infer.offline import build_target_matrix
 from alivevc_tpu_torch.io.audio import read_wav
+from alivevc_tpu_torch.io.checkpoint import save_checkpoint
 from alivevc_tpu_torch.ops.resample import resample
+from alivevc_tpu_torch.train.state import read_train_state, save_reference_state, write_train_state
 
 
 def resample_np(x: np.ndarray, orig: int, new: int, device: torch.device) -> np.ndarray:
@@ -58,12 +68,41 @@ def log_logo() -> None:
     print("alivevc_tpu_torch — kNN voice conversion, the PyTorch/CUDA port of alivevc_tpu")
 
 
-def require_pt(*paths: str) -> None:
-    """The training CLIs write ``.pt`` files only (reference-format state
-    dicts and training states); refuse another extension before training."""
-    bad = [p for p in paths if p != "NONE" and not p.endswith(".pt")]
+FORMATS = (".pt", ".ckpt")
+
+
+def require_format(*paths: str) -> None:
+    """Refuse, before training, an output file that is neither ``.pt`` nor
+    ``.ckpt`` ("NONE" names no file)."""
+    bad = [p for p in paths if p != "NONE" and not p.endswith(FORMATS)]
     if bad:
-        raise SystemExit(f"output files must end in .pt (the port writes torch files): {bad}")
+        raise SystemExit("output files must end in .pt (this package's torch files) or .ckpt "
+                         f"(the JAX package's layout): {bad}")
+
+
+def read_state(path: str, trainer: str, device: torch.device, **init_kw):
+    """A trainer's state (``train/state.py:TRAINERS``) from ``path``: a JAX
+    ``.ckpt`` or this package's ``.pt``."""
+    if path.endswith(".ckpt"):
+        return jax_train_state.read(path, trainer, device, **init_kw)
+    return read_train_state(path, trainer, device, **init_kw)
+
+
+def write_state(path: str, state) -> None:
+    if path.endswith(".ckpt"):
+        jax_train_state.write(path, state)
+    else:
+        write_train_state(path, state)
+
+
+def save_model(path: str, module: nn.Module, kind: str) -> None:
+    """A model as a JAX parameter tree (``.ckpt``) or a reference state
+    dict (``.pt``)."""
+    if path.endswith(".ckpt"):
+        save_checkpoint(path, weights.MODELS[kind].params(
+            {k: v.detach().cpu().numpy() for k, v in module.state_dict().items()}))
+    else:
+        save_reference_state(path, module)
 
 
 def init_dp(dp: bool, device: str):

@@ -6,13 +6,17 @@ library with a third optimizer.
         -disp discriminator.pt -lib voice_library.pt --max-step 2000
 
 The flags are the JAX package's.  Every model loads from its path (``.pt``,
-a training state ``.pt`` or the JAX ``.npz``; seed-0 models where a file
-does not exist); ``-lib NONE`` fine-tunes without the library (content
-self-matched).  The training state ``-sp`` resumes the run where it
-exists.  Every ``--save-every`` steps and at the end, the state, the
-decoder (``-dep``) and the library (``-lib``) are written, each a ``.pt``
-in the reference's key layout.  ``--device`` and ``--dp`` as in
-``cli/train_decoder.py``.
+a training state ``.pt``, or the JAX ``.npz`` / ``.ckpt``; seed-0 models
+where a file does not exist); ``-lib NONE`` fine-tunes without the library
+(content self-matched).  The training state ``-sp`` (a ``.pt`` of
+``train/state.py`` or the JAX package's ``FineTuneState`` ``.ckpt``,
+``compat/jax_train_state.py``) resumes the run where it exists: its models,
+optimizers and step take the place of the model files', and it must hold a
+library exactly when ``-lib`` names one.  Every ``--save-every`` steps and
+at the end, the state, the decoder (``-dep``) and the library (``-lib``)
+are written, each in the format its extension names (``.pt``: the
+reference's key layout; ``.ckpt``: the JAX package's).  ``--device`` and
+``--dp`` as in ``cli/train_decoder.py``.
 """
 
 from __future__ import annotations
@@ -23,7 +27,15 @@ import os
 import numpy as np
 import torch
 
-from alivevc_tpu_torch.cli.common import init_dp, load_params_or_init, require_pt, steps_per_epoch
+from alivevc_tpu_torch.cli.common import (
+    init_dp,
+    load_params_or_init,
+    read_state,
+    require_format,
+    save_model,
+    steps_per_epoch,
+    write_state,
+)
 from alivevc_tpu_torch.cli.train_decoder import train_config
 from alivevc_tpu_torch.io.dataset import WaveChunkDataset
 from alivevc_tpu_torch.train.fine_tune import (
@@ -32,7 +44,6 @@ from alivevc_tpu_torch.train.fine_tune import (
     fine_tune_step,
     init_fine_tune,
 )
-from alivevc_tpu_torch.train.state import load_train_state, save_reference_state, save_train_state
 
 
 def build_parser():
@@ -64,38 +75,31 @@ def build_parser():
 def main(argv=None):
     args = build_parser().parse_args(argv)
     use_library = args.voice_library_path != "NONE"
-    require_pt(args.state_path, args.decoder_path, args.voice_library_path)
+    require_format(args.state_path, args.decoder_path, args.voice_library_path)
     dev, rank, world = init_dp(args.dp, args.device)
     if args.batch_size % world:
         raise SystemExit(f"--dp needs a batch size divisible by the {world} ranks")
     ce = load_params_or_init(args.content_encoder_path, "content_encoder", dev)
     pe = load_params_or_init(args.f0_estimator_path, "f0_estimator", dev)
-    dec = load_params_or_init(args.decoder_path, "decoder", dev)
-    disc = load_params_or_init(args.discriminator_path, "discriminator", dev)
-    vl = load_params_or_init(args.voice_library_path, "voice_library", dev) if use_library else None
     cfg = train_config(args)
-    state = init_fine_tune(dec, disc, vl, cfg)
     if os.path.exists(args.state_path):
-        st = load_train_state(args.state_path)
-        for name, m, opt in (("decoder", state.dec, state.opt_g),
-                             ("discriminator", state.disc, state.opt_d),
-                             ("voice_library", state.vl, state.opt_vl)):
-            if m is not None:
-                m.load_state_dict(st["models"][name])
-                opt.load_state_dict(st["optimizers"][name])
-        state.step = st["step"]
+        state = read_state(args.state_path, "fine_tune", dev, cfg=cfg)
+        if (state.vl is not None) != use_library:
+            raise SystemExit(f"{args.state_path} holds {'a' if state.vl is not None else 'no'} voice "
+                             f"library, but -lib is {args.voice_library_path}")
         print(f"resumed at step {state.step}")
+    else:
+        dec = load_params_or_init(args.decoder_path, "decoder", dev)
+        disc = load_params_or_init(args.discriminator_path, "discriminator", dev)
+        vl = load_params_or_init(args.voice_library_path, "voice_library", dev) if use_library else None
+        state = init_fine_tune(dec, disc, vl, cfg)
 
     def save_all():
         if rank == 0:
-            save_train_state(args.state_path, state.step,
-                             {"decoder": state.dec, "discriminator": state.disc,
-                              "voice_library": state.vl},
-                             {"decoder": state.opt_g, "discriminator": state.opt_d,
-                              "voice_library": state.opt_vl})
-            save_reference_state(args.decoder_path, state.dec)
+            write_state(args.state_path, state)
+            save_model(args.decoder_path, state.dec, "decoder")
             if use_library:
-                save_reference_state(args.voice_library_path, state.vl)
+                save_model(args.voice_library_path, state.vl, "voice_library")
 
     ds = WaveChunkDataset([args.dataset], length=args.length, max_files=args.max_data,
                           host_shard=(rank, world) if world > 1 else None)

@@ -7,8 +7,9 @@
 Up to 512 random chunks of 7 680 samples of the dataset (numpy's
 ``default_rng(--seed)``, as the JAX package draws them) through
 ``train/library_gen.py``, with tokens as wide as the content encoder's
-output; the library is written to ``-lib`` as a ``.pt`` in the reference's
-key layout.  ``--device`` defaults to cuda.
+output; the library is written to ``-lib``: a ``.pt`` in the reference's
+key layout, or a ``.ckpt`` parameter tree of the JAX package (its own CLI's
+output).  ``--device`` defaults to cuda.
 """
 
 from __future__ import annotations
@@ -17,12 +18,11 @@ import argparse
 
 import numpy as np
 
-from alivevc_tpu_torch.cli.common import load_params_or_init, require_pt
+from alivevc_tpu_torch.cli.common import load_params_or_init, require_format, save_model
 from alivevc_tpu_torch.config import VoiceLibraryConfig
 from alivevc_tpu_torch.device import resolve_device
 from alivevc_tpu_torch.io.dataset import WaveChunkDataset
 from alivevc_tpu_torch.train.library_gen import generate_voice_library
-from alivevc_tpu_torch.train.state import save_reference_state
 
 
 def build_parser():
@@ -37,7 +37,7 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    require_pt(args.voice_library_path)
+    require_format(args.voice_library_path)
     dev = resolve_device(args.device)
     ce = load_params_or_init(args.content_encoder_path, "content_encoder", dev)
     ds = WaveChunkDataset([args.dataset], length=7680)
@@ -48,7 +48,7 @@ def main(argv=None):
     print("Generating Library...")
     cfg = VoiceLibraryConfig(dim=ce.cfg.output_channels)
     vl = generate_voice_library(ce, ds.chunks[order], seed=args.seed, cfg=cfg, device=dev)
-    save_reference_state(args.voice_library_path, vl)
+    save_model(args.voice_library_path, vl, "voice_library")
     print("Complete!")
     return vl
 

@@ -4,8 +4,9 @@
         -lib voice_library.ckpt -p 2 -int 1.2
 
 The flags are the JAX package's (``alivevc_tpu/cli/inference.py``, which
-mirrors inference.py:20-43); checkpoints may be reference ``.pt`` files or
-the JAX package's ``.npz``.  ``--device`` (default ``cuda``) picks the card
+mirrors inference.py:20-43); checkpoints may be reference ``.pt`` files,
+this package's training states, or the JAX package's ``.npz`` / ``.ckpt``
+(parameters, or a trainer's whole state).  ``--device`` (default ``cuda``) picks the card
 or, by name, the CPU.  Every file in ``--inputs`` is converted at its own
 sample rate (resampled to 16 kHz and back).  ``-wpe`` takes the pitch from
 WORLD (DIO + StoneMask, on the host) instead of the F0 estimator;

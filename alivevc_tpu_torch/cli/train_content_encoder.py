@@ -12,10 +12,12 @@ precompute_teacher_features``, key 'features', [M, length // 320, 768],
 aligned with this process's chunks), or from ``--wavlm-checkpoint`` (a
 Hugging Face ``WavLMModel`` state dict), whose WavLM runs on ``--device``
 over the chunks before training.  The JAX CLI's default, a hub download, is
-not offered: with neither flag the run stops.  ``-mp`` is a training state
-``.pt`` (``train/state.py``) holding ``content_encoder``: the run resumes
-from it where it exists (else a seed-0 encoder at the default widths), and
-the inference CLIs read the encoder out of it (``-cep``).  Under ``--dp``
+not offered: with neither flag the run stops.  ``-mp`` is a training
+state holding the encoder, a ``.pt`` (``train/state.py``) or the JAX
+package's ``.ckpt`` (its ``DistillState``, ``compat/jax_train_state.py``):
+the run resumes from it where it exists (else a seed-0 encoder at the
+default widths) and writes it back in its format, and the inference CLIs
+read the encoder out of either (``-cep``).  Under ``--dp``
 each rank loads every world-th file and computes or reads its own
 features, takes batch / world chunks a step, and every rank runs the
 minimum over the ranks of their step counts.
@@ -29,13 +31,17 @@ import os
 import numpy as np
 import torch
 
-from alivevc_tpu_torch.cli.common import init_dp, require_pt, steps_per_epoch
-from alivevc_tpu_torch.config import ContentEncoderConfig
+from alivevc_tpu_torch.cli.common import (
+    init_dp,
+    read_state,
+    require_format,
+    steps_per_epoch,
+    write_state,
+)
 from alivevc_tpu_torch.io.dataset import WaveChunkDataset
 from alivevc_tpu_torch.io.teacher import precompute_teacher_features
 from alivevc_tpu_torch.models.content_encoder import ContentEncoder
 from alivevc_tpu_torch.train.distill import distill_step, dp_distill_step, init_distill
-from alivevc_tpu_torch.train.state import load_train_state, model_from_state, save_train_state
 
 
 def build_parser():
@@ -61,7 +67,7 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    require_pt(args.model_path)
+    require_format(args.model_path)
     if not (args.teacher_features or args.wavlm_checkpoint):
         raise SystemExit("teacher features are needed: pass --teacher-features feats.npz or "
                          "--wavlm-checkpoint wavlm.pt (a local WavLM state dict; nothing is "
@@ -81,11 +87,7 @@ def main(argv=None):
                          f"{len(ds)} chunks of {args.length // 320} frames")
 
     if os.path.exists(args.model_path):
-        st = load_train_state(args.model_path)
-        state = init_distill(model_from_state(st, "content_encoder", ContentEncoder,
-                                              ContentEncoderConfig).to(dev), args.learning_rate)
-        state.opt.load_state_dict(st["optimizers"]["content_encoder"])
-        state.step = st["step"]
+        state = read_state(args.model_path, "distill", dev, learning_rate=args.learning_rate)
         print(f"resumed at step {state.step}")
     else:
         state = init_distill(ContentEncoder(generator=torch.Generator().manual_seed(0)).to(dev),
@@ -93,8 +95,7 @@ def main(argv=None):
 
     def save():
         if rank == 0:
-            save_train_state(args.model_path, state.step, {"content_encoder": state.model},
-                             {"content_encoder": state.opt})
+            write_state(args.model_path, state)
 
     local = args.batch_size // world
     n_steps = steps_per_epoch(len(ds), local, world, dev)

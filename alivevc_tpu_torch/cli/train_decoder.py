@@ -6,15 +6,18 @@
     torchrun --nproc-per-node 4 -m alivevc_tpu_torch.cli.train_decoder dataset/ --dp -b 32
 
 The flags are the JAX package's.  The frozen content encoder and F0
-estimator load from ``.pt`` / ``.npz`` files (seed-0 models where the files
-do not exist).  The decoder and the discriminator resume from the training
-state ``-sp`` (a ``.pt`` of ``train/state.py``, which also carries the
-optimizers, the step and the models' configurations) where it exists, else
-start from seed 1 at the default widths.  ``--device`` defaults to cuda.
-``--dp`` runs ``dp_gan_train_step`` over torch.distributed ranks (rank and
-world from torchrun's environment): each rank loads every world-th file,
-takes batch / world items a step, and every rank runs the minimum over the
-ranks of their step counts.
+estimator load from ``.pt`` / ``.npz`` / ``.ckpt`` files (seed-0 models
+where the files do not exist).  The decoder and the discriminator resume
+from the training state ``-sp`` where it exists, else start from seed 1 at
+the default widths: a ``.pt`` of ``train/state.py`` (which also carries
+the optimizers, the step and the models' configurations) or the JAX
+package's ``gan_state.ckpt`` (its ``GanState`` with the optax moments,
+``compat/jax_train_state.py``), written back in the format it came in.
+``--device`` defaults to cuda.  ``--dp`` runs ``dp_gan_train_step`` over
+torch.distributed ranks (rank and world from torchrun's environment): each
+rank loads every world-th file, takes batch / world items a step, every
+rank runs the minimum over the ranks of their step counts, every rank reads
+the state and rank 0 writes it.
 """
 
 from __future__ import annotations
@@ -25,13 +28,19 @@ import os
 import numpy as np
 import torch
 
-from alivevc_tpu_torch.cli.common import init_dp, load_params_or_init, require_pt, steps_per_epoch
-from alivevc_tpu_torch.config import DecoderConfig, DiscriminatorConfig, TrainConfig
+from alivevc_tpu_torch.cli.common import (
+    init_dp,
+    load_params_or_init,
+    read_state,
+    require_format,
+    steps_per_epoch,
+    write_state,
+)
+from alivevc_tpu_torch.config import TrainConfig
 from alivevc_tpu_torch.io.dataset import WaveChunkDataset
 from alivevc_tpu_torch.models.decoder import Decoder
 from alivevc_tpu_torch.models.discriminator import Discriminator
 from alivevc_tpu_torch.train.gan import dp_gan_train_step, gan_draws, gan_train_step, init_gan
-from alivevc_tpu_torch.train.state import load_train_state, model_from_state, save_train_state
 
 
 def build_parser():
@@ -63,7 +72,7 @@ def train_config(args) -> TrainConfig:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    require_pt(args.state_path)
+    require_format(args.state_path)
     dev, rank, world = init_dp(args.dp, args.device)
     if args.batch_size % world:
         raise SystemExit(f"--dp needs a batch size divisible by the {world} ranks")
@@ -71,13 +80,7 @@ def main(argv=None):
     pe = load_params_or_init(args.f0_estimator_path, "f0_estimator", dev)
     cfg = train_config(args)
     if os.path.exists(args.state_path):
-        st = load_train_state(args.state_path)
-        dec = model_from_state(st, "decoder", Decoder, DecoderConfig)
-        disc = model_from_state(st, "discriminator", Discriminator, DiscriminatorConfig)
-        state = init_gan(dec.to(dev), disc.to(dev), cfg)
-        state.opt_g.load_state_dict(st["optimizers"]["decoder"])
-        state.opt_d.load_state_dict(st["optimizers"]["discriminator"])
-        state.step = st["step"]
+        state = read_state(args.state_path, "gan", dev, cfg=cfg)
         print(f"resumed at step {state.step}")
     else:
         gen = torch.Generator().manual_seed(1)
@@ -85,9 +88,7 @@ def main(argv=None):
 
     def save():
         if rank == 0:
-            save_train_state(args.state_path, state.step,
-                             {"decoder": state.dec, "discriminator": state.disc},
-                             {"decoder": state.opt_g, "discriminator": state.opt_d})
+            write_state(args.state_path, state)
 
     ds = WaveChunkDataset([args.dataset], length=args.length, max_files=args.max_data,
                           host_shard=(rank, world) if world > 1 else None)

@@ -4,10 +4,12 @@
     python -m alivevc_tpu_torch.cli.train_f0_estimator dataset/ -mp f0_estimator.pt -b 8
 
 The flags are the JAX package's.  Chunks get WORLD labels at load time (the
-native labeler on the host).  ``-mp`` is a training state ``.pt``
-(``train/state.py``): the run resumes from it where it exists (else a
-seed-0 estimator at the default widths), and the inference CLIs read the
-estimator out of it (``-f0ep``).  ``--device`` and ``--dp`` as in
+native labeler on the host).  ``-mp`` is a training state, a ``.pt``
+(``train/state.py``) or the JAX package's ``.ckpt`` (its ``F0TrainState``
+with the RAdam moments, ``compat/jax_train_state.py``): the run resumes
+from it where it exists (else a seed-0 estimator at the default widths)
+and writes it back in its format, and the inference CLIs read the
+estimator out of either (``-f0ep``).  ``--device`` and ``--dp`` as in
 ``cli/train_decoder.py``; the data-parallel step equals the dense step on
 the whole batch.
 """
@@ -20,12 +22,16 @@ import os
 import numpy as np
 import torch
 
-from alivevc_tpu_torch.cli.common import init_dp, require_pt, steps_per_epoch
-from alivevc_tpu_torch.config import F0EstimatorConfig
+from alivevc_tpu_torch.cli.common import (
+    init_dp,
+    read_state,
+    require_format,
+    steps_per_epoch,
+    write_state,
+)
 from alivevc_tpu_torch.io.dataset import WaveChunkDataset
 from alivevc_tpu_torch.models.f0_estimator import F0Estimator
 from alivevc_tpu_torch.train.f0 import dp_f0_train_step, f0_amp_draws, f0_train_step, init_f0_train
-from alivevc_tpu_torch.train.state import load_train_state, model_from_state, save_train_state
 
 
 def build_parser():
@@ -46,7 +52,7 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    require_pt(args.model_path)
+    require_format(args.model_path)
     dev, rank, world = init_dp(args.dp, args.device)
     if args.batch_size % world:
         raise SystemExit(f"--dp needs a batch size divisible by the {world} ranks")
@@ -54,11 +60,7 @@ def main(argv=None):
                           with_f0=True, host_shard=(rank, world) if world > 1 else None)
     print(f"Loaded {len(ds)} chunks (WORLD F0 labels precomputed)")
     if os.path.exists(args.model_path):
-        st = load_train_state(args.model_path)
-        state = init_f0_train(model_from_state(st, "f0_estimator", F0Estimator,
-                                               F0EstimatorConfig).to(dev), args.learning_rate)
-        state.opt.load_state_dict(st["optimizers"]["f0_estimator"])
-        state.step = st["step"]
+        state = read_state(args.model_path, "f0", dev, learning_rate=args.learning_rate)
         print(f"resumed at step {state.step}")
     else:
         state = init_f0_train(F0Estimator(generator=torch.Generator().manual_seed(0)).to(dev),
@@ -66,8 +68,7 @@ def main(argv=None):
 
     def save():
         if rank == 0:
-            save_train_state(args.model_path, state.step, {"f0_estimator": state.model},
-                             {"f0_estimator": state.opt})
+            write_state(args.model_path, state)
 
     local = args.batch_size // world
     n_steps = steps_per_epoch(len(ds), local, world, dev)

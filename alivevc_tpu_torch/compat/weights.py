@@ -1,19 +1,24 @@
-"""Weight bridge: JAX parameter pytrees -> the port's modules.
+"""Weight bridge: JAX parameter pytrees <-> the port's modules.
 
 The JAX package keeps parameters as nested dicts of arrays in its own
 layouts (pointwise ``w`` [Cin, Cout], conv ``w`` [k, Cin, Cout], depthwise
 ``w`` [k, C], down conv ``w`` [r*Cin, Cout], up conv ``w`` [Cin, r*Cout]).
 The port's modules hold the reference's state-dict names and layouts, so the
 bridge rewrites a pytree (any array type numpy can read) into a reference
-state dict and loads it with ``load_state_dict(strict=True)``.  The layout
-rules are this package's own copy of the JAX package's
+state dict (``*_state``) and loads it with ``load_state_dict(strict=True)``.
+The layout rules are this package's own copy of the JAX package's
 ``compat/torch_export.py``; either a reference checkpoint or a bridged JAX
-pytree loads the same way.
+pytree loads the same way.  ``*_params`` go back: a reference state dict to
+the JAX pytree, in numpy, with JAX's dicts and lists (this package's own
+copy of ``alivevc_tpu/compat/torch_import.py``'s ``import_*``).  Each rule
+is a transpose or a reshape of one leaf, so an optimizer's moments, which
+have the parameters' tree, go through the same functions.  ``MODELS`` ties
+the five kinds to their modules and rules.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Callable, Dict, Mapping, NamedTuple
 
 import numpy as np
 import torch
@@ -26,6 +31,12 @@ from alivevc_tpu_torch.config import (
     F0EstimatorConfig,
     VoiceLibraryConfig,
 )
+from alivevc_tpu_torch.io.checkpoint import flatten
+from alivevc_tpu_torch.models.content_encoder import ContentEncoder
+from alivevc_tpu_torch.models.decoder import Decoder
+from alivevc_tpu_torch.models.discriminator import Discriminator
+from alivevc_tpu_torch.models.f0_estimator import F0Estimator
+from alivevc_tpu_torch.models.voice_library import VoiceLibrary
 
 StateDict = Dict[str, np.ndarray]
 
@@ -181,6 +192,127 @@ def filter_layout(params):
 
 
 # ---------------------------------------------------------------------------
+# reference state dict -> JAX pytree (the inverses of the rules above)
+# ---------------------------------------------------------------------------
+
+
+def _leaf(x) -> np.ndarray:
+    return np.ascontiguousarray(_np(x))
+
+
+def _lin(sd: Mapping, prefix: str) -> dict:
+    return {"w": _leaf(_np(sd[f"{prefix}.weight"])[:, :, 0].T), "b": _leaf(sd[f"{prefix}.bias"])}
+
+
+def _conv(sd: Mapping, prefix: str) -> dict:
+    return {"w": _leaf(np.transpose(_np(sd[f"{prefix}.weight"]), (2, 1, 0))),
+            "b": _leaf(sd[f"{prefix}.bias"])}
+
+
+def _dw(sd: Mapping, prefix: str) -> dict:
+    return {"w": _leaf(np.transpose(_np(sd[f"{prefix}.weight"]), (2, 1, 0))[:, 0, :]),
+            "b": _leaf(sd[f"{prefix}.bias"])}
+
+
+def _chan(x) -> np.ndarray:
+    return _leaf(_np(x)[0, :, 0])
+
+
+def _norm(sd: Mapping, prefix: str) -> dict:
+    return {"scale": _chan(sd[f"{prefix}.scale"]), "shift": _chan(sd[f"{prefix}.shift"])}
+
+
+def _convnext(sd: Mapping, prefix: str) -> dict:
+    return {"dw_conv": _dw(sd, f"{prefix}.dw_conv"), "norm": _norm(sd, f"{prefix}.norm"),
+            "pw_conv1": _lin(sd, f"{prefix}.pw_conv1"), "pw_conv2": _lin(sd, f"{prefix}.pw_conv2"),
+            "scale": _chan(sd[f"{prefix}.scale"])}
+
+
+def _adaptive_convnext(sd: Mapping, prefix: str) -> dict:
+    return {"dw_conv": _dw(sd, f"{prefix}.dw_conv"),
+            "norm": {"scale": _lin(sd, f"{prefix}.norm.scale"),
+                     "shift": _lin(sd, f"{prefix}.norm.shift")},
+            "pw_conv1": _lin(sd, f"{prefix}.pw_conv1"), "pw_conv2": _lin(sd, f"{prefix}.pw_conv2"),
+            "scale": _chan(sd[f"{prefix}.scale"])}
+
+
+def content_encoder_params(sd: Mapping) -> dict:
+    return {"input_layer": _lin(sd, "input_layer"),
+            "mid_layers": [_convnext(sd, f"mid_layers.{i}")
+                           for i in range(_count(sd, "mid_layers.{}."))],
+            "output_layer": _lin(sd, "output_layer")}
+
+
+def f0_estimator_params(sd: Mapping) -> dict:
+    return {"input_layer": _lin(sd, "input_layer"),
+            "mid_layers": [_convnext(sd, f"mid_layers.{i}")
+                           for i in range(_count(sd, "mid_layers.{}."))],
+            "last_norm": _norm(sd, "last_norm"),
+            "output_layer": _lin(sd, "output_layer")}
+
+
+def _mod_causal(sd: Mapping, prefix: str) -> dict:
+    return {"conv": _conv(sd, f"{prefix}.conv.conv"), "to_scale": _lin(sd, f"{prefix}.to_scale"),
+            "to_shift": _lin(sd, f"{prefix}.to_shift")}
+
+
+def decoder_params(sd: Mapping) -> dict:
+    fe = "feature_extractor"
+    downs, ups, blocks = [], [], []
+    for i in range(_count(sd, "filter.downs.{}.")):
+        w = _np(sd[f"filter.downs.{i}.weight"])                  # [out, in, r]
+        downs.append({"w": _leaf(np.transpose(w, (2, 1, 0)).reshape(-1, w.shape[0])),
+                      "b": _leaf(sd[f"filter.downs.{i}.bias"])})
+        w = _np(sd[f"filter.ups.{i}.weight"])                    # [in, out, r]
+        ups.append({"w": _leaf(np.transpose(w, (0, 2, 1)).reshape(w.shape[0], -1)),
+                    "b": _leaf(sd[f"filter.ups.{i}.bias"])})
+        pre = f"filter.blocks.{i}"
+        blocks.append({"input_conv": _lin(sd, f"{pre}.input_conv"),
+                       "blocks": [{"c1": _mod_causal(sd, f"{pre}.blocks.{d}.c1"),
+                                   "c2": _mod_causal(sd, f"{pre}.blocks.{d}.c2")}
+                                  for d in range(_count(sd, f"{pre}.blocks.{{}}."))]})
+    return {
+        "feature_extractor": {
+            "input_layer": _lin(sd, f"{fe}.input_layer"),
+            "f0_enc": {"c1": _lin(sd, f"{fe}.f0_enc.c1"), "c2": _lin(sd, f"{fe}.f0_enc.c2")},
+            "mid_layers": [_adaptive_convnext(sd, f"{fe}.mid_layers.{i}")
+                           for i in range(_count(sd, f"{fe}.mid_layers.{{}}."))],
+        },
+        "harmonic_oscillator": {"to_amps": _lin(sd, "harmonic_oscillator.to_amps")},
+        "filter": {"source_in": _conv(sd, "filter.source_in"), "downs": downs,
+                   "mid_conv": _conv(sd, "filter.mid_conv.conv"), "ups": ups, "blocks": blocks,
+                   "source_out": _conv(sd, "filter.source_out")},
+    }
+
+
+def voice_library_params(sd: Mapping) -> dict:
+    return {"tokens": _leaf(_np(sd["tokens"])[0].T)}          # [num_tokens, 768]
+
+
+def _wn_conv2d(sd: Mapping, prefix: str) -> dict:
+    return {"v": _leaf(np.transpose(_np(sd[f"{prefix}.weight_v"]), (2, 3, 1, 0))),
+            "g": _leaf(_np(sd[f"{prefix}.weight_g"]).reshape(-1)),
+            "b": _leaf(sd[f"{prefix}.bias"])}
+
+
+def discriminator_params(sd: Mapping) -> dict:
+    mpd, mrd = [], []
+    for i in range(_count(sd, "MPD.sub_discriminators.{}.")):
+        pre = f"MPD.sub_discriminators.{i}"
+        mpd.append({"input_layer": _wn_conv2d(sd, f"{pre}.input_layer"),
+                    "layers": [_wn_conv2d(sd, f"{pre}.layers.{j}")
+                               for j in range(_count(sd, f"{pre}.layers.{{}}."))],
+                    "final_conv": _wn_conv2d(sd, f"{pre}.final_conv"),
+                    "output_layer": _wn_conv2d(sd, f"{pre}.output_layer")})
+    for i in range(_count(sd, "MRD.sub_discriminators.{}.")):
+        pre = f"MRD.sub_discriminators.{i}"
+        mrd.append({"layers": [_wn_conv2d(sd, f"{pre}.layers.{j}")
+                               for j in range(_count(sd, f"{pre}.layers.{{}}."))],
+                    "conv_post": _wn_conv2d(sd, f"{pre}.conv_post")})
+    return {"mpd": mpd, "mrd": mrd}
+
+
+# ---------------------------------------------------------------------------
 # configurations read off a reference state dict (the widths a checkpoint
 # was trained at; what the config does not fix stays at its default)
 # ---------------------------------------------------------------------------
@@ -284,6 +416,56 @@ def load_discriminator(module: nn.Module, params) -> nn.Module:
 
 def load_voice_library(module: nn.Module, params) -> nn.Module:
     return load_state(module, voice_library_state(params))
+
+
+def _decoder_state(params) -> StateDict:
+    """``decoder_state`` at the filter layout the pytree holds."""
+    chans, rates = filter_layout(params)
+    return decoder_state(params, DecoderConfig(filter_channels=chans, filter_rates=rates))
+
+
+class Kind(NamedTuple):
+    module: type          # the port's module
+    config_type: type     # its configuration
+    state: Callable       # JAX pytree -> reference state dict
+    params: Callable      # reference state dict -> JAX pytree
+    config: Callable      # reference state dict -> the module's configuration
+
+
+MODELS = {
+    "content_encoder": Kind(ContentEncoder, ContentEncoderConfig, content_encoder_state,
+                            content_encoder_params, content_encoder_config),
+    "f0_estimator": Kind(F0Estimator, F0EstimatorConfig, f0_estimator_state,
+                         f0_estimator_params, f0_estimator_config),
+    "decoder": Kind(Decoder, DecoderConfig, _decoder_state, decoder_params, decoder_config),
+    "voice_library": Kind(VoiceLibrary, VoiceLibraryConfig, voice_library_state,
+                          voice_library_params, voice_library_config),
+    "discriminator": Kind(Discriminator, DiscriminatorConfig, discriminator_state,
+                          discriminator_params, discriminator_config),
+}
+
+
+def state_of(kind: str, params) -> StateDict:
+    """``MODELS[kind].state(params)``, refusing a pytree that is not exactly
+    a ``kind``'s: one that lacks a leaf the rules read, or holds one they do
+    not (an F0 estimator's ``last_norm`` read as a content encoder's)."""
+    m = MODELS[kind]
+    try:
+        sd = m.state(params)
+    except (KeyError, TypeError) as e:
+        raise ValueError(f"not a {kind}'s parameters: no {e}") from None
+    extra = set(flatten(params)) - set(flatten(m.params(sd)))
+    if extra:
+        raise ValueError(f"not a {kind}'s parameters: {len(extra)} leaves the {kind} has no "
+                         f"place for, e.g. {min(extra).replace(chr(31), '/')}")
+    return sd
+
+
+def build(kind: str, sd: Mapping) -> nn.Module:
+    """The ``kind`` module at the widths the reference state dict ``sd``
+    holds, loaded from it with strict key matching (on the CPU)."""
+    m = MODELS[kind]
+    return load_state(m.module(m.config(sd), generator=torch.Generator().manual_seed(0)), sd)
 
 
 # ---------------------------------------------------------------------------

@@ -127,6 +127,22 @@ printing the final line:
      ``--torch-out`` files loaded strictly, the eager path unchanged after
      the export; the STFT kernel's row at [16, 65 536].  The phase must
      finish within 90 s.
+  10. resume, at full width, float32 without TF32: the GAN (8 x 38 400),
+     fine-tuning with a 512-token library (the kNN kernel 'highest' on 960
+     queries x 512 tokens), the F0 trainer (RAdam, 8 x 65 536) and
+     distillation (RAdam, 16 x 65 536), each carried through the JAX
+     package's ``.ckpt`` layout (``compat/jax_train_state.py``): run A takes
+     3 GAN steps (2 for the others) uninterrupted, A' the same again (the
+     card's repeat spread), B all but the last, ``write``, fresh modules and
+     optimizers from ``read``, the last; the control is B with the moments
+     zeroed, what a resume of the models alone gives.  The worst tensor over
+     the parameters and both moments, relative to its largest entry, of B,
+     A' and the control against A: B within the trainer's RESUME_TOL, the
+     control above it.  The GAN file's key set and shapes equal the layout ``write`` forms
+     for a freshly built state, and the file read and written again is
+     bit-equal; each file's size and write and read seconds.  Counters
+     zeroed before the runs and read after: the filter, oscillator, STFT
+     and kNN kernels must each launch.  The phase must finish within 60 s.
 
 Its last lines are the ``kernels`` JSON line, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.  Float32 products run without TF32
@@ -2563,6 +2579,206 @@ def run_distillation(card):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: resume (training states through the JAX package's .ckpt layout,
+# compat/jax_train_state.py)
+# ---------------------------------------------------------------------------
+
+RESUME_STEPS = {"gan": 3, "fine_tune": 2, "f0": 2, "distill": 2}   # run A's; run B writes after all but one
+# B (resumed) vs A (uninterrupted): the worst tensor over the parameters and both moments,
+# relative to its largest entry, a gate a trainer; the control (moments zeroed) must read
+# above it.  Set from two runs on an H100 (700 W): A' (A repeated) read 3.19e-3 and 2.18e-3 on
+# the GAN, 4.70e-3 on fine-tuning (an AdamW step moves a parameter by about lr * sign(g), so a
+# gradient entry whose sign the card's nondeterministic sums flip moves it by 2 lr), B
+# 3.00e-3, 2.18e-3 and 3.08e-3, the controls 1.54 and 3.78; the F0 trainer and distillation
+# read 0.0 for both (their sums were deterministic; RAdam's first steps are linear in the
+# gradient, so a reordered float32 sum would move them by ~1e-7), the controls 0.66 and 0.50
+RESUME_TOL = {"gan": 3e-2, "fine_tune": 5e-2, "f0": 1e-5, "distill": 1e-5}
+PHASE10_LIMIT_S = 60.0
+RESUME_KERNELS = ("filter_level", "oscillator", "stft", "knn")
+
+
+def state_tensors(state) -> dict:
+    """{name: tensor}: every parameter of a port trainer's state and both of
+    its Adam moments (names ending ':exp_avg', ':exp_avg_sq')."""
+    from alivevc_tpu_torch.train.state import TRAINERS, trainer_of
+
+    out = {}
+    for slot in TRAINERS[trainer_of(state)].slots:
+        module, opt = getattr(state, slot.module), getattr(state, slot.opt)
+        if module is None:
+            continue
+        for name, p in module.named_parameters():
+            out[f"{slot.kind}.{name}"] = p.detach()
+            for key in ("exp_avg", "exp_avg_sq"):
+                out[f"{slot.kind}.{name}:{key}"] = opt.state[p][key]
+    return out
+
+
+def worst_apart(got: dict, want: dict) -> dict:
+    """The largest max |got - want| / max |want| over same-named tensors
+    (computed on the card, read back once) and its tensor."""
+    import torch
+
+    names = list(want)
+    need(set(got) == set(want), f"tensor names differ: {sorted(set(got) ^ set(want))[:4]}")
+    errs = torch.stack([(got[k] - want[k]).abs().max() / want[k].abs().max().clamp_min(1e-30)
+                        for k in names]).cpu().tolist()
+    i = max(range(len(names)), key=errs.__getitem__)
+    return {"rel_err": errs[i], "tensor": names[i]}
+
+
+def resume_readings(trainer, label, fresh, step, path, card, **init_kw) -> dict:
+    """Run A: ``RESUME_STEPS[trainer]`` steps from ``fresh()``; A': the same
+    again (the card's repeat spread); B: all but the last, ``write`` to
+    ``path``, fresh modules and optimizers from ``read``, the last; the
+    control: B's file read with the moments zeroed, the last step.  Each
+    against A."""
+    import os
+
+    import torch
+    from alivevc_tpu_torch.compat import jax_train_state as jts
+
+    n = RESUME_STEPS[trainer]
+
+    def run(state, lo):
+        for i in range(lo, n):
+            step(state, i)
+        torch.cuda.synchronize()
+        return state
+
+    a = state_tensors(run(fresh(), 0))
+    r = {"repeat": worst_apart(state_tensors(run(fresh(), 0)), a)}
+    state = fresh()
+    for i in range(n - 1):
+        step(state, i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    jts.write(path, state)
+    r["write_s"] = time.perf_counter() - t0
+    del state
+    t0 = time.perf_counter()
+    state = jts.read(path, trainer, DEV, **init_kw)
+    torch.cuda.synchronize()
+    r["read_s"] = time.perf_counter() - t0
+    need(state.step == n - 1, f"{label}: read step {state.step}, expected {n - 1}")
+    r["resumed"] = worst_apart(state_tensors(run(state, n - 1)), a)
+    del state
+    state = jts.read(path, trainer, DEV, **init_kw)
+    for name, v in state_tensors(state).items():
+        if ":" in name:
+            v.zero_()
+    r["control"] = worst_apart(state_tensors(run(state, n - 1)), a)
+    r["file_mb"] = os.path.getsize(path) / 1e6
+    print(f"resume {label} [{card}]: {n} steps (A, A') against {n - 1}, the .ckpt, 1 (B): "
+          f"worst tensor over the parameters and both moments, max |diff| / max |A|: B vs A "
+          f"{r['resumed']['rel_err']:.3e} ({r['resumed']['tensor']}), A' vs A "
+          f"{r['repeat']['rel_err']:.3e} ({r['repeat']['tensor']}), control (B with the moments "
+          f"zeroed) vs A {r['control']['rel_err']:.3e} ({r['control']['tensor']}); gate "
+          f"{RESUME_TOL[trainer]:.0e}; file {r['file_mb']:.1f} MB, write {r['write_s']:.2f} s, read "
+          f"{r['read_s']:.2f} s")
+    need(r["resumed"]["rel_err"] <= RESUME_TOL[trainer] < r["control"]["rel_err"],
+         f"{label}: resumed {r['resumed']}, control {r['control']} against the gate "
+         f"{RESUME_TOL[trainer]}")
+    return r
+
+
+def check_gan_file(path, fresh, card) -> dict:
+    """The GAN file's key set and shapes against the layout ``write`` forms
+    for a freshly built state; the file read and written again, bit-equal."""
+    import os
+
+    import numpy as np
+    from alivevc_tpu_torch.compat import jax_train_state as jts
+    from alivevc_tpu_torch.io.checkpoint import flatten
+
+    want = {k: v.shape for k, v in flatten(jts.jax_tree(fresh())).items()}
+    again = path + ".again.ckpt"
+    t0 = time.perf_counter()
+    jts.write(again, jts.read(path, "gan", DEV))
+    round_s = time.perf_counter() - t0
+    with np.load(path) as f, np.load(again) as g:
+        got = {k: f[k].shape for k in f.files}
+        same = set(f.files) == set(g.files) and all(
+            f[k].dtype == g[k].dtype and np.array_equal(f[k], g[k]) for k in f.files)
+    os.unlink(again)
+    print(f"resume GAN file [{card}]: {len(got)} keys, the key set and shapes of a fresh state's "
+          f"layout: {got == want}; read and written again bit-equal: {same} ({round_s:.2f} s)")
+    need(got == want, f"GAN file layout: {sorted(set(got) ^ set(want))[:4]} or shapes differ")
+    need(same, "the GAN file read and written again is not bit-equal")
+    return {"keys": len(got), "read_write_s": round_s}
+
+
+def run_resume(card):
+    """Phase 10: the four trainers' runs resumed through the JAX package's
+    ``.ckpt`` layout at full width, float32 without TF32; counters zeroed
+    before the runs and read after.  Returns (launches, the report)."""
+    import copy
+    import tempfile
+
+    import numpy as np
+    import torch
+    from alivevc_tpu_torch.config import VoiceLibraryConfig
+    from alivevc_tpu_torch.kernels import LAUNCHES, reset_launches
+    from alivevc_tpu_torch.models.voice_library import VoiceLibrary
+    from alivevc_tpu_torch.train.distill import distill_step, init_distill
+    from alivevc_tpu_torch.train.f0 import f0_amp_draws, f0_train_step, init_f0_train
+    from alivevc_tpu_torch.train.fine_tune import amp_draws, fine_tune_step, init_fine_tune
+    from alivevc_tpu_torch.train.gan import gan_draws, gan_train_step, init_gan
+
+    t_phase = time.perf_counter()
+    report = {}
+    ce, f0m, dec, disc = train_models()
+    vl = VoiceLibrary(VoiceLibraryConfig(dim=ce.cfg.output_channels),
+                      generator=torch.Generator().manual_seed(SEED + 60)).to(DEV)
+    wave, _ = train_batch(TRAIN_N, TRAIN_LEN, SEED + 61)
+    f0_wave, base = train_batch(F0_TRAIN_N, F0_TRAIN_LEN, SEED + 62)
+    labels = torch.from_numpy(np.repeat(base[:, None], F0_TRAIN_LEN // 320, 1).astype(np.float32)).to(DEV)
+    d_wave, _ = train_batch(DISTILL_N, DISTILL_LEN, SEED + 63)
+    target = distill_target(DISTILL_N, SEED + 64)
+    draw_gen = torch.Generator().manual_seed(SEED + 65)
+    gan_d = [gan_draws(TRAIN_N, draw_gen, DEV) for _ in range(RESUME_STEPS["gan"])]
+    ft_d = [amp_draws(TRAIN_N, draw_gen, DEV) for _ in range(RESUME_STEPS["fine_tune"])]
+    f0_d = [f0_amp_draws(F0_TRAIN_N, draw_gen, DEV) for _ in range(RESUME_STEPS["f0"])]
+    student = distill_student()
+    runs = (
+        ("gan", f"GAN ({TRAIN_N} x {TRAIN_LEN})",
+         lambda: init_gan(copy.deepcopy(dec), copy.deepcopy(disc)),
+         lambda st, i: gan_train_step(st, ce, f0m, wave, *gan_d[i])),
+        ("fine_tune", f"fine-tune with a 512-token library ({TRAIN_N} x {TRAIN_LEN})",
+         lambda: init_fine_tune(copy.deepcopy(dec), copy.deepcopy(disc), copy.deepcopy(vl)),
+         lambda st, i: fine_tune_step(st, ce, f0m, wave, ft_d[i])),
+        ("f0", f"F0 trainer, RAdam ({F0_TRAIN_N} x {F0_TRAIN_LEN})",
+         lambda: init_f0_train(copy.deepcopy(f0m)),
+         lambda st, i: f0_train_step(st, f0_wave, labels, f0_d[i])),
+        ("distill", f"distillation, RAdam ({DISTILL_N} x {DISTILL_LEN})",
+         lambda: init_distill(copy.deepcopy(student)),
+         lambda st, i: distill_step(st, d_wave, target)),
+    )
+    total = {k: 0 for k in LAUNCHES}
+    with tempfile.TemporaryDirectory() as tmp:
+        for trainer, label, fresh, step in runs:
+            reset_launches()
+            t0 = time.perf_counter()
+            r = resume_readings(trainer, label, fresh, step, f"{tmp}/{trainer}.ckpt", card)
+            r["launches"] = dict(LAUNCHES)
+            r["s"] = time.perf_counter() - t0
+            for k in total:
+                total[k] += LAUNCHES[k]
+            if trainer == "gan":
+                r["file"] = check_gan_file(f"{tmp}/gan.ckpt", fresh, card)
+            print(f"resume {label}: {r['s']:.1f} s, launches {r['launches']} [{card}]")
+            report[trainer] = r
+            torch.cuda.empty_cache()
+    print(f"resume launches: {total}")
+    need(all(total[k] > 0 for k in RESUME_KERNELS), f"phase 10: a kernel was not launched: {total}")
+    elapsed = time.perf_counter() - t_phase
+    report["phase_s"] = elapsed
+    print(f"resume: phase 10 took {elapsed:.1f} s (<= {PHASE10_LIMIT_S:.0f})")
+    need(elapsed <= PHASE10_LIMIT_S, f"phase 10 took {elapsed:.1f} s > {PHASE10_LIMIT_S}")
+    return total, report
+
+
+# ---------------------------------------------------------------------------
 
 
 REPLACES = {
@@ -2585,7 +2801,8 @@ def kernels_line(rows, launches):
     filter's four up levels in bf16, summed: one step runs all four; the
     packed kNN at the 100 352-row library); every measured variant, the
     streaming hop's and the training Functions' included, is listed under 'variants'.  Launches
-    are summed over the paths driven (phases 3, 4 with both ranks, 5, 6, 7 with both ranks, 8, 9)."""
+    are summed over the paths driven (phases 3, 4 with both ranks, 5, 6, 7 with both ranks, 8, 9,
+    10)."""
     out = []
     for name, (source, replaces) in REPLACES.items():
         mine = [r for r in rows if r["name"] == name]
@@ -2737,8 +2954,15 @@ def main() -> int:
     rows.append(distill_stft)
     print(f"phase 9 done at {time.perf_counter() - t_start:.1f} s; report {json.dumps(distill)}")
 
+    # phase 10
+    torch.cuda.empty_cache()
+    with torch.enable_grad():
+        resume_launches, resume = run_resume(card)
+    print(f"phase 10 done at {time.perf_counter() - t_start:.1f} s; report {json.dumps(resume)}")
+
     total = {k: launches[k] + sharded_launches[k] + api_launches[k] + rt_launches[k]
-             + halo_launches[k] + train_launches[k] + distill_launches[k] for k in launches}
+             + halo_launches[k] + train_launches[k] + distill_launches[k] + resume_launches[k]
+             for k in launches}
     print(json.dumps(kernels_line(rows, total)))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1057,3 +1057,104 @@ def test_exported_graphs_match_the_kernel_path_on_card(tmp_path):
         got_f, got_v = loaded["filter"](x, c), loaded["voice_library"](content)
     assert got_f.is_cuda and max_err(got_f, want_f) <= 1e-3 * (1.0 + float(want_f.abs().max()))
     assert max_err(got_v, want_v) <= 1e-6
+
+
+# chip_smoke.py's RESUME_TOL["gan"]: a run resumed through the .ckpt against
+# the same run uninterrupted, the worst tensor over the parameters and both
+# moments relative to its largest entry (a gradient entry whose sign the
+# card's nondeterministic sums flip moves its parameter by 2 lr; at these
+# widths one run read 2.3e-3)
+RESUME_TOL = 3e-2
+
+
+def _small_gan_run(gen):
+    """The small-width frozen models, a decoder and discriminator to train,
+    a batch and three steps' draws, on the card."""
+    from alivevc_tpu_torch.config import (ContentEncoderConfig, DiscriminatorConfig,
+                                          F0EstimatorConfig)
+    from alivevc_tpu_torch.models.content_encoder import ContentEncoder
+    from alivevc_tpu_torch.models.discriminator import Discriminator
+    from alivevc_tpu_torch.models.f0_estimator import F0Estimator
+    from alivevc_tpu_torch.train.gan import gan_draws
+
+    ce = ContentEncoder(ContentEncoderConfig(internal_channels=32, hidden_channels=64,
+                                             output_channels=64, num_layers=2), generator=gen)
+    f0m = F0Estimator(F0EstimatorConfig(internal_channels=32, hidden_channels=64, num_layers=2),
+                      generator=gen)
+    with torch.no_grad():
+        f0m.output_layer.bias[120] += 50.0
+    ce, f0m = (m.cuda().eval().requires_grad_(False) for m in (ce, f0m))
+    dec = Decoder(DecoderConfig(**SMALL_DEC), generator=gen).cuda()
+    disc = Discriminator(DiscriminatorConfig(**SMALL_DISC), generator=gen).cuda()
+    t = torch.arange(9600, device="cuda") / 16_000.0
+    wave = torch.stack([0.4 * torch.sin(2 * np.pi * f * t) for f in (130.0, 210.0)])
+    return ce, f0m, dec, disc, wave, [gan_draws(2, gen, "cuda") for _ in range(3)]
+
+
+def _state_tensors(state) -> dict:
+    out = {}
+    for prefix, model, opt in (("dec", state.dec, state.opt_g), ("disc", state.disc, state.opt_d)):
+        for name, p in model.named_parameters():
+            out[f"{prefix}.{name}"] = p.detach()
+            for key in ("exp_avg", "exp_avg_sq"):
+                out[f"{prefix}.{name}:{key}"] = opt.state[p][key]
+    return out
+
+
+@pytest.mark.gpu
+def test_gan_resume_through_a_ckpt_on_card(tmp_path):
+    """A GAN run at the small widths on the card: 2 steps, the JAX layout's
+    ``.ckpt``, fresh modules and optimizers from it, 1 step, against 3
+    steps uninterrupted: within chip_smoke.py's gate (the worst tensor
+    over the parameters and both moments, relative to its largest entry);
+    the read brings back the step and the update counts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; on the card run this file with --noconftest -m gpu")
+    import copy
+
+    from alivevc_tpu_torch.compat import jax_train_state as jts
+    from alivevc_tpu_torch.train.gan import gan_train_step, init_gan, update_count
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ce, f0m, dec, disc, wave, draws = _small_gan_run(torch.Generator().manual_seed(0))
+
+    def run(state, lo, hi):
+        for i in range(lo, hi):
+            gan_train_step(state, ce, f0m, wave, *draws[i])
+        return state
+
+    want = _state_tensors(run(init_gan(copy.deepcopy(dec), copy.deepcopy(disc)), 0, 3))
+    path = str(tmp_path / "gan.ckpt")
+    jts.write(path, run(init_gan(copy.deepcopy(dec), copy.deepcopy(disc)), 0, 2))
+    state = jts.read(path, "gan", "cuda")
+    assert state.step == 2 and update_count(state.opt_g) == update_count(state.opt_d) == 2
+    got = _state_tensors(run(state, 2, 3))
+    worst = max(float((got[k] - v).abs().max() / v.abs().max().clamp_min(1e-30)) for k, v in want.items())
+    assert worst <= RESUME_TOL, worst
+
+
+@pytest.mark.gpu
+def test_ckpt_written_on_card_reads_on_cpu_on_card(tmp_path):
+    """A GAN state written on the card after a step reads back on the CPU
+    with every parameter and moment bit-equal, and written again from the
+    CPU gives the same file, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; on the card run this file with --noconftest -m gpu")
+    from alivevc_tpu_torch.compat import jax_train_state as jts
+    from alivevc_tpu_torch.train.gan import gan_train_step, init_gan
+
+    ce, f0m, dec, disc, wave, draws = _small_gan_run(torch.Generator().manual_seed(1))
+    state = init_gan(dec, disc)
+    gan_train_step(state, ce, f0m, wave, *draws[0])
+    card, again = str(tmp_path / "card.ckpt"), str(tmp_path / "cpu.ckpt")
+    jts.write(card, state)
+    cpu = jts.read(card, "gan", "cpu")
+    assert cpu.step == 1 and next(cpu.dec.parameters()).device.type == "cpu"
+    want = _state_tensors(state)
+    for k, v in _state_tensors(cpu).items():
+        assert torch.equal(v, want[k].cpu()), k
+    jts.write(again, cpu)
+    with np.load(card) as a, np.load(again) as b:
+        assert set(a.files) == set(b.files)
+        assert all(a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]) for k in a.files)

@@ -46,7 +46,7 @@ def test_importing_the_port_loads_no_jax():
                 "train.dp", "train.state", "io.dataset", "cli.train_decoder", "cli.fine_tune",
                 "cli.train_f0_estimator", "cli.generate_voice_library", "models.wavlm",
                 "io.teacher", "train.distill", "cli.train_content_encoder", "cli.export",
-                "compat.torch_import", "compat.weights"):
+                "compat.torch_import", "compat.weights", "compat.jax_train_state"):
         assert f"alivevc_tpu_torch.{mod}" in proc.stdout.split()
 
 
@@ -68,7 +68,8 @@ def test_no_source_file_imports_jax_or_the_jax_package():
                  "models/discriminator.py", "train/gan.py", "train/fine_tune.py", "train/f0.py",
                  "train/optim.py", "io/dataset.py", "cli/train_decoder.py", "models/wavlm.py",
                  "io/teacher.py", "train/distill.py", "cli/train_content_encoder.py",
-                 "cli/export.py", "compat/torch_import.py"):
+                 "cli/export.py", "compat/torch_import.py", "compat/jax_train_state.py",
+                 "compat/weights.py", "train/state.py", "cli/common.py"):
         assert PKG / path in files
     for path in files:
         for mod in _imports(path):

@@ -4,10 +4,11 @@ test widths: every model file and training state is written beforehand at
 those widths, and each CLI builds its models at the widths its files hold.
 
 Checks: the dataset against the JAX package's (chunks, batch order); the
-step counts and the files each CLI writes; a training state
-resumes (step, optimizer) and the inference CLIs' loader reads a model out
-of it; ``.pt`` is required of output files; and ``train_f0_estimator --dp``
-as 2 gloo ranks under a torchrun-like environment, whose ranks hold 2 and 1
+step counts and the files each CLI writes; a training state resumes (step,
+optimizer) and the inference CLIs' loader reads a model out of it; a
+``GanState`` the JAX package wrote (``.ckpt``) resumes too, and an output
+file that is neither ``.pt`` nor ``.ckpt`` is refused; and
+``train_f0_estimator --dp`` as 2 gloo ranks under a torchrun-like environment, whose ranks hold 2 and 1
 files and run the same number of steps (the minimum over the ranks).
 """
 
@@ -20,7 +21,10 @@ import numpy as np
 import pytest
 import torch
 
+import jax.numpy as jnp
+
 from alivevc_tpu.io import dataset as jdataset
+from alivevc_tpu.io.checkpoint import save_checkpoint as jsave_checkpoint
 from alivevc_tpu_torch.cli import common
 from alivevc_tpu_torch.cli import fine_tune as cli_ft
 from alivevc_tpu_torch.cli import generate_voice_library as cli_lib
@@ -34,7 +38,7 @@ from alivevc_tpu_torch.train.f0 import init_f0_train
 from alivevc_tpu_torch.train.gan import init_gan
 from alivevc_tpu_torch.train.state import load_train_state, save_reference_state, save_train_state
 
-from test_torch_port_util import DEC_KW, train_models, train_wave
+from test_torch_port_util import DEC_KW, jax_train_state, train_models, train_wave
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -81,7 +85,7 @@ def test_dataset_matches_jax(files):
         tdataset.WaveChunkDataset([data], host_shard=(2, 2))
 
 
-def test_train_decoder_cli(files):
+def test_train_decoder_cli(files, capsys):
     tmp, data, paths = files
     state = cli_gan.main([data, "-sp", paths["gan"], "-cep", paths["ce"], "-f0ep", paths["f0"],
                           "-e", "1", "-b", "2", "-len", "9600", "--save-every", "1",
@@ -92,8 +96,16 @@ def test_train_decoder_cli(files):
     assert saved["step"] == 2 and saved["configs"]["decoder"]["channels"] == DEC_KW["channels"]
     dec = common.load_params_or_init(paths["gan"], "decoder", torch.device("cpu"))
     assert all(torch.equal(v, state.dec.state_dict()[k]) for k, v in dec.state_dict().items())
-    with pytest.raises(SystemExit, match=r"\.pt"):
-        cli_gan.main([data, "-sp", os.path.join(tmp, "gan_state.ckpt"), "--device", "cpu"])
+    # a GanState the JAX package wrote (.ckpt) resumes; another extension is refused
+    jax_sp = os.path.join(tmp, "gan_state.ckpt")
+    jsave_checkpoint(jax_sp, jax_train_state("gan", train_models(0)[0])._replace(
+        step=jnp.asarray(2, jnp.int32)))
+    capsys.readouterr()
+    state = cli_gan.main([data, "-sp", jax_sp, "-cep", paths["ce"], "-f0ep", paths["f0"],
+                          "-e", "1", "-b", "2", "-len", "9600", "--device", "cpu"])
+    assert "resumed at step 2" in capsys.readouterr().out and state.step == 4
+    with pytest.raises(SystemExit, match=r"\.pt .*\.ckpt"):
+        cli_gan.main([data, "-sp", os.path.join(tmp, "gan_state.bin"), "--device", "cpu"])
 
 
 def test_fine_tune_cli_writes_and_resumes(files):

@@ -129,6 +129,173 @@ def worst_rel(got: dict, want: dict) -> tuple:
     return errs[name], name
 
 
+# ---------------------------------------------------------------------------
+# training states carried between the two packages
+# (tests/test_torch_port_train_state*.py)
+# ---------------------------------------------------------------------------
+
+VL_KW = dict(num_tokens=512, dim=DEC_KW["content_channels"])
+TRAIN_LR = 1e-4
+
+
+def state_models():
+    """``train_models(0)`` and a 512-token voice library: the JAX pytrees
+    {'ce', 'f0', 'dec', 'disc', 'vl'} and the port's (ce, f0, dec, disc,
+    vl) with the same weights."""
+    from alivevc_tpu.compat import torch_import as ti
+    from alivevc_tpu_torch import config as tc
+    from alivevc_tpu_torch.models.voice_library import VoiceLibrary
+
+    params, mods = train_models(0)
+    vl = VoiceLibrary(tc.VoiceLibraryConfig(**VL_KW), generator=torch.Generator().manual_seed(4))
+    params["vl"] = ti.import_voice_library({"tokens": vl.tokens.detach().numpy()})
+    return params, (*mods, vl)
+
+
+def noise_tree(tree, seed: int, scale: float = 1.0):
+    """A tree of ``tree``'s shapes, N(0, scale^2) from ``seed``, in numpy."""
+    leaves, treedef = jax.tree_util.tree_flatten(tree)
+    rng = np.random.default_rng(seed)
+    return jax.tree_util.tree_unflatten(
+        treedef, [(scale * rng.standard_normal(np.shape(x))).astype(np.float32) for x in leaves])
+
+
+def jax_train_state(trainer: str, params, lr: float = TRAIN_LR):
+    """The JAX package's state of ``trainer`` ('gan', 'fine_tune',
+    'fine_tune_no_library', 'f0', 'distill') over ``params``, as its
+    ``init_*`` forms it."""
+    import jax.numpy as jnp
+
+    from alivevc_tpu import config as jc
+    from alivevc_tpu.train import distill as jdistill
+    from alivevc_tpu.train import f0 as jf0
+    from alivevc_tpu.train import fine_tune as jft
+    from alivevc_tpu.train import gan as jgan
+    from alivevc_tpu.train.optim import radam
+
+    if trainer == "gan":
+        opt_g, opt_d = jgan._make_opts(jc.TrainConfig())
+        return jgan.GanState(params["dec"], params["disc"], opt_g.init(params["dec"]),
+                             opt_d.init(params["disc"]), jnp.zeros((), jnp.int32))
+    if trainer in ("fine_tune", "fine_tune_no_library"):
+        return jft.init_fine_tune(params["dec"], params["disc"],
+                                  params["vl"] if trainer == "fine_tune" else None, jc.TrainConfig())
+    p = params["f0" if trainer == "f0" else "ce"]
+    cls = jf0.F0TrainState if trainer == "f0" else jdistill.DistillState
+    return cls(p, radam(lr).init(p), jnp.zeros((), jnp.int32))
+
+
+def state_tensors(state, kinds=None) -> dict:
+    """{name: tensor}: every parameter and both Adam moments of a port
+    trainer's state (of the models ``kinds``, or all); a moment's name ends
+    in ':exp_avg' or ':exp_avg_sq'."""
+    from alivevc_tpu_torch.train.state import TRAINERS, trainer_of
+
+    out = {}
+    for slot in TRAINERS[trainer_of(state)].slots:
+        module, opt = getattr(state, slot.module), getattr(state, slot.opt)
+        if module is None or (kinds and slot.kind not in kinds):
+            continue
+        for name, p in module.named_parameters():
+            out[f"{slot.kind}.{name}"] = p
+            for key in ("exp_avg", "exp_avg_sq"):
+                out[f"{slot.kind}.{name}:{key}"] = opt.state[p][key]
+    return out
+
+
+def jax_state_tensors(tree, trainer: str, kinds=None) -> dict:
+    """``state_tensors``' names over a JAX state: the parameters, ``mu``
+    and ``nu`` in the reference's layout (numpy)."""
+    from alivevc_tpu_torch.compat import jax_train_state as jts
+    from alivevc_tpu_torch.compat import weights
+    from alivevc_tpu_torch.train.state import TRAINERS
+
+    out = {}
+    for slot, place in zip(TRAINERS[trainer].slots, jts.LAYOUTS[trainer][1]):
+        p = getattr(tree, place.params)
+        if p is None or (kinds and slot.kind not in kinds):
+            continue
+        adam = getattr(tree, place.opt)[0]
+        for key, leaf in (("", p), (":exp_avg", adam.mu), (":exp_avg_sq", adam.nu)):
+            for name, v in weights.MODELS[slot.kind].state(leaf).items():
+                out[f"{slot.kind}.{name}{key}"] = v
+    return out
+
+
+def assert_same_step(state, before, after, trainer: str, got_metrics, want_metrics,
+                     loss_rtol: float, grad_rtol=None, param_atol=None,
+                     lr: float = TRAIN_LR) -> None:
+    """A port state after a step against the JAX state ``after`` that the
+    same step made from ``before``: each metric within ``loss_rtol``
+    relative; each parameter within ``param_atol`` abs, or (None) within
+    2.5 lr with at most 0.5 % of a model's entries over lr / 2 (AdamW's
+    steps are about lr * sign(g)).  With ``grad_rtol``, each moment within
+    what a gradient ``grad_rtol`` of its largest entry apart gives, g being
+    the step's gradient that JAX folded into its first moment,
+    (mu_after - b1 mu_before) / (1 - b1): mu within (1 - b1) grad_rtol
+    max |g|, nu within (1 - b2) (2 + grad_rtol) grad_rtol max |g|^2."""
+    from alivevc_tpu_torch.train.optim import RADAM_B1, RADAM_B2
+    from alivevc_tpu_torch.train.state import TRAINERS
+
+    for k, v in want_metrics.items():
+        v = float(v)
+        assert abs(float(got_metrics[k]) - v) <= loss_rtol * max(abs(v), 1e-6), (k, float(got_metrics[k]), v)
+    got, want = state_tensors(state), jax_state_tensors(after, trainer)
+    prev = jax_state_tensors(before, trainer)
+    assert set(got) == set(want), set(got) ^ set(want)
+    betas = {s.kind: getattr(state, s.opt).defaults.get("betas", (RADAM_B1, RADAM_B2))
+             for s in TRAINERS[trainer].slots if getattr(state, s.module) is not None}
+    moved, total = {}, {}
+    for name, w in want.items():
+        diff = np.abs(n(got[name]) - w)
+        kind, param = name.split(".")[0], name.split(":")[0]
+        b1, b2 = betas[kind]
+        if ":" in name:
+            if grad_rtol is None:
+                continue
+            g = np.abs(want[f"{param}:exp_avg"] - b1 * prev[f"{param}:exp_avg"]).max() / (1 - b1)
+            bound = ((1 - b1) * grad_rtol * g if name.endswith(":exp_avg")
+                     else (1 - b2) * (2 + grad_rtol) * grad_rtol * g * g)
+            assert diff.max() <= bound, (name, diff.max(), bound)
+        elif param_atol is not None:
+            assert diff.max() <= param_atol, (name, diff.max())
+        else:
+            assert diff.max() <= 2.5 * lr, (name, diff.max())
+            moved[kind] = moved.get(kind, 0) + int((diff > 0.5 * lr).sum())
+            total[kind] = total.get(kind, 0) + diff.size
+    for kind in moved:
+        assert moved[kind] <= 0.005 * total[kind], (kind, moved[kind], total[kind])
+
+
+def jax_port_jax(trainer: str, tree, jax_step, port_step, keys, tmp, check, **read_kw):
+    """JAX takes steps 1-2 (``keys[0:2]``) from ``tree`` and writes its
+    state; JAX's step 3 from that file against the port's, which reads it;
+    the port writes its state, and JAX's step 4 from that file against the
+    port's step 4.  ``jax_step(tree, key)`` and ``port_step(state, key)``
+    return (state, metrics) and metrics; ``check(state, the file's tree,
+    JAX's tree after the step, got metrics, want metrics)`` compares.
+    Returns the port's state."""
+    import os
+
+    from alivevc_tpu.io.checkpoint import load_checkpoint, save_checkpoint
+    from alivevc_tpu_torch.compat import jax_train_state as jts
+
+    for key in keys[:2]:
+        tree, _ = jax_step(tree, key)
+    path = os.path.join(str(tmp), f"{trainer}_jax.ckpt")
+    save_checkpoint(path, tree)
+    state = jts.read(path, trainer, "cpu", **read_kw)
+    assert state.step == 2
+    for key, name in ((keys[2], "jax"), (keys[3], "port")):
+        before = load_checkpoint(path, tree)
+        want, want_m = jax_step(before, key)
+        check(state, before, want, port_step(state, key), want_m)
+        path = os.path.join(str(tmp), f"{trainer}_port.ckpt")
+        jts.write(path, state)
+    assert state.step == 4
+    return state
+
+
 def build_jax_native(out_dir) -> str:
     """The JAX package's native library built from its own sources
     (``native/*.cpp``, the Makefile's flags) into ``out_dir``; the path.
