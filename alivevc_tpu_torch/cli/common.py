@@ -11,13 +11,18 @@ out of it), or the JAX package's ``.npz`` / ``.ckpt`` checkpoint: a
 parameter tree or a training state (``io/checkpoint.py``, carried over by
 ``compat/weights.py`` and ``compat/jax_train_state.py``).  Either way the
 model is built at the widths the file holds and loaded with strict key
-matching; a missing file gives a model initialised from seed 0.
+matching; a missing file gives a model initialised from seed 0.  Each
+model a CLI builds prints one line: the file it came from and what that
+file holds, or the seed of its weights where there is no file
+(``compat/torch_import.py:model_line``).
 
 The training CLIs read and write their states and models by the file's
 extension, here and nowhere else: ``.pt`` is this package's format,
 ``.ckpt`` the JAX package's (a training state with its optax moments, or a
 parameter tree), so a run moves between the two packages either way;
-another extension is refused before training.
+another extension is refused before training.  Their default names are
+the JAX package's (``.ckpt``), so each CLI's defaults read what the one
+before it wrote by default.
 """
 
 from __future__ import annotations
@@ -29,13 +34,18 @@ import torch
 from torch import nn
 
 from alivevc_tpu_torch.compat import jax_train_state, weights
-from alivevc_tpu_torch.compat.torch_import import load_params_or_init
+from alivevc_tpu_torch.compat.torch_import import load_params_or_init, model_line
 from alivevc_tpu_torch.device import resolve_device
 from alivevc_tpu_torch.infer.offline import build_target_matrix
 from alivevc_tpu_torch.io.audio import read_wav
 from alivevc_tpu_torch.io.checkpoint import save_checkpoint
 from alivevc_tpu_torch.ops.resample import resample
-from alivevc_tpu_torch.train.state import read_train_state, save_reference_state, write_train_state
+from alivevc_tpu_torch.train.state import (
+    TRAINERS,
+    read_train_state,
+    save_reference_state,
+    write_train_state,
+)
 
 
 def resample_np(x: np.ndarray, orig: int, new: int, device: torch.device) -> np.ndarray:
@@ -86,6 +96,21 @@ def read_state(path: str, trainer: str, device: torch.device, **init_kw):
     if path.endswith(".ckpt"):
         return jax_train_state.read(path, trainer, device, **init_kw)
     return read_train_state(path, trainer, device, **init_kw)
+
+
+def resume_or_start(path: str, trainer: str, device: torch.device, start, **init_kw):
+    """The reference's resume-by-existence: the trainer's state from ``path``
+    where the file exists (a ``model_line`` for each of its models, then
+    "resumed at step N"), else ``start()``, which prints its own lines."""
+    if not os.path.exists(path):
+        return start()
+    state = read_state(path, trainer, device, **init_kw)
+    what = f"{'JAX ' if path.endswith('.ckpt') else ''}training state, step {state.step}"
+    for slot in TRAINERS[trainer].slots:
+        if getattr(state, slot.module) is not None:
+            model_line(slot.kind, path, what)
+    print(f"resumed at step {state.step}")
+    return state
 
 
 def write_state(path: str, state) -> None:

@@ -1,15 +1,15 @@
 """Voice-library generation CLI (reference: generate_voice_library.py;
 ``alivevc_tpu/cli/generate_voice_library.py``).
 
-    python -m alivevc_tpu_torch.cli.generate_voice_library target_voice/ \\
-        -cep content_encoder.pt -lib voice_library.pt
+    python -m alivevc_tpu_torch.cli.generate_voice_library target_voice/
 
 Up to 512 random chunks of 7 680 samples of the dataset (numpy's
 ``default_rng(--seed)``, as the JAX package draws them) through
 ``train/library_gen.py``, with tokens as wide as the content encoder's
-output; the library is written to ``-lib``: a ``.pt`` in the reference's
-key layout, or a ``.ckpt`` parameter tree of the JAX package (its own CLI's
-output).  ``--device`` defaults to cuda.
+output; the library is written to ``-lib`` (default
+``voice_library.ckpt``, which ``fine_tune`` reads): a ``.ckpt`` parameter
+tree of the JAX package (its own CLI's output), or a ``.pt`` in the
+reference's key layout.  ``--device`` defaults to cuda.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ from alivevc_tpu_torch.train.library_gen import generate_voice_library
 def build_parser():
     p = argparse.ArgumentParser(description="generate voice library")
     p.add_argument("dataset")
-    p.add_argument("-lib", "--voice-library-path", default="voice_library.pt")
+    p.add_argument("-lib", "--voice-library-path", default="voice_library.ckpt")
     p.add_argument("-cep", "--content-encoder-path", default="content_encoder.ckpt")
     p.add_argument("--seed", default=0, type=int)
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")

@@ -2,7 +2,7 @@
 ``alivevc_tpu/cli/train_content_encoder.py``).
 
     python -m alivevc_tpu_torch.cli.train_content_encoder dataset/ \\
-        --wavlm-checkpoint wavlm-base-plus.pt -mp content_encoder.pt
+        --wavlm-checkpoint wavlm-base-plus.pt
     python -m alivevc_tpu_torch.cli.train_content_encoder dataset/ --teacher-features feats.npz
 
 The flags are the JAX package's, plus ``--device`` and ``--dp`` as in
@@ -12,9 +12,11 @@ precompute_teacher_features``, key 'features', [M, length // 320, 768],
 aligned with this process's chunks), or from ``--wavlm-checkpoint`` (a
 Hugging Face ``WavLMModel`` state dict), whose WavLM runs on ``--device``
 over the chunks before training.  The JAX CLI's default, a hub download, is
-not offered: with neither flag the run stops.  ``-mp`` is a training
-state holding the encoder, a ``.pt`` (``train/state.py``) or the JAX
-package's ``.ckpt`` (its ``DistillState``, ``compat/jax_train_state.py``):
+not offered: with neither flag the run stops.  ``-mp`` (default
+``content_encoder.ckpt``, the name the other CLIs' ``-cep`` reads) is a
+training state holding the encoder, the JAX package's ``.ckpt`` (its
+``DistillState``, ``compat/jax_train_state.py``) or a ``.pt``
+(``train/state.py``):
 the run resumes from it where it exists (else a seed-0 encoder at the
 default widths) and writes it back in its format, and the inference CLIs
 read the encoder out of either (``-cep``).  Under ``--dp``
@@ -26,15 +28,15 @@ minimum over the ranks of their step counts.
 from __future__ import annotations
 
 import argparse
-import os
 
 import numpy as np
 import torch
 
 from alivevc_tpu_torch.cli.common import (
     init_dp,
-    read_state,
+    model_line,
     require_format,
+    resume_or_start,
     steps_per_epoch,
     write_state,
 )
@@ -47,7 +49,7 @@ from alivevc_tpu_torch.train.distill import distill_step, dp_distill_step, init_
 def build_parser():
     p = argparse.ArgumentParser(description="train content encoder (distillation)")
     p.add_argument("dataset")
-    p.add_argument("-mp", "--model-path", default="content_encoder.pt")
+    p.add_argument("-mp", "--model-path", default="content_encoder.ckpt")
     p.add_argument("-e", "--epoch", default=1000, type=int)
     p.add_argument("-b", "--batch-size", default=16, type=int)
     p.add_argument("-lr", "--learning-rate", default=1e-4, type=float)
@@ -86,12 +88,13 @@ def main(argv=None):
         raise SystemExit(f"teacher features {feats.shape} do not align with the "
                          f"{len(ds)} chunks of {args.length // 320} frames")
 
-    if os.path.exists(args.model_path):
-        state = read_state(args.model_path, "distill", dev, learning_rate=args.learning_rate)
-        print(f"resumed at step {state.step}")
-    else:
-        state = init_distill(ContentEncoder(generator=torch.Generator().manual_seed(0)).to(dev),
-                             args.learning_rate)
+    def start():
+        model_line("content_encoder", args.model_path)
+        return init_distill(ContentEncoder(generator=torch.Generator().manual_seed(0)).to(dev),
+                            args.learning_rate)
+
+    state = resume_or_start(args.model_path, "distill", dev, start,
+                            learning_rate=args.learning_rate)
 
     def save():
         if rank == 0:

@@ -1,18 +1,21 @@
 """GAN decoder training CLI (reference: train_decoder.py;
 ``alivevc_tpu/cli/train_decoder.py``).
 
-    python -m alivevc_tpu_torch.cli.train_decoder dataset/ -cep content_encoder.pt \\
-        -f0ep f0_estimator.pt -sp gan_state.pt -b 8
+    python -m alivevc_tpu_torch.cli.train_decoder dataset/ -b 8
     torchrun --nproc-per-node 4 -m alivevc_tpu_torch.cli.train_decoder dataset/ --dp -b 32
 
-The flags are the JAX package's.  The frozen content encoder and F0
-estimator load from ``.pt`` / ``.npz`` / ``.ckpt`` files (seed-0 models
-where the files do not exist).  The decoder and the discriminator resume
-from the training state ``-sp`` where it exists, else start from seed 1 at
-the default widths: a ``.pt`` of ``train/state.py`` (which also carries
-the optimizers, the step and the models' configurations) or the JAX
-package's ``gan_state.ckpt`` (its ``GanState`` with the optax moments,
-``compat/jax_train_state.py``), written back in the format it came in.
+The flags and their defaults are the JAX package's.  The frozen content
+encoder and F0 estimator load from ``.pt`` / ``.npz`` / ``.ckpt`` files
+(seed-0 models where the files do not exist; the defaults are what
+``train_content_encoder`` and ``train_f0_estimator`` write by default).
+The decoder and the discriminator resume from the training state ``-sp``
+(default ``gan_state.ckpt``) where it exists, else start from seed 1 at
+the default widths: the JAX package's ``.ckpt`` (its ``GanState`` with the
+optax moments, ``compat/jax_train_state.py``) or a ``.pt`` of
+``train/state.py`` (which also carries the optimizers, the step and the
+models' configurations), written back in the format it came in.  As in the
+JAX package, no decoder file of its own is written: ``fine_tune -dep
+gan_state.ckpt`` and the inference CLIs read the decoder out of the state.
 ``--device`` defaults to cuda.  ``--dp`` runs ``dp_gan_train_step`` over
 torch.distributed ranks (rank and world from torchrun's environment): each
 rank loads every world-th file, takes batch / world items a step, every
@@ -23,7 +26,6 @@ the state and rank 0 writes it.
 from __future__ import annotations
 
 import argparse
-import os
 
 import numpy as np
 import torch
@@ -31,8 +33,9 @@ import torch
 from alivevc_tpu_torch.cli.common import (
     init_dp,
     load_params_or_init,
-    read_state,
+    model_line,
     require_format,
+    resume_or_start,
     steps_per_epoch,
     write_state,
 )
@@ -46,7 +49,7 @@ from alivevc_tpu_torch.train.gan import dp_gan_train_step, gan_draws, gan_train_
 def build_parser():
     p = argparse.ArgumentParser(description="train decoder (GAN)")
     p.add_argument("dataset")
-    p.add_argument("-sp", "--state-path", default="gan_state.pt")
+    p.add_argument("-sp", "--state-path", default="gan_state.ckpt")
     p.add_argument("-cep", "--content-encoder-path", default="content_encoder.ckpt")
     p.add_argument("-f0ep", "--f0-estimator-path", default="f0_estimator.ckpt")
     p.add_argument("-e", "--epoch", default=1000, type=int)
@@ -79,12 +82,14 @@ def main(argv=None):
     ce = load_params_or_init(args.content_encoder_path, "content_encoder", dev)
     pe = load_params_or_init(args.f0_estimator_path, "f0_estimator", dev)
     cfg = train_config(args)
-    if os.path.exists(args.state_path):
-        state = read_state(args.state_path, "gan", dev, cfg=cfg)
-        print(f"resumed at step {state.step}")
-    else:
+
+    def start():
+        for kind in ("decoder", "discriminator"):
+            model_line(kind, args.state_path, seed=1)
         gen = torch.Generator().manual_seed(1)
-        state = init_gan(Decoder(generator=gen).to(dev), Discriminator(generator=gen).to(dev), cfg)
+        return init_gan(Decoder(generator=gen).to(dev), Discriminator(generator=gen).to(dev), cfg)
+
+    state = resume_or_start(args.state_path, "gan", dev, start, cfg=cfg)
 
     def save():
         if rank == 0:

@@ -1,12 +1,13 @@
 """F0-estimator training CLI (reference: train_f0_estimator.py;
 ``alivevc_tpu/cli/train_f0_estimator.py``).
 
-    python -m alivevc_tpu_torch.cli.train_f0_estimator dataset/ -mp f0_estimator.pt -b 8
+    python -m alivevc_tpu_torch.cli.train_f0_estimator dataset/ -b 8
 
 The flags are the JAX package's.  Chunks get WORLD labels at load time (the
-native labeler on the host).  ``-mp`` is a training state, a ``.pt``
-(``train/state.py``) or the JAX package's ``.ckpt`` (its ``F0TrainState``
-with the RAdam moments, ``compat/jax_train_state.py``): the run resumes
+native labeler on the host).  ``-mp`` (default ``f0_estimator.ckpt``, the
+name the other CLIs' ``-f0ep`` reads) is a training state, the JAX
+package's ``.ckpt`` (its ``F0TrainState`` with the RAdam moments,
+``compat/jax_train_state.py``) or a ``.pt`` (``train/state.py``): the run resumes
 from it where it exists (else a seed-0 estimator at the default widths)
 and writes it back in its format, and the inference CLIs read the
 estimator out of either (``-f0ep``).  ``--device`` and ``--dp`` as in
@@ -17,15 +18,15 @@ the whole batch.
 from __future__ import annotations
 
 import argparse
-import os
 
 import numpy as np
 import torch
 
 from alivevc_tpu_torch.cli.common import (
     init_dp,
-    read_state,
+    model_line,
     require_format,
+    resume_or_start,
     steps_per_epoch,
     write_state,
 )
@@ -37,7 +38,7 @@ from alivevc_tpu_torch.train.f0 import dp_f0_train_step, f0_amp_draws, f0_train_
 def build_parser():
     p = argparse.ArgumentParser(description="train f0 estimator")
     p.add_argument("dataset")
-    p.add_argument("-mp", "--model-path", default="f0_estimator.pt")
+    p.add_argument("-mp", "--model-path", default="f0_estimator.ckpt")
     p.add_argument("-e", "--epoch", default=100, type=int)
     p.add_argument("-b", "--batch-size", default=1, type=int)
     p.add_argument("-lr", "--learning-rate", default=1e-4, type=float)
@@ -59,12 +60,13 @@ def main(argv=None):
     ds = WaveChunkDataset([args.dataset], length=args.length, max_files=args.max_data,
                           with_f0=True, host_shard=(rank, world) if world > 1 else None)
     print(f"Loaded {len(ds)} chunks (WORLD F0 labels precomputed)")
-    if os.path.exists(args.model_path):
-        state = read_state(args.model_path, "f0", dev, learning_rate=args.learning_rate)
-        print(f"resumed at step {state.step}")
-    else:
-        state = init_f0_train(F0Estimator(generator=torch.Generator().manual_seed(0)).to(dev),
-                              args.learning_rate)
+
+    def start():
+        model_line("f0_estimator", args.model_path)
+        return init_f0_train(F0Estimator(generator=torch.Generator().manual_seed(0)).to(dev),
+                             args.learning_rate)
+
+    state = resume_or_start(args.model_path, "f0", dev, start, learning_rate=args.learning_rate)
 
     def save():
         if rank == 0:

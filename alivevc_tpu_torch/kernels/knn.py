@@ -117,6 +117,16 @@ def topk_exact(sims: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.cat(vals, dim=1), torch.cat(idxs, dim=1)
 
 
+def merge_plain(cand_v: torch.Tensor, cand_i: torch.Tensor, k: int):
+    """The merge's plain version: candidates [Ls, chunks, kk], each chunk's
+    top kk in chunk order (a chunk's places by score, then index) -> (values
+    [Ls, k], int32 indices [Ls, k]) of the top k of all, ties to the
+    smallest index (the smallest column, in that order)."""
+    ls = cand_v.shape[0]
+    v, col = topk_exact(cand_v.reshape(ls, -1), k)
+    return v, torch.gather(cand_i.reshape(ls, -1), 1, col)
+
+
 def uses_packed(precision: str, k: int, valid_rows, penalty, extraction: str) -> bool:
     """Whether ``extraction`` resolves to the packed form (knn_pallas.py:323-329)."""
     if extraction not in EXTRACTIONS:
@@ -165,12 +175,35 @@ def knn_topk_plain(source: torch.Tensor, library: torch.Tensor, k: int = 4,
     return torch.cat(vals), torch.cat(idxs)
 
 
+def chunking(ls: int, lr: int) -> Tuple[int, int]:
+    """(library rows a block scans, chunks): chunks of 128-row tiles, short
+    enough to give every SM work, long enough to amortise the per-block
+    start and the merge."""
+    want = -(-_MIN_BLOCKS // -(-ls // _QUERIES_PER_BLOCK))
+    rows_per_chunk = min(_ROWS_PER_CHUNK, 128 * -(-lr // (128 * want)))
+    rows_per_chunk = max(rows_per_chunk, 128 * -(-lr // (128 * _MAX_CHUNKS)))
+    return rows_per_chunk, -(-lr // rows_per_chunk)
+
+
 def knn_topk_cuda(source: torch.Tensor, library: torch.Tensor, k: int = 4,
                   precision: str = "default", valid_rows=None, penalty=None,
                   extraction: str = "auto"):
     """The kernel launch (tile scores + per-block top-k, then the merge).
     It has no backward (indices have none): an input that requires grad in
     grad mode raises."""
+    out_v, out_i, _, _ = knn_topk_launch(source, library, k, precision, valid_rows, penalty,
+                                         extraction)
+    return out_v[:, :k], out_i[:, :k].long()
+
+
+def knn_topk_launch(source: torch.Tensor, library: torch.Tensor, k: int = 4,
+                    precision: str = "default", valid_rows=None, penalty=None,
+                    extraction: str = "auto"):
+    """``knn_topk_cuda``'s launch with the merge's inputs and outputs: (out
+    values, out indices, candidate values, candidate indices), the
+    candidates [Ls, chunks, kk] (each chunk's top kk, kk = 4 or 8) and the
+    outputs [Ls, kk] (int32 indices), so the merge can be checked and timed
+    on its own."""
     _lib.refuse_grad("knn_topk_cuda", source, library, penalty)
     if not 1 <= k <= 8:
         raise ValueError(f"k={k} must be in [1, 8]")
@@ -208,12 +241,7 @@ def knn_topk_cuda(source: torch.Tensor, library: torch.Tensor, k: int = 4,
             raise ValueError(f"penalty must be [{lib.shape[0]}] on {src.device}")
         pen_ptr = penalty.data_ptr()
     kk = 4 if k <= 4 else 8
-    # chunks of 128-row tiles: short enough to give every SM work, long
-    # enough to amortise the per-block start and the merge
-    want = -(-_MIN_BLOCKS // -(-ls // _QUERIES_PER_BLOCK))
-    rows_per_chunk = min(_ROWS_PER_CHUNK, 128 * -(-lr // (128 * want)))
-    rows_per_chunk = max(rows_per_chunk, 128 * -(-lr // (128 * _MAX_CHUNKS)))
-    n_chunks = -(-lr // rows_per_chunk)
+    rows_per_chunk, n_chunks = chunking(ls, lr)
     dev = src.device
     cand_v = torch.empty((ls, n_chunks, kk), dtype=torch.float32, device=dev)
     cand_i = torch.empty((ls, n_chunks, kk), dtype=torch.int32, device=dev)
@@ -226,7 +254,8 @@ def knn_topk_cuda(source: torch.Tensor, library: torch.Tensor, k: int = 4,
             _lib.stream_of(src))
     _lib.check(rc, "knn_topk")
     _lib.LAUNCHES["knn_packed" if packed else "knn"] += 1
-    return out_v[:, :k], out_i[:, :k].long()
+    _lib.LAUNCHES["knn_merge"] += 1      # the same call launches the merge kernel
+    return out_v, out_i, cand_v, cand_i
 
 
 def knn_topk(source: torch.Tensor, library: torch.Tensor, k: int = 4,

@@ -22,7 +22,6 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from alivevc_tpu_torch.device import cached
 
@@ -63,8 +62,13 @@ def dft_basis(n_fft: int, window: str, win_length: int, device) -> Tuple[torch.T
 
 
 def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
-    """[N, L] -> [N, L + 2*pad], reflect padding on both sides."""
-    return F.pad(x[:, None, :], (pad, pad), mode="reflect")[:, 0, :]
+    """[N, L] -> [N, L + 2*pad], reflect padding on both sides: the values of
+    ``F.pad(mode="reflect")``, as a concatenation of the flipped edges,
+    whose backward is deterministic on the card (``reflection_pad1d``'s
+    CUDA backward accumulates with atomics)."""
+    if pad >= x.shape[-1]:
+        raise ValueError(f"reflect padding by {pad} needs more than {pad} samples, got {x.shape[-1]}")
+    return torch.cat([x[:, 1:pad + 1].flip(1), x, x[:, -pad - 1:-1].flip(1)], dim=1)
 
 
 def frame(x: torch.Tensor, n_fft: int, hop: int, center: bool = True) -> torch.Tensor:

@@ -26,7 +26,13 @@ printing the final line:
      source and its phase scan), and its grid (tiles of 4 frames, resident
      blocks, waves).
      Each time is the median of at least 5 runs and at least 20 ms of timed
-     work (2 runs for a plain version), after one warm-up;
+     work (2 runs for a plain version), after one warm-up.  The kNN merge
+     (``knn_merge_kernel``, one launch a kNN call) has rows of its own, on
+     the candidates a kNN call gives it at the bench shape ('default' and
+     'high'), the hop's shape and the 524 288-row shard: its outputs against
+     ``merge_plain`` on the same candidates (exact), its device time alone
+     (torch.profiler), and ``torch.topk`` + ``torch.gather`` over the
+     flattened candidates as the library call;
   3. the main path end to end at full model width (default configs, random
      weights from a seed, a 100 352 x 768 library from the seed):
      ``OfflineConverter.convert_16k`` answers three requests (10 s, 30 s,
@@ -142,7 +148,22 @@ printing the final line:
      for a freshly built state, and the file read and written again is
      bit-equal; each file's size and write and read seconds.  Counters
      zeroed before the runs and read after: the filter, oscillator, STFT
-     and kNN kernels must each launch.  The phase must finish within 60 s.
+     and kNN kernels must each launch.  Then the deterministic sub-run, a
+     process of its own (CUBLAS_WORKSPACE_CONFIG=:4096:8 set before cuBLAS
+     starts, so no other phase runs under it): the GAN and fine-tuning runs
+     A, A' and B under ``torch.use_deterministic_algorithms(True,
+     warn_only=True)`` with cuDNN's autotuner off, every op that warned
+     printed; with none, A' and B must equal A within 1e-6, else B keeps its
+     gate.  The phase must finish within 90 s (60 s before the sub-run).
+  11. the CLIs' default chain at full width in a temporary working
+     directory, on the JAX package's ``.ckpt`` names: ``train_content_encoder
+     --wavlm-checkpoint`` (phase 9's seed-drawn teacher as a local ``.pt``),
+     ``train_f0_estimator``, ``generate_voice_library``, ``train_decoder``,
+     ``fine_tune -dep gan_state.ckpt -disp gan_state.ckpt`` and ``inference``
+     on a 10 s file, 2 steps a trainer; every model a stage builds from a
+     file must hash (state dict, sha256) to the file an earlier stage wrote;
+     each stage's wall time and launches.  The phase must finish within
+     60 s.
 
 Its last lines are the ``kernels`` JSON line, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.  Float32 products run without TF32
@@ -355,6 +376,55 @@ def check_knn(gen, lib_rows, precision, valid_rows=None, penalty=False, extracti
         "max_abs_err": err, "tol": tol, "index_sets_differing": bad,
         "ms": cuda_ms(lambda: knn_topk_cuda(q, lib, 4, precision, **kw)),
         "plain_ms": cuda_ms(lambda: knn_topk_plain(q, lib, 4, precision, **kw), 2),
+        "library_ms": cuda_ms(library_call),
+        "bound_ms": b, "bound_by": by,
+    }
+
+
+def check_knn_merge(gen, lib_rows, precision, ls=N_STEP * LF, valid_rows=None, suffix=""):
+    """The kNN merge (``knn_merge_kernel``, pass B of ``csrc/knn.cu``) on its
+    own, on the candidates a kNN call at this shape gives it: its outputs
+    against ``merge_plain`` on the same candidates (values and indices
+    exact: both take the top k by score, ties to the smallest index); its
+    device time alone (torch.profiler, the tile kernel left out); the plain
+    merge's time; one ``torch.topk`` over the candidates flattened to [Ls,
+    chunks * kk] plus the ``torch.gather`` of their row indices (the library
+    call); and its bound, bytes: the candidates read once, the outputs
+    written once."""
+    import torch
+    from alivevc_tpu_torch.kernels.knn import knn_topk_cuda, knn_topk_launch, merge_plain
+
+    q = torch.randn(ls, 768, generator=gen, device="cuda")
+    lib = torch.randn(lib_rows, 768, generator=gen, device="cuda")
+    kw, tag = {}, ""
+    if valid_rows is not None:
+        kw["valid_rows"] = torch.tensor(valid_rows, device="cuda")
+        tag = f" valid_rows={valid_rows}"
+    out_v, out_i, cand_v, cand_i = knn_topk_launch(q, lib, 4, precision, **kw)
+    kk, n_chunks = cand_v.shape[2], cand_v.shape[1]
+    pv, pi = merge_plain(cand_v, cand_i, kk)
+    torch.cuda.synchronize()
+    err = float((out_v - pv).abs().max())
+    bad = int((out_i != pi).any(1).sum())
+    need(err == 0.0 and bad == 0,
+         f"knn merge[{precision},{lib_rows}{tag}]: max abs err {err}, {bad} index lists differ")
+    flat_v, flat_i = cand_v.reshape(ls, -1), cand_i.reshape(ls, -1)
+
+    def library_call():
+        col = torch.topk(flat_v, kk, dim=1).indices
+        torch.gather(flat_i, 1, col)
+
+    nbytes = cand_v.numel() * 4 + cand_i.numel() * 4 + out_v.numel() * 4 + out_i.numel() * 4
+    b, by = bound_ms(nbytes, 0.0, PEAK_F32)
+    ms = kernel_device_ms(lambda: knn_topk_cuda(q, lib, 4, precision, **kw), ("knn_merge_kernel",))
+    need(ms is not None, "knn merge: the profiler recorded no device time for knn_merge_kernel")
+    return {
+        "name": "knn_merge",
+        "variant": f"merge of {ls} x {lib_rows} x 768 {precision}{tag}{suffix}",
+        "max_abs_err": err, "tol": 0.0, "index_lists_differing": bad,
+        "candidates": [ls, n_chunks, kk],
+        "ms": ms,
+        "plain_ms": cuda_ms(lambda: merge_plain(cand_v, cand_i, kk), 2),
         "library_ms": cuda_ms(library_call),
         "bound_ms": b, "bound_by": by,
     }
@@ -864,6 +934,9 @@ def run_sharded(n_lib: int) -> dict:
     content features.  Needs the default process group."""
     import torch
     import torch.distributed as dist
+    if sys.argv[1:2] == [DETERMINISTIC_FLAG]:
+        deterministic_resume(sys.argv[2])
+        return 0
     from alivevc_tpu_torch.config import ContentEncoderConfig, DecoderConfig, F0EstimatorConfig
     from alivevc_tpu_torch.device import float32_math
     from alivevc_tpu_torch.kernels import LAUNCHES, reset_launches
@@ -1323,6 +1396,9 @@ def run_halo(world: int) -> dict:
     import numpy as np
     import torch
     import torch.distributed as dist
+    if sys.argv[1:2] == [DETERMINISTIC_FLAG]:
+        deterministic_resume(sys.argv[2])
+        return 0
     from alivevc_tpu_torch.config import ContentEncoderConfig, DecoderConfig, F0EstimatorConfig
     from alivevc_tpu_torch.kernels import LAUNCHES, reset_launches
     from alivevc_tpu_torch.kernels.stft import stft_magnitude
@@ -2593,7 +2669,15 @@ RESUME_STEPS = {"gan": 3, "fine_tune": 2, "f0": 2, "distill": 2}   # run A's; ru
 # read 0.0 for both (their sums were deterministic; RAdam's first steps are linear in the
 # gradient, so a reordered float32 sum would move them by ~1e-7), the controls 0.66 and 0.50
 RESUME_TOL = {"gan": 3e-2, "fine_tune": 5e-2, "f0": 1e-5, "distill": 1e-5}
-PHASE10_LIMIT_S = 60.0
+# the deterministic sub-run (GAN and fine-tuning under torch.use_deterministic_algorithms): with
+# no op warned, A' vs A and B vs A within this (0.0 expected: the same sums in the same order)
+DETERMINISTIC_TRAINERS = ("gan", "fine_tune")
+DETERMINISTIC_TOL = 1e-6
+DETERMINISTIC_FLAG = "--deterministic-resume"
+DETERMINISTIC_TIMEOUT_S = 300
+# 60 s before the deterministic sub-run; it takes ~30 s in a process of its own (30.5 s in its
+# first run on an H100 at 700 W, the phase 57.9 s), so the limit is raised by 30 s
+PHASE10_LIMIT_S = 90.0
 RESUME_KERNELS = ("filter_level", "oscillator", "stft", "knn")
 
 
@@ -2627,12 +2711,13 @@ def worst_apart(got: dict, want: dict) -> dict:
     return {"rel_err": errs[i], "tensor": names[i]}
 
 
-def resume_readings(trainer, label, fresh, step, path, card, **init_kw) -> dict:
+def resume_readings(trainer, label, fresh, step, path, card, control=True, **init_kw) -> dict:
     """Run A: ``RESUME_STEPS[trainer]`` steps from ``fresh()``; A': the same
     again (the card's repeat spread); B: all but the last, ``write`` to
-    ``path``, fresh modules and optimizers from ``read``, the last; the
-    control: B's file read with the moments zeroed, the last step.  Each
-    against A."""
+    ``path``, fresh modules and optimizers from ``read``, the last; with
+    ``control``, the control: B's file read with the moments zeroed, the
+    last step, and the gate (B within RESUME_TOL, the control above it).
+    Each against A."""
     import os
 
     import torch
@@ -2663,22 +2748,25 @@ def resume_readings(trainer, label, fresh, step, path, card, **init_kw) -> dict:
     need(state.step == n - 1, f"{label}: read step {state.step}, expected {n - 1}")
     r["resumed"] = worst_apart(state_tensors(run(state, n - 1)), a)
     del state
-    state = jts.read(path, trainer, DEV, **init_kw)
-    for name, v in state_tensors(state).items():
-        if ":" in name:
-            v.zero_()
-    r["control"] = worst_apart(state_tensors(run(state, n - 1)), a)
+    shown = ""
+    if control:
+        state = jts.read(path, trainer, DEV, **init_kw)
+        for name, v in state_tensors(state).items():
+            if ":" in name:
+                v.zero_()
+        r["control"] = worst_apart(state_tensors(run(state, n - 1)), a)
+        shown = (f", control (B with the moments zeroed) vs A {r['control']['rel_err']:.3e} "
+                 f"({r['control']['tensor']}); gate {RESUME_TOL[trainer]:.0e}")
     r["file_mb"] = os.path.getsize(path) / 1e6
     print(f"resume {label} [{card}]: {n} steps (A, A') against {n - 1}, the .ckpt, 1 (B): "
           f"worst tensor over the parameters and both moments, max |diff| / max |A|: B vs A "
           f"{r['resumed']['rel_err']:.3e} ({r['resumed']['tensor']}), A' vs A "
-          f"{r['repeat']['rel_err']:.3e} ({r['repeat']['tensor']}), control (B with the moments "
-          f"zeroed) vs A {r['control']['rel_err']:.3e} ({r['control']['tensor']}); gate "
-          f"{RESUME_TOL[trainer]:.0e}; file {r['file_mb']:.1f} MB, write {r['write_s']:.2f} s, read "
-          f"{r['read_s']:.2f} s")
-    need(r["resumed"]["rel_err"] <= RESUME_TOL[trainer] < r["control"]["rel_err"],
-         f"{label}: resumed {r['resumed']}, control {r['control']} against the gate "
-         f"{RESUME_TOL[trainer]}")
+          f"{r['repeat']['rel_err']:.3e} ({r['repeat']['tensor']}){shown}; file "
+          f"{r['file_mb']:.1f} MB, write {r['write_s']:.2f} s, read {r['read_s']:.2f} s")
+    if control:
+        need(r["resumed"]["rel_err"] <= RESUME_TOL[trainer] < r["control"]["rel_err"],
+             f"{label}: resumed {r['resumed']}, control {r['control']} against the gate "
+             f"{RESUME_TOL[trainer]}")
     return r
 
 
@@ -2708,25 +2796,21 @@ def check_gan_file(path, fresh, card) -> dict:
     return {"keys": len(got), "read_write_s": round_s}
 
 
-def run_resume(card):
-    """Phase 10: the four trainers' runs resumed through the JAX package's
-    ``.ckpt`` layout at full width, float32 without TF32; counters zeroed
-    before the runs and read after.  Returns (launches, the report)."""
+def resume_runs():
+    """Phase 10's runs: (trainer, label, a fresh state's maker, one step)
+    for the GAN, fine-tuning with a 512-token library, the F0 trainer and
+    distillation, with their models, batches and draws from the seed."""
     import copy
-    import tempfile
 
     import numpy as np
     import torch
     from alivevc_tpu_torch.config import VoiceLibraryConfig
-    from alivevc_tpu_torch.kernels import LAUNCHES, reset_launches
     from alivevc_tpu_torch.models.voice_library import VoiceLibrary
     from alivevc_tpu_torch.train.distill import distill_step, init_distill
     from alivevc_tpu_torch.train.f0 import f0_amp_draws, f0_train_step, init_f0_train
     from alivevc_tpu_torch.train.fine_tune import amp_draws, fine_tune_step, init_fine_tune
     from alivevc_tpu_torch.train.gan import gan_draws, gan_train_step, init_gan
 
-    t_phase = time.perf_counter()
-    report = {}
     ce, f0m, dec, disc = train_models()
     vl = VoiceLibrary(VoiceLibraryConfig(dim=ce.cfg.output_channels),
                       generator=torch.Generator().manual_seed(SEED + 60)).to(DEV)
@@ -2740,7 +2824,7 @@ def run_resume(card):
     ft_d = [amp_draws(TRAIN_N, draw_gen, DEV) for _ in range(RESUME_STEPS["fine_tune"])]
     f0_d = [f0_amp_draws(F0_TRAIN_N, draw_gen, DEV) for _ in range(RESUME_STEPS["f0"])]
     student = distill_student()
-    runs = (
+    return (
         ("gan", f"GAN ({TRAIN_N} x {TRAIN_LEN})",
          lambda: init_gan(copy.deepcopy(dec), copy.deepcopy(disc)),
          lambda st, i: gan_train_step(st, ce, f0m, wave, *gan_d[i])),
@@ -2754,6 +2838,94 @@ def run_resume(card):
          lambda: init_distill(copy.deepcopy(student)),
          lambda st, i: distill_step(st, d_wave, target)),
     )
+
+
+def deterministic_resume(out_path: str) -> None:
+    """Phase 10's deterministic sub-run, in a process of its own
+    (``chip_smoke.py --deterministic-resume OUT``; the parent sets
+    CUBLAS_WORKSPACE_CONFIG, which cuBLAS reads when it starts): the GAN and
+    fine-tuning runs A, A' and B of ``resume_readings`` under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)`` with cuDNN's
+    autotuner off.  Writes the readings, every op that warned and the
+    launches to ``out_path`` as JSON."""
+    import tempfile
+    import warnings
+
+    import torch
+    from alivevc_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    card = card_line()
+    runs = {r[0]: r for r in resume_runs()}
+    report = {}
+    reset_launches()
+    with warnings.catch_warnings(record=True) as caught, tempfile.TemporaryDirectory() as tmp:
+        warnings.simplefilter("always")
+        for trainer in DETERMINISTIC_TRAINERS:
+            _, label, fresh, step = runs[trainer]
+            t0 = time.perf_counter()
+            report[trainer] = resume_readings(trainer, f"{label}, deterministic", fresh, step,
+                                              f"{tmp}/{trainer}.ckpt", card, control=False)
+            report[trainer]["s"] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+    alert = " does not have a deterministic implementation"
+    report["warned"] = sorted({str(w.message).split(alert)[0] for w in caught if alert in str(w.message)})
+    report["launches"] = dict(LAUNCHES)
+    with open(out_path, "w") as f:
+        json.dump(report, f)
+
+
+def run_deterministic_resume(card) -> dict:
+    """Phase 10's deterministic sub-run (``deterministic_resume``) as a child
+    process, so that CUBLAS_WORKSPACE_CONFIG and the deterministic mode
+    touch no other phase.  With no op warned, A' and B must equal A to
+    DETERMINISTIC_TOL; where ops warned, they are printed and B keeps its
+    RESUME_TOL gate."""
+    import os
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "deterministic.json")
+        sys.stdout.flush()
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), DETERMINISTIC_FLAG, out],
+                              env={**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"},
+                              timeout=DETERMINISTIC_TIMEOUT_S)
+        r = {"s": time.perf_counter() - t0}
+        need(proc.returncode == 0 and os.path.exists(out),
+             f"phase 10's deterministic sub-run exited {proc.returncode}")
+        with open(out) as f:
+            r.update(json.load(f))
+    print(f"resume deterministic [{card}]: {r['s']:.1f} s (a process of its own); ops that warned "
+          f"under torch.use_deterministic_algorithms(True, warn_only=True): "
+          f"{r['warned'] or 'none'}; launches {r['launches']}")
+    for trainer in DETERMINISTIC_TRAINERS:
+        repeat, resumed = r[trainer]["repeat"]["rel_err"], r[trainer]["resumed"]["rel_err"]
+        if r["warned"]:
+            need(resumed <= RESUME_TOL[trainer],
+                 f"deterministic {trainer}: B vs A {resumed} > {RESUME_TOL[trainer]}")
+        else:
+            need(max(repeat, resumed) <= DETERMINISTIC_TOL,
+                 f"deterministic {trainer}: A' vs A {repeat}, B vs A {resumed} > {DETERMINISTIC_TOL}")
+    return r
+
+
+def run_resume(card):
+    """Phase 10: the four trainers' runs resumed through the JAX package's
+    ``.ckpt`` layout at full width, float32 without TF32, then the
+    deterministic sub-run; counters zeroed before the runs and read after.
+    Returns (launches, the report)."""
+    import tempfile
+
+    import torch
+    from alivevc_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    t_phase = time.perf_counter()
+    report = {}
+    runs = resume_runs()
     total = {k: 0 for k in LAUNCHES}
     with tempfile.TemporaryDirectory() as tmp:
         for trainer, label, fresh, step in runs:
@@ -2769,6 +2941,11 @@ def run_resume(card):
             print(f"resume {label}: {r['s']:.1f} s, launches {r['launches']} [{card}]")
             report[trainer] = r
             torch.cuda.empty_cache()
+    del runs
+    torch.cuda.empty_cache()
+    report["deterministic"] = run_deterministic_resume(card)
+    for k in total:
+        total[k] += report["deterministic"]["launches"][k]
     print(f"resume launches: {total}")
     need(all(total[k] > 0 for k in RESUME_KERNELS), f"phase 10: a kernel was not launched: {total}")
     elapsed = time.perf_counter() - t_phase
@@ -2779,12 +2956,154 @@ def run_resume(card):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the CLIs' default chain (the JAX package's .ckpt names) at full width
+# ---------------------------------------------------------------------------
+
+PHASE11_LIMIT_S = 60.0
+CHAIN_KERNELS = ("stft", "filter_level", "oscillator", "knn")
+
+
+def state_digest(sd) -> str:
+    """sha256 over a state dict's names and float32 bytes, in key order
+    (tensors on any device, or numpy arrays)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    h = hashlib.sha256()
+    for k in sorted(sd):
+        v = sd[k].detach().cpu().numpy() if isinstance(sd[k], torch.Tensor) else sd[k]
+        h.update(k.encode())
+        h.update(np.ascontiguousarray(v, np.float32).tobytes())
+    return h.hexdigest()
+
+
+@contextlib.contextmanager
+def models_built(module):
+    """Record (kind, path, ``state_digest``) of every model that a CLI module
+    builds through ``load_params_or_init`` in the block."""
+    from alivevc_tpu_torch.compat.torch_import import load_params_or_init
+
+    built = []
+
+    def record(path, kind, device):
+        m = load_params_or_init(path, kind, device)
+        built.append((kind, path, state_digest(m.state_dict())))
+        return m
+
+    module.load_params_or_init = record
+    try:
+        yield built
+    finally:
+        module.load_params_or_init = load_params_or_init
+
+
+def run_cli_chain(card):
+    """Phase 11: the six CLIs one after another on their default file names
+    (the JAX package's ``.ckpt``) in a temporary working directory, at full
+    width: ``train_content_encoder --wavlm-checkpoint`` (phase 9's seed-drawn
+    teacher saved as a local ``.pt``; 2 steps at 1 x 65 536),
+    ``train_f0_estimator`` (2 steps at 1 x 65 536), ``generate_voice_library``,
+    ``train_decoder`` (2 steps at 1 x 38 400), ``fine_tune -dep gan_state.ckpt
+    -disp gan_state.ckpt --max-step 2`` (the one gap the JAX defaults leave)
+    and ``inference`` on one 10 s file.  Every model a stage builds from a
+    file must be the file an earlier stage wrote (state-dict sha256), and no
+    stage may build a seed-0 model where a file should be; counters zeroed
+    before each stage and read after.  Returns (launches, the report)."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from alivevc_tpu_torch.cli import (fine_tune, generate_voice_library, inference,
+                                       train_content_encoder, train_decoder, train_f0_estimator)
+    from alivevc_tpu_torch.compat.torch_import import reference_state
+    from alivevc_tpu_torch.io.audio import read_wav, write_wav
+    from alivevc_tpu_torch.kernels import LAUNCHES, reset_launches
+    from alivevc_tpu_torch.models.wavlm import WavLMConfig, seeded_state
+
+    t_phase = time.perf_counter()
+    total = {k: 0 for k in LAUNCHES}
+    report = {}
+    here = os.getcwd()
+    ce = ("content_encoder", "content_encoder.ckpt")
+    f0 = ("f0_estimator", "f0_estimator.ckpt")
+    stages = (
+        ("train_content_encoder", train_content_encoder,
+         ["data", "--wavlm-checkpoint", "wavlm.pt", "-e", "1", "-b", "1"], ()),
+        ("train_f0_estimator", train_f0_estimator, ["data", "-e", "1", "-b", "1"], ()),
+        ("generate_voice_library", generate_voice_library, ["data"], (ce,)),
+        ("train_decoder", train_decoder, ["data", "-e", "1", "-b", "1"], (ce, f0)),
+        ("fine_tune", fine_tune, ["data", "-dep", "gan_state.ckpt", "-disp", "gan_state.ckpt", "-e",
+                                  "1", "-b", "1", "--max-step", "2"],
+         (ce, f0, ("decoder", "gan_state.ckpt"), ("discriminator", "gan_state.ckpt"),
+          ("voice_library", "voice_library.ckpt"))),
+        ("inference", inference, ["-t", "data/0.wav"], (ce, f0, ("decoder", "decoder.ckpt"))),
+    )
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            rng = np.random.default_rng(SEED + 70)
+            os.makedirs("data")
+            os.makedirs("inputs")
+            for i in range(2):
+                write_wav(f"data/{i}.wav", request_wave(4.5, rng), 16_000)
+            write_wav("inputs/voice.wav", request_wave(10.0, rng), 16_000)
+            t0 = time.perf_counter()
+            torch.save({k: torch.from_numpy(v) for k, v in seeded_state(WavLMConfig(), SEED).items()},
+                       "wavlm.pt")
+            report["teacher_file_s"] = time.perf_counter() - t0
+            for name, cli, argv, reads in stages:
+                want = {(kind, path): state_digest(reference_state(path, kind)) for kind, path in reads}
+                reset_launches()
+                t0 = time.perf_counter()
+                with models_built(cli) as built:
+                    result = cli.main(argv + ["--device", DEV])
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                got = dict(LAUNCHES)
+                for k in total:
+                    total[k] += got[k]
+                seen = {(kind, path): digest for kind, path, digest in built}
+                need(len(built) == len(seen) and seen == want,
+                     f"phase 11 {name}: built {sorted(seen)}, each from the file an earlier stage "
+                     f"wrote: {[k for k in seen if seen[k] == want.get(k)]}; expected {sorted(want)}")
+                if name == "inference":
+                    written, _ = read_wav("outputs/0_voice.wav")
+                    need(result[0].shape == (160_000,) and written.shape == (1, 160_000)
+                         and bool(np.isfinite(result[0]).all()),
+                         f"inference: output {result[0].shape}, file {written.shape}")
+                elif name != "generate_voice_library":
+                    need(result.step == 2, f"phase 11 {name}: {result.step} steps, expected 2")
+                reads_shown = ", ".join(f"{k} <- {p}" for k, p in reads) or "none (the first run)"
+                print(f"chain {name} [{card}]: {dt:.2f} s wall (files, model builds, data, steps), "
+                      f"launches {got}; models from files, each state-dict sha256 equal to the "
+                      f"file's: {reads_shown}")
+                report[name] = {"s": dt, "launches": got, "models_from_files": len(want)}
+            report["files_mb"] = {f: os.path.getsize(f) / 1e6 for f in sorted(os.listdir(".")) if
+                                  f.endswith(".ckpt")}
+        finally:
+            os.chdir(here)
+    print(f"chain files [{card}]: {', '.join(f'{k} {v:.1f} MB' for k, v in report['files_mb'].items())}")
+    print(f"chain launches: {total}")
+    need(all(total[k] > 0 for k in CHAIN_KERNELS), f"phase 11: a kernel was not launched: {total}")
+    elapsed = time.perf_counter() - t_phase
+    report["phase_s"] = elapsed
+    print(f"chain: phase 11 took {elapsed:.1f} s (<= {PHASE11_LIMIT_S:.0f})")
+    need(elapsed <= PHASE11_LIMIT_S, f"phase 11 took {elapsed:.1f} s > {PHASE11_LIMIT_S}")
+    return total, report
+
+
+# ---------------------------------------------------------------------------
 
 
 REPLACES = {
     "stft": ("alivevc_tpu_torch/csrc/stft.cu", "alivevc_tpu/kernels/stft_pallas.py:77"),
     "knn": ("alivevc_tpu_torch/csrc/knn.cu",
-            "alivevc_tpu/kernels/knn_twopass.py:331 (+ :344, :372, :395, :195; knn_pallas.py:331)"),
+            "alivevc_tpu/kernels/knn_twopass.py:331 (+ :344, :395; knn_pallas.py:331)"),
+    "knn_merge": ("alivevc_tpu_torch/csrc/knn.cu (knn_merge_kernel)",
+                  "alivevc_tpu/kernels/knn_twopass.py:372 (_merge_packed_kernel; + :195 _merge_exact)"),
     "oscillator": ("alivevc_tpu_torch/csrc/oscillator.cu",
                    "alivevc_tpu/kernels/oscillator_pallas.py:229"),
     "filter_level": ("alivevc_tpu_torch/csrc/filter.cu", "alivevc_tpu/kernels/filter_pallas.py:771"),
@@ -2802,11 +3121,11 @@ def kernels_line(rows, launches):
     packed kNN at the 100 352-row library); every measured variant, the
     streaming hop's and the training Functions' included, is listed under 'variants'.  Launches
     are summed over the paths driven (phases 3, 4 with both ranks, 5, 6, 7 with both ranks, 8, 9,
-    10)."""
+    10 with its deterministic sub-run, 11)."""
     out = []
     for name, (source, replaces) in REPLACES.items():
         mine = [r for r in rows if r["name"] == name]
-        if name == "knn":
+        if name in ("knn", "knn_merge"):
             main = [r for r in mine if r["variant"].endswith(f"{LIB_ROWS} x 768 default")]
         elif name == "knn_packed":
             main = [r for r in mine if f" {LIB_ROWS} x 768" in r["variant"]]
@@ -2859,6 +3178,9 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here ({e})", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == [DETERMINISTIC_FLAG]:
+        deterministic_resume(sys.argv[2])
+        return 0
     from alivevc_tpu_torch.config import ContentEncoderConfig, DecoderConfig, F0EstimatorConfig
     from alivevc_tpu_torch.kernels import LAUNCHES, _lib, build_all, reset_launches
     from alivevc_tpu_torch.models.content_encoder import ContentEncoder
@@ -2895,6 +3217,11 @@ def main() -> int:
         rows.append(check_knn(gen, shard, precision, valid_rows=shard - 1))
     rows.append(check_knn(gen, 512, "highest", valid_rows=509))
     rows.append(check_knn(gen, LIB_ROWS, "high", penalty=True))
+    merge_gen = torch.Generator(device="cuda").manual_seed(SEED + 7)   # leaves `gen` as it was
+    for precision in ("default", "high"):
+        rows.append(check_knn_merge(merge_gen, LIB_ROWS, precision))
+    rows.append(check_knn_merge(merge_gen, 887, "high", ls=24, suffix=" (hop)"))
+    rows.append(check_knn_merge(merge_gen, shard, "highest", valid_rows=shard - 1))
     for lib_rows in (512, LIB_ROWS):
         rows.append(check_knn(gen, lib_rows, "default", extraction="packed"))
     rows.append(check_oscillator(gen))
@@ -2960,9 +3287,15 @@ def main() -> int:
         resume_launches, resume = run_resume(card)
     print(f"phase 10 done at {time.perf_counter() - t_start:.1f} s; report {json.dumps(resume)}")
 
+    # phase 11
+    torch.cuda.empty_cache()
+    with torch.enable_grad():
+        chain_launches, chain = run_cli_chain(card)
+    print(f"phase 11 done at {time.perf_counter() - t_start:.1f} s; report {json.dumps(chain)}")
+
     total = {k: launches[k] + sharded_launches[k] + api_launches[k] + rt_launches[k]
              + halo_launches[k] + train_launches[k] + distill_launches[k] + resume_launches[k]
-             for k in launches}
+             + chain_launches[k] for k in launches}
     print(json.dumps(kernels_line(rows, total)))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

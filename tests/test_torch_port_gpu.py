@@ -1135,6 +1135,54 @@ def test_gan_resume_through_a_ckpt_on_card(tmp_path):
 
 
 @pytest.mark.gpu
+def test_gan_resume_is_bit_equal_under_deterministic_mode_on_card(tmp_path, monkeypatch):
+    """Under ``torch.use_deterministic_algorithms(True, warn_only=True)``
+    (cuDNN's autotuner off, CUBLAS_WORKSPACE_CONFIG=:4096:8): no op warns,
+    3 GAN steps at the small widths repeat bit for bit (A' = A), and 2
+    steps, the ``.ckpt``, fresh modules and optimizers from it and 1 step
+    give A's bits too (B = A), where without the mode cuDNN's weight
+    gradients move A' and B by up to ~5e-3 (chip_smoke.py phase 10)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; on the card run this file with --noconftest -m gpu")
+    import copy
+    import warnings
+
+    from alivevc_tpu_torch.compat import jax_train_state as jts
+    from alivevc_tpu_torch.train.gan import gan_train_step, init_gan
+
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            ce, f0m, dec, disc, wave, draws = _small_gan_run(torch.Generator().manual_seed(2))
+
+            def run(state, lo, hi):
+                for i in range(lo, hi):
+                    gan_train_step(state, ce, f0m, wave, *draws[i])
+                return _state_tensors(state)
+
+            a = run(init_gan(copy.deepcopy(dec), copy.deepcopy(disc)), 0, 3)
+            again = run(init_gan(copy.deepcopy(dec), copy.deepcopy(disc)), 0, 3)
+            state = init_gan(copy.deepcopy(dec), copy.deepcopy(disc))
+            run(state, 0, 2)
+            path = str(tmp_path / "gan.ckpt")
+            jts.write(path, state)
+            b = run(jts.read(path, "gan", "cuda"), 2, 3)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.benchmark = benchmark
+    warned = {str(w.message) for w in caught if "deterministic" in str(w.message)}
+    assert not warned, warned
+    for name, v in a.items():
+        assert torch.equal(again[name], v) and torch.equal(b[name], v), name
+
+
+@pytest.mark.gpu
 def test_ckpt_written_on_card_reads_on_cpu_on_card(tmp_path):
     """A GAN state written on the card after a step reads back on the CPU
     with every parameter and moment bit-equal, and written again from the

@@ -182,6 +182,27 @@ def test_knn_3xtf32_split_vs_float64_and_pallas_highest():
     assert same[clear].all()
 
 
+@pytest.mark.parametrize("ls,lr", [(24, 887), (64, 20_000)])
+def test_knn_merge_plain_is_the_top_k_of_the_chunks(ls, lr):
+    """The merge's plain version (``merge_plain``, what ``chip_smoke.py``
+    holds ``knn_merge_kernel`` to) over each chunk's top 4, the chunks as
+    ``chunking`` cuts the library: the top 4 of the whole score matrix,
+    values and indices, ties (scores rounded to 1/64) to the smallest
+    index."""
+    rows, chunks = kknn.chunking(ls, lr)
+    assert chunks == -(-lr // rows) and chunks > 1
+    sims = torch.round(torch.from_numpy(np.random.default_rng(lr).standard_normal((ls, lr))
+                                        .astype(np.float32)) * 64) / 64
+    cand_v, cand_i = [], []
+    for c0 in range(0, lr, rows):
+        v, i = kknn.topk_exact(sims[:, c0:c0 + rows], 4)
+        cand_v.append(v)
+        cand_i.append(i + c0)
+    got_v, got_i = kknn.merge_plain(torch.stack(cand_v, 1), torch.stack(cand_i, 1), 4)
+    want_v, want_i = kknn.topk_exact(sims, 4)
+    assert torch.equal(got_v, want_v) and torch.equal(got_i, want_i)
+
+
 def test_knn_default_within_bf16_licence():
     rng = np.random.default_rng(0)
     src = rng.standard_normal((256, 768)).astype(np.float32)

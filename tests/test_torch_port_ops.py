@@ -60,6 +60,26 @@ def test_spectrogram_and_log_mel():
     assert max_err(tstft.log_mel_spectrogram(t(x)), jstft.log_mel_spectrogram(jnp.asarray(x))) <= 1e-3
 
 
+@pytest.mark.parametrize("length, pad", [(6400, 640), (641, 640), (600, 256), (50, 0)])
+def test_reflect_pad_is_f_pad_reflect(length, pad):
+    """``reflect_pad`` (the flipped edges concatenated, whose backward is
+    deterministic on the card) gives ``F.pad(mode='reflect')``'s values bit
+    for bit, and its gradient to float32 rounding (a sample that both pads
+    reflect sums three terms, perhaps in another order)."""
+    x = torch.from_numpy(np.random.default_rng(length).standard_normal((2, length)).astype(np.float32))
+    g = torch.from_numpy(np.random.default_rng(pad).standard_normal((2, length + 2 * pad))
+                         .astype(np.float32))
+    a, b = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    got = tstft.reflect_pad(a, pad)
+    want = torch.nn.functional.pad(b[:, None, :], (pad, pad), mode="reflect")[:, 0, :]
+    assert torch.equal(got, want)
+    got.backward(g)
+    want.backward(g)
+    assert torch.allclose(a.grad, b.grad, rtol=0, atol=1e-6 * float(b.grad.abs().max()))
+    with pytest.raises(ValueError, match="needs more than"):
+        tstft.reflect_pad(x[:, :pad], pad)
+
+
 def _lin_sd(p):
     sd = {}
     weights.lin_state(sd, "m", p)
