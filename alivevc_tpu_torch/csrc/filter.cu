@@ -14,29 +14,19 @@
 // What bounds it on an H100: operations at the wide levels (C = 256, 64: the
 // six causal convs are 2*5*C*C MACs a sample, 283 GFLOP at C = 256 and 16
 // windows), bytes at the narrow ones (C = 16, 8: one read of the level's
-// input, one write of its output).  Every product runs on the tensor cores
-// as mma.sync with float32 accumulation: bf16 operands (m16n8k16) in bf16
-// storage; 3xTF32 (m16n8k8) in float32 storage, each operand split as
-// hi = cvt.rna.tf32(v), lo = cvt.rna.tf32(v - hi) and lo.hi + hi.lo + hi.hi
-// accumulated (kernels/filter.py:product_3xtf32 emulates it).  A causal tap
-// reads the operand rows shifted by j*d, d = 1, 2, 4 not a multiple of 8, so
-// the A fragments come from ldmatrix (bf16) or 32-bit loads (TF32) at any row
-// address of an operand tile held in shared memory.  The operand is
-// gelu(x) * scale + shift, computed once per element as the block stages it
-// and rounded there to bf16; in float32 the TF32 split happens there too
-// (hi and lo planes) or, where two planes do not fit, as each warp loads a
-// fragment.  The weights are read transposed, [out][(tap, in)].
+// input, one write of its output).  Products run on the tensor cores with
+// float32 accumulation: bf16 operands in bf16 storage; 3xTF32 in float32
+// storage, each operand split as hi = cvt.rna.tf32(v), lo = cvt.rna.tf32(v -
+// hi) and lo.hi + hi.lo + hi.hi accumulated (kernels/filter.py:product_3xtf32
+// emulates it).
 //
-//   filter_wide_kernel    one product or causal conv of a wide level: a block
-//                         owns TM time rows x TN output channels (all of C at
-//                         C = 256 and 64); its operand tile (+ (k-1)*d halo
-//                         rows, reflected at sample 0) is staged once, the
-//                         weights stream through a ring of cp.async stages
-//                         (one barrier a KCH-column slice) or stay resident;
-//                         bias, residual and a coalesced store in the
-//                         epilogue.  A level is 8 launches: up conv (rows of
-//                         [N*L_in, C_in] x [C_in, r*C] are the rows of
-//                         [N, L, C]), 1x1, six convs.
+//   filter_wide_kernel    one product or causal conv of a wide level (any C
+//                         but the narrow kernel's), on wgmma.  A level is 8
+//                         launches (up conv: rows of [N*L_in, C_in] x
+//                         [C_in, r*C] are the rows of [N, L, C]; 1x1; six
+//                         convs) after one filter_wide_weights_kernel launch
+//                         that writes every weight of the level K-major,
+//                         [out][(tap, in)] (float32: its TF32 hi and lo).
 //   filter_narrow_kernel  a whole narrow level (C = 8 or 16) in one launch:
 //                         for each tile of T output samples plus the level's
 //                         lookback (56 samples: 2*(k-1)*(1+2+4)) a block
@@ -45,11 +35,65 @@
 //                         whose history the tile cut feed only rows it does
 //                         not write; a tile whose rows start at sample 0
 //                         reflects each conv's head in place, so no second
-//                         pass is needed.
+//                         pass is needed.  Its products are mma.sync.
+//
+// The wide kernel.  A block owns a tile of TM = 64 or 128 time rows (one or
+// two consumer warpgroups, 64 rows each) x TN = 32-256 output columns and
+// walks K in chunks of 128 bytes of input channels (64 bf16, 32 float32),
+// all taps of a chunk before the next.  Each (chunk, tap) is one wgmma
+// k-slab (4 k-steps):
+//   - A (the operand) from registers: tap j reads the operand rows shifted by
+//     (k-1-j)*d, d = 1, 2, 4 -- not a multiple of the 8-row atom a 128-byte
+//     swizzled descriptor starts on, so A cannot be a shared-memory
+//     descriptor (and one swizzled copy a shift class would stage every
+//     chunk three times).  A chunk is staged once, unswizzled, in rows of 144
+//     bytes (8 ldmatrix rows in distinct banks), and ldmatrix loads each
+//     warp's m16 fragment at any row; float32 splits it into TF32 hi/lo in
+//     registers.
+//   - B (the weights, K-major) from shared memory through a 128-byte
+//     swizzled descriptor: one 2-D TMA box of TN rows x 128 bytes a slab
+//     (float32: the hi and the lo box) into a ring of stages, each with a
+//     full mbarrier (the copy's bytes) and a count of the consumer warps
+//     done with it: the last of them refills it, so that no warp waits for
+//     another.  Two taps are in flight (two register sets of fragments).
+//     Where a block has one column tile and all its slabs fit (C = 64 in
+//     bf16: 40 KB), the weights are loaded once and stay.
+//   - The operand is computed, not copied (gelu(x) * scale + shift, or
+//     round(x_prev + skip)), so TMA cannot bring it in whole: TMA brings the
+//     chunk's raw rows (source rows + halo, the skip, the FiLM frames the
+//     tile interpolates) two chunks ahead, and two warpgroups of their own
+//     (the cooks, registers handed to the consumers by setmaxnreg) compute
+//     the operand into one of two buffers while the consumer warpgroups
+//     multiply the other and write the last tile out.  The grid is
+//     persistent (one wave of blocks walks the tiles).
+//   - Few rows (the streaming hop, N = 1): the plan (kernels/filter.py:
+//     wide_plan) narrows the column tile and splits K over a cluster of 2 or
+//     4 blocks, block s taking chunks [s*chunks/S, (s+1)*chunks/S).  Each
+//     block writes its float32 partial tile to its shared memory; after a
+//     cluster barrier block s reduces rows [s*TM/S, (s+1)*TM/S) of the tile,
+//     reading the S partials through distributed shared memory in rank order
+//     (a fixed order, no atomics: the same bits every call), and runs the
+//     epilogue on them.
+//     (The ring's refill counts are integer atomics; no sum is.)
+//   - Epilogue: each consumer warp writes its accumulators + bias (the bias
+//     row staged in shared memory once a launch), rounded to the storage
+//     type, into its 16 rows of the free operand buffer, then reads them
+//     back a row piece a lane-octet and adds the residual (prefetched into
+//     L2 while the tile multiplies, and each piece's loads issued before its
+//     scratch rows are written; a plain load: it may alias the output, and
+//     each element is read and then written by one thread), rounded again:
+//     global loads and stores of 16 bytes a lane, whole 128-byte row pieces
+//     an instruction, where the accumulator layout gave 8 rows of 16 bytes.
+//   - GELU's erf is a branch-free polynomial (gelu_fast, within 4e-7 of the
+//     exact-erf GELU in float32), the rest of the function exactly that of
+//     kernels/filter.py:filter_level_plain: its bf16 rounding points, the
+//     reflect head, FiLM interpolated from frame rate (align_corners=False).
 
 #include "common.cuh"
 
+#include <algorithm>
 #include <cstdint>
+#include <utility>
 #include <type_traits>
 
 namespace {
@@ -66,15 +110,6 @@ template <bool BF16>
 __host__ __device__ constexpr int ld_of(int n) { return BF16 ? (n % 16 == 0 ? n + 8 : n + 16) : n + 4; }
 __host__ __device__ constexpr int round_up(int a, int b) { return (a + b - 1) / b * b; }
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], unsigned addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
-}
-
 // d += a . b over one m16 x n8 tile: k16 of bf16, or k8 of TF32
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
   asm volatile(
@@ -89,28 +124,6 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
       "{%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-// the 3xTF32 split: x ~ hi + lo, both TF32
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_rna(x);
-  lo = tf32_rna(x - __uint_as_float(hi));
-}
-
-// 16 bytes global -> shared; src_bytes = 0 fills zeros
-__device__ __forceinline__ void cp_async16(unsigned dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // 8 consecutive values (16-byte aligned) <-> float registers
@@ -156,6 +169,28 @@ __device__ __forceinline__ void load2(const float* p, float& a, float& b) {
 }
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+// 16 bytes (8 bf16 or 4 float32 values, 16-byte aligned) <-> float registers
+__device__ __forceinline__ void load16(const __nv_bfloat16* p, float (&v)[8]) { load8(p, v); }
+__device__ __forceinline__ void load16(const float* p, float (&v)[4]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+}
+__device__ __forceinline__ void store16(__nv_bfloat16* p, const float (&v)[8]) { store8(p, v); }
+__device__ __forceinline__ void store16(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+// GELU with a branch-free erf (Abramowitz and Stegun 7.1.26: 1 - t P(t)
+// exp(-a^2), t = 1 / (1 + 0.3275911 a)), within 6e-7 of erf in float32, so
+// within 4e-7 of the exact-erf GELU: about one rounding of float32, in 14
+// instructions where erff takes a branch a lane
+__device__ __forceinline__ float gelu_fast(float x) {
+  const float z = x * 0.70710678118654752f, a = fabsf(z);
+  const float t = __fdividef(1.0f, fmaf(0.3275911f, a, 1.0f));
+  const float y = t * fmaf(t, fmaf(t, fmaf(t, fmaf(t, 1.061405429f, -1.453152027f), 1.421413741f), -0.284496736f),
+                           0.254829592f);
+  const float e = copysignf(1.0f - y * __expf(-a * a), z);
+  return 0.5f * x * (1.0f + e);
 }
 // round to the storage type and back (bf16), or nothing (float32)
 template <typename T>
@@ -211,7 +246,7 @@ __device__ __forceinline__ Taps2 film_taps(int s, int r, int F) {
 }
 
 // ---------------------------------------------------------------------------
-// One warp's share of a product from shared memory:
+// The narrow kernel's products: one warp's share from shared memory,
 //   acc[WM][WN] (m16 x n8 tiles) += A . B over k-groups [kg0, kg1)
 // A k-group is 8 consecutive rows of B, i.e. 8 input channels of one tap:
 // k-group kg is tap kg / cg, channels 8 (kg % cg) ..; its A rows for the
@@ -221,9 +256,7 @@ __device__ __forceinline__ Taps2 film_taps(int s, int r, int F) {
 // 8 (kg - kg0) ...  bf16 takes k-groups in pairs (k16); an odd last group
 // pairs with the zero block, and its B columns must hold zeros.  TF32:
 // SPLIT reads hi and lo planes (a_lo), else float32 values split here.
-// B fragments are 32-bit shared loads on this layout (ldmatrix on the B
-// tile, in either orientation, faulted on the card with an illegal address
-// at some tile shapes, where plain loads of the same addresses ran clean).
+// B fragments are 32-bit shared loads on this layout.
 // ---------------------------------------------------------------------------
 template <bool BF16, bool SPLIT, int WM, int WN>
 __device__ __forceinline__ void warp_mma(float (&acc)[WM][WN][4], const void* a, const float* a_lo,
@@ -293,328 +326,6 @@ __device__ __forceinline__ void warp_mma(float (&acc)[WM][WN][4], const void* a,
         }
       }
     }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Wide levels: one product or causal conv a launch
-// ---------------------------------------------------------------------------
-
-struct WideArgs {
-  const void* a;      // operand source: [rows, cin] (products) or [n, L, cin] (convs)
-  const void* a2;     // added to a before the product (the up conv's skip), or null
-  const void* w;      // [N, taps * cin]: out x (tap, in)
-  const void* bias;   // column c takes bias[c % nbias]
-  const void* res;    // residual with out's layout, or null (may alias out)
-  void* out;          // [rows, N] or [n, L, N]
-  const void* film;   // [n, F, film_ld], this conv's scale at film_off, shift at film_off + cin
-  int L, cin, N, taps, d, nbias, F, r, film_ld, film_off;   // r = L / F
-  int tiles, total;   // row tiles a window, row tiles in all
-};
-
-// Grid (row tiles, column tiles).  A block stages its operand tile once:
-// FILM: rows t0 - halo .. t0 + TM of window n as gelu(x) * scale + shift
-// (row -s read for s < 0: the reflect pad); else rows of a (+ a2) rounded to
-// the storage type.  bf16 keeps one plane; float32 keeps TF32 hi and lo
-// planes (PLANES) or one float32 plane.  The weights' KCH-column slices
-// stream through a ring of STAGES cp.async stages, one barrier a slice (a
-// ring with a full and an empty mbarrier a stage in place of that barrier
-// ran 3-9 % slower at C = 256 on the H100: PERF.md §6).
-// Where every slice fits in the ring (C = 64: 320 weights a channel) the
-// weights are loaded once and stay: the grid is then one wave of blocks
-// that each walk over row tiles, with one barrier a tile.  Warp (wm, wn)
-// owns rows 16 WM wm .. and columns 8 WN wn .. of the TM x TN tile.
-template <bool BF16, int TM, int TN, int WARPS_M, int WARPS_N, int KCH, int STAGES, int PLANES, bool FILM>
-__global__ void __launch_bounds__(WARPS_M * WARPS_N * 32, 1)
-filter_wide_kernel(const WideArgs p) {
-  using T = typename std::conditional<BF16, __nv_bfloat16, float>::type;
-  constexpr bool SPLIT = !BF16 && PLANES;   // TF32 hi and lo planes, else one float32 plane
-  constexpr int THREADS = WARPS_M * WARPS_N * 32;
-  constexpr int WM = TM / (16 * WARPS_M), WN = TN / (8 * WARPS_N);
-  constexpr int LDB = ld_of<BF16>(KCH);   // ring rows: output channels, KCH weights each
-  constexpr int VEC = 16 / sizeof(T);
-  static_assert(WM * 16 * WARPS_M == TM && WN * 8 * WARPS_N == TN && KCH % 16 == 0, "tile shape");
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int halo = (p.taps - 1) * p.d;
-  const int n0 = blockIdx.y * TN;
-  const int lda = ld_of<BF16>(p.cin);
-  const int rows = TM + halo;
-  const int krows = p.taps * p.cin, kg_total = krows / 8, cg = p.cin / 8;
-  const int nchunks = (krows + KCH - 1) / KCH;
-  const T* w = static_cast<const T*>(p.w);
-  T* ring = reinterpret_cast<T*>(smem + ZERO_BYTES);
-  T* plane = ring + (size_t)STAGES * TN * LDB;
-  float* plane_lo = reinterpret_cast<float*>(plane) + (size_t)rows * lda;   // SPLIT only
-
-  if (tid < ZERO_BYTES / 4) reinterpret_cast<float*>(smem)[tid] = 0.f;
-
-  // weight slice c (columns c KCH .. of the [N, taps * cin] weights, rows
-  // n0 .. n0 + TN) -> its stage; columns past the weights and rows past N
-  // are zeros
-  auto load_b = [&](int c) {
-    if (c < nchunks) {
-      T* dst = ring + (size_t)(c % STAGES) * TN * LDB;
-      constexpr int PER_ROW = KCH / VEC;
-      for (int e = tid; e < TN * PER_ROW; e += THREADS) {
-        const int nn = e / PER_ROW, kv = (e - nn * PER_ROW) * VEC;
-        const int k = c * KCH + kv;
-        const bool ok = k < krows && n0 + nn < p.N;
-        cp_async16(smem_u32(dst + nn * LDB + kv), ok ? w + (size_t)(n0 + nn) * krows + k : w, ok ? 16 : 0);
-      }
-    }
-    cp_async_commit();
-  };
-  const bool resident = nchunks <= STAGES;
-  for (int s = 0; s < (resident ? nchunks : STAGES - 1); ++s) load_b(s);
-  const int wm = warp / WARPS_N, wn = warp - wm * WARPS_N;
-  const int g = lane >> 2, t4 = lane & 3;
-  const T* bias = static_cast<const T*>(p.bias);
-  const T* res = static_cast<const T*>(p.res);
-  T* out = static_cast<T*>(p.out);
-  // the epilogue goes through shared memory (the operand plane, free once
-  // the products are done) where the TM x TN tile fits there
-  constexpr int LDO = ld_of<BF16>(TN);
-  const bool staged_out =
-      (size_t)TM * LDO * sizeof(T) <= (size_t)rows * lda * (BF16 ? 2 : PLANES ? 8 : 4);
-
-  for (int tile = blockIdx.x; tile < p.total; tile += gridDim.x) {
-  const int n = tile / p.tiles;
-  const int t0 = (tile - n * p.tiles) * TM;
-  if (tile != (int)blockIdx.x) __syncthreads();   // the last tile's products are done with the plane
-
-  // the operand tile, transformed once per element; UNR tasks (8 values of a
-  // row) a thread put their global loads in flight together
-  const T* src = static_cast<const T*>(p.a);
-  const T* src2 = static_cast<const T*>(p.a2);
-  const T* film = static_cast<const T*>(p.film) + (size_t)n * p.F * p.film_ld + p.film_off;
-  const int vpr = p.cin / 8, tasks = rows * vpr;
-  constexpr int UNR = 2;   // (4 spilled registers at C = 64 and gained nothing measurable)
-  for (int e0 = tid; e0 < tasks; e0 += UNR * THREADS) {
-    Raw8<T> rx[UNR], rs[UNR][2], rh[UNR][2];
-    float wl[UNR], wh[UNR];
-    bool valid[UNR];
-#pragma unroll
-    for (int k = 0; k < UNR; ++k) {
-      const int e = e0 + k * THREADS;
-      const int i = e / vpr, c = (e - i * vpr) * 8;
-      if (FILM) {
-        const int s = t0 - halo + i;
-        valid[k] = e < tasks && s < p.L;
-        if (valid[k]) {
-          const int sr = s < 0 ? -s : s;   // the reflect pad
-          rx[k] = ldg8(src + ((size_t)n * p.L + sr) * p.cin + c);
-          const Taps2 tp = film_taps(sr, p.r, p.F);
-          wl[k] = tp.wl;
-          wh[k] = tp.wh;
-          rs[k][0] = ldg8(film + (size_t)tp.lo * p.film_ld + c);
-          rs[k][1] = ldg8(film + (size_t)tp.hi * p.film_ld + c);
-          rh[k][0] = ldg8(film + (size_t)tp.lo * p.film_ld + p.cin + c);
-          rh[k][1] = ldg8(film + (size_t)tp.hi * p.film_ld + p.cin + c);
-        }
-      } else {
-        const long long row = (long long)t0 + i;
-        valid[k] = e < tasks && row < p.L;
-        if (valid[k]) {
-          rx[k] = ldg8(src + (size_t)row * p.cin + c);
-          if (src2 != nullptr) rs[k][0] = ldg8(src2 + (size_t)row * p.cin + c);
-        }
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < UNR; ++k) {
-      const int e = e0 + k * THREADS;
-      if (e >= tasks) break;
-      const int i = e / vpr, c = (e - i * vpr) * 8;
-      float v[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) v[j] = 0.f;
-      if (valid[k]) {
-        unpack8(rx[k], v);
-        if (FILM) {
-          float s0[8], s1[8], h0[8], h1[8];
-          unpack8(rs[k][0], s0); unpack8(rs[k][1], s1);
-          unpack8(rh[k][0], h0); unpack8(rh[k][1], h1);
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-            v[j] = gelu_erf(v[j]) * (s0[j] * wl[k] + s1[j] * wh[k]) + (h0[j] * wl[k] + h1[j] * wh[k]);
-        } else if (src2 != nullptr) {
-          float u[8];
-          unpack8(rs[k][0], u);
-#pragma unroll
-          for (int j = 0; j < 8; ++j) v[j] = round_to<T>(v[j] + u[j]);
-        }
-      }
-      if (!SPLIT) {
-        store8(plane + (size_t)i * lda + c, v);   // bf16: rounds
-      } else {
-        float hi[8], lo[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          uint32_t h, l;
-          split_tf32(v[j], h, l);
-          hi[j] = __uint_as_float(h);
-          lo[j] = __uint_as_float(l);
-        }
-        store8(reinterpret_cast<float*>(plane) + (size_t)i * lda + c, hi);
-        store8(plane_lo + (size_t)i * lda + c, lo);
-      }
-    }
-  }
-
-  float acc[WM][WN][4];
-#pragma unroll
-  for (int mi = 0; mi < WM; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < WN; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-  for (int c = 0; c < nchunks; ++c) {
-    if (resident) {
-      if (c == 0) {
-        if (tile == (int)blockIdx.x) cp_async_wait<0>();
-        __syncthreads();   // the operand tile (and, the first time, the weights) are in place
-      }
-    } else {
-      cp_async_wait<STAGES - 2>();
-      __syncthreads();   // slice c landed; every warp is done with slice c - 1's stage
-      load_b(c + STAGES - 1);
-    }
-    const int kg0 = c * (KCH / 8);
-    warp_mma<BF16, SPLIT, WM, WN>(acc, plane, plane_lo, lda, 16 * WM * wm, p.d, cg, kg0, kg0 + KCH / 8,
-                                 kg_total, ring + (size_t)(c % STAGES) * TN * LDB, LDB, 8 * WN * wn,
-                                 smem);
-  }
-
-  // epilogue: + bias, rounded to the storage type; + residual (rounded again,
-  // as the plain version and the JAX kernel round)
-  float bv[WN][2];
-#pragma unroll
-  for (int ni = 0; ni < WN; ++ni) {
-    const int col = n0 + 8 * (WN * wn + ni) + 2 * t4;
-    bv[ni][0] = col < p.N ? to_f32(bias[col % p.nbias]) : 0.f;
-    bv[ni][1] = col < p.N ? to_f32(bias[(col + 1) % p.nbias]) : 0.f;
-  }
-  // global row of tile row `row`, or -1 past the rows
-  auto out_row = [&](int row) -> long long {
-    const long long t = (long long)t0 + row;
-    if (t >= p.L) return -1;
-    return FILM ? (long long)n * p.L + t : t;
-  };
-  if (staged_out) {
-    T* ot = plane;   // [TM][LDO]
-    __syncthreads();   // every warp is done with the plane
-#pragma unroll
-    for (int mi = 0; mi < WM; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < WN; ++ni)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          store2(ot + (16 * (WM * wm + mi) + g + 8 * h) * LDO + 8 * (WN * wn + ni) + 2 * t4,
-                 acc[mi][ni][2 * h] + bv[ni][0], acc[mi][ni][2 * h + 1] + bv[ni][1]);
-    __syncthreads();
-    constexpr int VPR = TN / 8;
-    for (int e = tid; e < TM * VPR; e += THREADS) {
-      const int row = e / VPR, c = (e - row * VPR) * 8;
-      const long long orow = out_row(row);
-      if (orow < 0 || n0 + c >= p.N) continue;
-      const size_t o = (size_t)orow * p.N + n0 + c;
-      float v[8];
-      load8(ot + row * LDO + c, v);
-      if (res != nullptr) {   // a plain load: res may alias out
-        float u[8];
-        load8(res + o, u);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) v[j] += u[j];
-      }
-      store8(out + o, v);
-    }
-  } else {
-#pragma unroll
-    for (int mi = 0; mi < WM; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < WN; ++ni)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int col = n0 + 8 * (WN * wn + ni) + 2 * t4;
-          const long long orow = out_row(16 * (WM * wm + mi) + g + 8 * h);
-          if (col >= p.N || orow < 0) continue;
-          const size_t o = (size_t)orow * p.N + col;
-          float v0 = round_to<T>(acc[mi][ni][2 * h] + bv[ni][0]);
-          float v1 = round_to<T>(acc[mi][ni][2 * h + 1] + bv[ni][1]);
-          if (res != nullptr) {
-            float r0, r1;
-            load2(res + o, r0, r1);
-            v0 += r0;
-            v1 += r1;
-          }
-          store2(out + o, v0, v1);
-        }
-  }
-  }
-}
-
-template <bool BF16, typename S, bool FILM>
-int launch_wide(WideArgs p, int n, cudaStream_t stream) {
-  using T = typename std::conditional<BF16, __nv_bfloat16, float>::type;
-  constexpr int TM = S::TM, TN = S::TN, WARPS_M = S::WARPS_M, WARPS_N = S::WARPS_N, KCH = S::KCH,
-                STAGES = S::STAGES, PLANES = S::PLANES;
-  auto kernel = filter_wide_kernel<BF16, TM, TN, WARPS_M, WARPS_N, KCH, STAGES, PLANES, FILM>;
-  const int halo = (p.taps - 1) * p.d;
-  const int lda = ld_of<BF16>(p.cin);
-  const size_t smem = ZERO_BYTES + (size_t)STAGES * TN * ld_of<BF16>(KCH) * sizeof(T) +
-                      (size_t)(TM + halo) * lda * (BF16 ? 2 : PLANES ? 8 : 4);
-  if (smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  p.tiles = (p.L + TM - 1) / TM;
-  if ((long long)n * p.tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  p.total = n * p.tiles;
-  int blocks = p.total;
-  if ((p.taps * p.cin + KCH - 1) / KCH <= STAGES) {   // resident weights: one wave of blocks
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, WARPS_M * WARPS_N * 32, smem);
-    blocks = min(blocks, max(1, sms * per_sm));
-  }
-  dim3 grid((unsigned)blocks, (p.N + TN - 1) / TN);
-  kernel<<<grid, WARPS_M * WARPS_N * 32, smem, stream>>>(p);
-  RETURN_LAUNCH_STATUS();
-}
-
-// Tile shapes (TM, TN, WARPS_M, WARPS_N, KCH, STAGES, PLANES): TN = 256 where
-// N is a multiple of 256 (C = 256; the up conv at r * C = 512 and 2560),
-// else TN = 64 with masked columns.  128-row operand tiles; bf16 warps of 64
-// rows, so that each B fragment feeds 4 m16 tiles.  float32 at TN = 256
-// keeps one float32 plane and splits A as it loads fragments (4 warps split
-// each element): TF32 hi/lo planes of 128 rows x 256 channels do not fit
-// beside the ring, and 64-row tiles stream the weights twice as often.  At
-// TN = 64 (C = 64) the ring holds all 320 weights a channel (resident), and
-// float32 keeps hi/lo planes where they fit (C_in <= 128).  To try another
-// shape, edit these and rerun chip_smoke.py (phase 2 times every level).
-template <int TM_, int TN_, int WARPS_M_, int WARPS_N_, int KCH_, int STAGES_, int PLANES_>
-struct Tile {
-  static constexpr int TM = TM_, TN = TN_, WARPS_M = WARPS_M_, WARPS_N = WARPS_N_, KCH = KCH_,
-                       STAGES = STAGES_, PLANES = PLANES_;
-};
-using FILTER_BF16_N256 = Tile<128, 256, 2, 4, 64, 3, 0>;
-using FILTER_BF16_N64 = Tile<128, 64, 2, 2, 64, 5, 0>;
-using FILTER_F32_N256 = Tile<128, 256, 2, 4, 16, 3, 0>;
-using FILTER_F32_N64 = Tile<128, 64, 4, 2, 32, 10, 1>;
-using FILTER_F32_N64_WIDE_CIN = Tile<64, 64, 4, 2, 32, 3, 1>;
-
-template <bool BF16, bool FILM>
-int wide_dispatch(const WideArgs& p, int n, cudaStream_t s) {
-  if (p.N % 256 == 0) {
-    if constexpr (BF16) return launch_wide<true, FILTER_BF16_N256, FILM>(p, n, s);
-    else return launch_wide<false, FILTER_F32_N256, FILM>(p, n, s);
-  }
-  if constexpr (BF16) {
-    return launch_wide<true, FILTER_BF16_N64, FILM>(p, n, s);
-  } else {
-    if (p.cin <= 128) return launch_wide<false, FILTER_F32_N64, FILM>(p, n, s);
-    return launch_wide<false, FILTER_F32_N64_WIDE_CIN, FILM>(p, n, s);
   }
 }
 
@@ -923,29 +634,680 @@ int launch_narrow(NarrowArgs p, int n, cudaStream_t stream) {
 
 bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; }
 
+// ---------------------------------------------------------------------------
+// Wide levels: one product or causal conv a launch, on wgmma (see the header)
+// ---------------------------------------------------------------------------
+
+constexpr int CHUNK_BYTES = 128;               // a K chunk: 128 bytes of input channels (one TMA box row)
+constexpr int A_LD = CHUNK_BYTES + 16;         // bytes a staged operand row (ldmatrix rows in distinct banks)
+constexpr int WIDE_HEAD = 1024;                // mbarriers; the weight ring starts 1024-aligned (swizzle)
+constexpr int WIDE_MAX_STAGES = 16;
+constexpr int WIDE_STREAM_STAGES = 4;          // ring depth where the weights stream
+constexpr int KSTEPS = CHUNK_BYTES / 32;       // 32-byte wgmma k-steps a slab
+constexpr int SMEM_MAX = 232448;
+constexpr int COOK_WGS = 2;                    // warpgroups that cook the operand
+// Registers a cook thread keeps (setmaxnreg) and a consumer takes: 256 x
+// 200 + 256 x 56 = 65 536; at TN = 256 the consumers' 128 accumulators
+// take 216 and the cooks 40 (10 % faster at level 0 in bf16 than 200 / 56,
+// whose consumers spilled; the narrower tiles lose with 216 / 40, whose
+// cooks spill)
+template <int TN> __host__ __device__ constexpr int cook_regs() { return TN == 256 ? 40 : 56; }
+template <int TN> __host__ __device__ constexpr int consumer_regs() { return TN == 256 ? 216 : 200; }
+
+struct WideArgs {
+  const void* bias;   // column c takes bias[c % nbias]
+  const void* res;    // residual with out's layout, or null (may alias out)
+  void* out;          // [L, N] or [n, L, N]
+  int has_a2, has_film;   // the up conv's skip; a conv (else a product)
+  int L, cin, N, taps, d, nbias, F, r, film_off;   // r = L / F; film_off: this conv's scale column
+  int tiles_w, col_tiles, tiles;   // row tiles a window, column tiles, tiles in all
+  int split, chunks;               // blocks of a cluster sharing a tile's K; K chunks of cin
+  int stages, resident;            // ring depth; 1 when the weights are loaded once
+  int a_buf, raw_buf, raw_a2, raw_f, fr_box;   // shared-memory layout (bytes); FiLM frames a box
+  int bias_len;                                // floats of the bias row (N, rounded up)
+};
+
+// d = A . B (+ d where sd) over one k-step for the warpgroup's 64 rows x TN
+// columns (bf16; TN = 256 as two n128 halves of the B box, 16 KB apart)
+template <int TN>
+__device__ __forceinline__ void wgmma_bf16_tile(float (&acc)[TN / 2], const uint32_t (&a)[4], unsigned b, int sd) {
+  if constexpr (TN == 256) {
+    wgmma_rs_bf16<128>(*reinterpret_cast<float(*)[64]>(&acc[0]), a, desc_sw128(b), sd);
+    wgmma_rs_bf16<128>(*reinterpret_cast<float(*)[64]>(&acc[64]), a, desc_sw128(b + 128 * CHUNK_BYTES), sd);
+  } else {
+    wgmma_rs_bf16<TN>(acc, a, desc_sw128(b), sd);
+  }
+}
+
+// Persistent grid (blocks, split): block (x, s) walks tiles x, x + gridDim.x,
+// ... (column tile fastest; a conv's row tiles do not straddle windows) and
+// takes chunks [s*chunks/split, (s+1)*chunks/split) of each.  Its work is a
+// sequence of items (tile, chunk).  Warp roles: warpgroups 0 .. wgs-1
+// consume (wgmma and the epilogue); the last COOK_WGS warpgroups cook.  Item
+// i's raw rows (the operand source, the up conv's skip, the FiLM frames
+// the tile's rows interpolate) arrive by TMA in raw buffer i & 1, issued
+// two items ahead by the first cook thread; the cooks compute the operand
+// into operand buffer i & 1 and signal afull; the consumers multiply it tap
+// by tap against the weight ring and release the buffer (aempty) after the
+// item's last tap.  So the cooking of items i + 1 and i + 2 overlaps the
+// products and the epilogue of item i.  Registers move from the cooks to
+// the consumers (setmaxnreg).  Shared memory: the mbarriers, the weight
+// ring, two operand buffers, two raw buffers, the bias row, and with a
+// split the partial tile.
+template <bool BF16, int TN>
+__global__ void __launch_bounds__(128 * (2 + COOK_WGS), 1)
+filter_wide_kernel(const __grid_constant__ CUtensorMap w_hi, const __grid_constant__ CUtensorMap w_lo,
+                   const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CUtensorMap m_a2,
+                   const __grid_constant__ CUtensorMap m_f, const WideArgs p) {
+  using T = typename std::conditional<BF16, __nv_bfloat16, float>::type;
+  constexpr int CH = CHUNK_BYTES / (int)sizeof(T);   // channels a chunk: 64 bf16, 32 float32
+  constexpr int E = 16 / (int)sizeof(T);             // values in 16 bytes
+  constexpr int VPR = CHUNK_BYTES / 16;              // 16-byte vectors a chunk row
+  constexpr int SLAB = TN * CHUNK_BYTES;             // one weight box: TN output channels x 128 bytes
+  constexpr int STAGE = SLAB * (BF16 ? 1 : 2);       // float32: the TF32 hi box, then the lo box
+  constexpr int LDP = TN + 8;                        // row stride of the split's partial tile (floats)
+  constexpr int COOKS = 128 * COOK_WGS;
+  static_assert(TN % 32 == 0 && TN <= (BF16 ? 256 : 128), "column tile");
+  extern __shared__ unsigned char smem_raw[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wgs = (int)blockDim.x / 128 - COOK_WGS;  // consumer warpgroups
+  const int tm = 64 * wgs;                           // 64 rows a consumer warpgroup
+  const int consumers = 128 * wgs;
+  const unsigned raw_addr = smem_u32(smem_raw);
+  const unsigned base = (raw_addr + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw_addr);
+  // mbarriers: the weight ring's full; raw full, operand full and empty, two each
+  const unsigned full = base, rawfull = base + 8 * WIDE_MAX_STAGES;
+  const unsigned afull = rawfull + 16, aempty = rawfull + 32;
+  // consumer warps done with each stage (the ring's releases)
+  unsigned* released = reinterpret_cast<unsigned*>(smem + 512);
+  const unsigned ring = base + WIDE_HEAD;
+  unsigned char* abuf = smem + WIDE_HEAD + p.stages * STAGE;
+  unsigned char* rawb = abuf + 2 * p.a_buf;
+  float* bias_s = reinterpret_cast<float*>(rawb + 2 * p.raw_buf);   // [N]: bias[c % nbias]
+  float* part = bias_s + p.bias_len;                                 // split > 1: [tm][LDP]
+
+  const int rank = p.split > 1 ? (int)cluster_rank() : 0;
+  const int c_begin = rank * p.chunks / p.split;
+  const int my_chunks = (rank + 1) * p.chunks / p.split - c_begin;
+  const int halo = (p.taps - 1) * p.d, rows = tm + halo;
+  const int my_tiles = (p.tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  const int items = my_tiles * my_chunks;
+  const int total_steps = items * p.taps;            // weight slabs, one an (item, tap)
+
+  struct Where {
+    int n, t0, n0, chunk;
+  };
+  auto where = [&](int item) {
+    const int tile = (int)blockIdx.x + (item / my_chunks) * (int)gridDim.x;
+    const int rt = tile / p.col_tiles, ct = tile - rt * p.col_tiles;
+    const int n = rt / p.tiles_w;
+    return Where{n, (rt - n * p.tiles_w) * tm, ct * TN, c_begin + item % my_chunks};
+  };
+  // the first FiLM frame of a tile's box: every frame its rows (t0 - halo ..
+  // t0 + tm, or 0 .. halo reflected) interpolate lies in [fb, fb + fr_box)
+  auto film_base = [&](int t0) { return max(0, min(max(t0 - halo, 0) / p.r - 1, p.F - p.fr_box)); };
+
+  // weight slab `step` (its item's chunk, tap step % taps) -> its stage
+  auto fetch = [&](int step) {
+    const int slot = p.resident ? step : step % p.stages;
+    const Where w = where(step / p.taps);
+    const int x = (step % p.taps) * p.cin + w.chunk * CH;
+    const unsigned bar = full + 8 * slot, st = ring + slot * STAGE;
+    mbar_expect_tx(bar, STAGE);
+    tma_load(st, w_hi, x, w.n0, bar);
+    if (!BF16) tma_load(st + SLAB, w_lo, x, w.n0, bar);
+  };
+  // item's raw rows -> raw buffer item & 1: the operand source's rows
+  // t0 - halo .. t0 + tm of the chunk's channels (rows before the window's
+  // first are another window's or zeros, and are read only reflected; rows
+  // past the tensor are zeros), the skip's rows, the FiLM frames (scale box,
+  // then shift box)
+  auto fetch_raw = [&](int item) {
+    const Where w = where(item);
+    const unsigned bar = rawfull + 8 * (item & 1), dst = smem_u32(rawb) + (item & 1) * p.raw_buf;
+    const int col = w.chunk * CH;
+    mbar_expect_tx(bar, (rows + (p.has_a2 ? tm : 0) + (p.has_film ? 2 * p.fr_box : 0)) * CHUNK_BYTES);
+    tma_load(dst, m_x, col, w.n * p.L + w.t0 - halo, bar);
+    if (p.has_a2) tma_load(dst + p.raw_a2, m_a2, col, w.t0, bar);
+    if (p.has_film) {
+      const int fy = w.n * p.F + film_base(w.t0);
+      tma_load(dst + p.raw_f, m_f, p.film_off + col, fy, bar);
+      tma_load(dst + p.raw_f + p.fr_box * CHUNK_BYTES, m_f, p.film_off + p.cin + col, fy, bar);
+    }
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      released[s] = 0;
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(rawfull + 8 * b, 1);
+      mbar_init(afull + 8 * b, COOKS / 32);
+      mbar_init(aempty + 8 * b, consumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int c = tid; c < p.N; c += blockDim.x) bias_s[c] = to_f32(static_cast<const T*>(p.bias)[c % p.nbias]);
+  __syncthreads();   // the barriers are initialised, the bias is in place
+
+  if (tid >= consumers) {
+    // ---- the cooks -------------------------------------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(cook_regs<TN>()));
+    const int ct = tid - consumers;
+    if (ct == 0) {
+      fetch_raw(0);
+      if (items > 1) fetch_raw(1);
+    }
+    for (int item = 0; item < items; ++item) {
+      const int b = item & 1, k = item % my_chunks;
+      const Where w = where(item);
+      if (item >= 2) mbar_wait(aempty + 8 * b, (unsigned)(((item >> 1) - 1) & 1));   // item - 2 is done
+      mbar_wait(rawfull + 8 * b, (unsigned)((item >> 1) & 1));
+      // raw -> operand: gelu(x) * scale + shift (row -s takes sample s: the
+      // reflect pad), or round(a + skip); rows past L and channels past cin
+      // are zeros.  A task is 16 bytes of a row.
+      const T* raw = reinterpret_cast<const T*>(rawb + b * p.raw_buf);
+      const T* fs = reinterpret_cast<const T*>(rawb + b * p.raw_buf + p.raw_f);
+      const T* fh = fs + p.fr_box * CH;
+      const T* ra2 = reinterpret_cast<const T*>(rawb + b * p.raw_buf + p.raw_a2);
+      T* dst = reinterpret_cast<T*>(abuf + b * p.a_buf);
+      const int fb = p.has_film ? film_base(w.t0) : 0;
+      for (int e = ct; e < rows * VPR; e += COOKS) {
+        const int i = e / VPR, v = e - i * VPR, c = w.chunk * CH + E * v;
+        float x[E];
+#pragma unroll
+        for (int j = 0; j < E; ++j) x[j] = 0.f;
+        if (c < p.cin) {
+          if (p.has_film) {
+            const int s = w.t0 - halo + i;
+            if (s < p.L) {
+              const int sr = s < 0 ? -s : s;
+              const Taps2 tp = film_taps(sr, p.r, p.F);
+              float s0[E], s1[E], h0[E], h1[E];
+              load16(raw + (sr - (w.t0 - halo)) * CH + E * v, x);
+              load16(fs + (tp.lo - fb) * CH + E * v, s0);
+              load16(fs + (tp.hi - fb) * CH + E * v, s1);
+              load16(fh + (tp.lo - fb) * CH + E * v, h0);
+              load16(fh + (tp.hi - fb) * CH + E * v, h1);
+#pragma unroll
+              for (int j = 0; j < E; ++j)
+                x[j] = gelu_fast(x[j]) * (s0[j] * tp.wl + s1[j] * tp.wh) + (h0[j] * tp.wl + h1[j] * tp.wh);
+            }
+          } else if (w.t0 + i < p.L) {
+            load16(raw + i * CH + E * v, x);
+            if (p.has_a2) {
+              float u[E];
+              load16(ra2 + i * CH + E * v, u);
+#pragma unroll
+              for (int j = 0; j < E; ++j) x[j] = round_to<T>(x[j] + u[j]);
+            }
+          }
+        }
+        store16(dst + i * (A_LD / (int)sizeof(T)) + E * v, x);   // bf16: rounds
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(afull + 8 * b);   // this warp's share of the operand is written
+      // every cook is done with raw buffer b: item + 2's rows go there
+      asm volatile("bar.sync 1, %0;\n" ::"n"(COOKS) : "memory");
+      if (ct == 0 && item + 2 < items) {
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        fetch_raw(item + 2);
+      }
+      if (p.split > 1 && k == my_chunks - 1) {   // the consumers' two cluster barriers of the tile
+        cluster_sync();
+        cluster_sync();
+      }
+    }
+    return;
+  }
+
+  // ---- the consumers -----------------------------------------------------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(consumer_regs<TN>()));
+  const T* res = static_cast<const T*>(p.res);
+  T* out = static_cast<T*>(p.out);
+  if (tid == 0) {
+    const int first = p.resident ? my_chunks * p.taps : min(p.stages, total_steps);
+    for (int s = 0; s < first; ++s) fetch(s);
+  }
+  // output pair (tile row `row`, absolute column col, col + 1; tile column
+  // c): + bias, rounded; + residual, rounded again
+  auto store_pair = [&](const Where& w, const float* bs, int row, int col, int c, float v0, float v1) {
+    const int t = w.t0 + row;
+    if (t >= p.L || col >= p.N) return;
+    const size_t o = ((size_t)w.n * p.L + t) * p.N + col;
+    v0 = round_to<T>(v0 + bs[c]);
+    v1 = round_to<T>(v1 + bs[c + 1]);
+    if (res != nullptr) {
+      float r0, r1;
+      load2(res + o, r0, r1);
+      v0 += r0;
+      v1 += r1;
+    }
+    store2(out + o, v0, v1);
+  };
+  // this thread's fragment rows: the warp's 16 rows of its warpgroup's 64
+  const int wrow = (warp >> 2) * 64 + (warp & 3) * 16;
+  const int g = lane >> 2, t4 = lane & 3;
+  // A tile's first wgmma overwrites the accumulators (scale-d 0): no
+  // other instruction writes them while products are in flight, which would
+  // make ptxas serialize the wgmmas
+  float acc[TN / 2];
+#pragma unroll
+  for (int e = 0; e < TN / 2; ++e) acc[e] = 0.f;
+  int step = 0;
+  for (int item = 0; item < items; ++item) {
+    const int b = item & 1, k = item % my_chunks;
+    const Where w = where(item);
+    if (k == 0) {
+      if (tid == 32 && res != nullptr) {   // the tile's residual rows into L2 while it multiplies
+        const int t1 = min(w.t0 + tm, p.L);
+        asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(res + ((size_t)w.n * p.L + w.t0) * p.N),
+                     "r"((unsigned)((size_t)(t1 - w.t0) * p.N * sizeof(T))) : "memory");
+      }
+    }
+    mbar_wait(afull + 8 * b, (unsigned)((item >> 1) & 1));
+    const unsigned a_row = smem_u32(abuf + b * p.a_buf) + (wrow + (lane & 15)) * A_LD + (lane >> 4) * 16;
+    // Two taps in flight: tap j + 1's fragments load into the other
+    // register set while tap j multiplies; a set is rewritten only after
+    // the products that read it are done (wait_group 1).
+    auto load_tap = [&](int j, uint32_t (&aa)[KSTEPS][4], uint32_t (&ll)[KSTEPS][4]) {
+      const int slot = p.resident ? k * p.taps + j : (step + j) % p.stages;
+      mbar_wait(full + 8 * slot, p.resident ? 0u : (unsigned)(((step + j) / p.stages) & 1));
+#pragma unroll
+      for (int ks = 0; ks < KSTEPS; ++ks) {
+        ldsm_x4(aa[ks], a_row + j * p.d * A_LD + 32 * ks);
+        if constexpr (!BF16) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(aa[ks][e]), aa[ks][e], ll[ks][e]);
+        }
+      }
+    };
+    auto issue = [&](int j, uint32_t (&aa)[KSTEPS][4], uint32_t (&ll)[KSTEPS][4]) {
+      const unsigned st = ring + (p.resident ? k * p.taps + j : (step + j) % p.stages) * STAGE;
+      const int sd = k != 0 || j != 0;   // 0: the tile's first k-step
+      wgmma_fence();
+      if constexpr (BF16) {
+#pragma unroll
+        for (int ks = 0; ks < KSTEPS; ++ks) wgmma_bf16_tile<TN>(acc, aa[ks], st + 32 * ks, ks ? 1 : sd);
+      } else {
+#pragma unroll
+        for (int ks = 0; ks < KSTEPS; ++ks) {
+          const uint64_t dh = desc_sw128(st + 32 * ks), dl = desc_sw128(st + SLAB + 32 * ks);
+          wgmma_rs_tf32<TN>(acc, ll[ks], dh, ks ? 1 : sd);
+          wgmma_rs_tf32<TN>(acc, aa[ks], dl);
+          wgmma_rs_tf32<TN>(acc, aa[ks], dh);
+        }
+      }
+      wgmma_commit();
+    };
+    // this warp is done with weight step s; the last consumer warp to be
+    // done refills the stage (no warp waits for another)
+    auto release = [&](int s) {
+      if (p.resident) return;
+      __syncwarp();
+      if (lane == 0) {
+        const int slot = s % p.stages;
+        __threadfence_block();
+        if (atomicAdd(&released[slot], 1u) == (unsigned)(consumers / 32 - 1)) {
+          released[slot] = 0;
+          __threadfence_block();
+          if (s + p.stages < total_steps) {
+            asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+            fetch(s + p.stages);
+          }
+        }
+      }
+      __syncwarp();   // the warp whole again before its ldmatrix and wgmma
+    };
+    uint32_t a0[KSTEPS][4], lo0[KSTEPS][4], a1[KSTEPS][4], lo1[KSTEPS][4];
+    load_tap(0, a0, lo0);
+#pragma unroll 1
+    for (int j = 0; j < p.taps; j += 2) {
+      issue(j, a0, lo0);
+      if (j + 1 < p.taps) {
+        if (j >= 1) {
+          wgmma_wait<1>();   // tap j - 1 is done: set 1 and its stage are free
+          release(step + j - 1);
+        }
+        load_tap(j + 1, a1, lo1);
+        issue(j + 1, a1, lo1);
+        if (j + 2 < p.taps) {
+          wgmma_wait<1>();   // tap j is done: set 0 and its stage are free
+          release(step + j);
+          load_tap(j + 2, a0, lo0);
+        }
+      }
+    }
+    wgmma_wait<0>();
+    if (p.taps >= 2) release(step + p.taps - 2);
+    release(step + p.taps - 1);
+    step += p.taps;
+    if (k != my_chunks - 1) {   // the tile's K is not done (this block's share of it)
+      __syncwarp();
+      if (lane == 0) mbar_arrive(aempty + 8 * b);   // the operand buffer is free
+      continue;
+    }
+    const float* bs = bias_s + w.n0;
+    if (p.split == 1) {
+      // Through this warp's 16 rows of the operand buffer (free now), PW
+      // columns (128 bytes, or the tile where narrower) at a time, so that
+      // global loads and stores move 16 bytes a lane and whole row pieces an
+      // instruction: the fragments, + bias and rounded, into the scratch
+      // rows; then each row + residual, rounded.
+      T* scr = reinterpret_cast<T*>(abuf + b * p.a_buf + warp * 16 * A_LD);
+      constexpr int PW = TN < CH ? TN : CH;   // columns a piece
+      constexpr int VR = PW / E, RPI = 32 / VR;   // 16-byte vectors a piece row; rows an instruction
+      // every consumer warp is done reading the buffer (a warp's taps read
+      // the next warp's first rows)
+      constexpr int LDS = A_LD / (int)sizeof(T);
+      const int v = lane % VR;
+      // a piece's residual rows, raw, in flight while its scratch rows are
+      // written (the first piece's across the barrier)
+      uint4 y[16 / RPI];
+      auto load_res = [&](int c0) {
+        const int col = w.n0 + c0 + E * v;
+#pragma unroll
+        for (int q = 0; q < 16 / RPI; ++q) {
+          const int t = w.t0 + wrow + RPI * q + lane / VR;
+          y[q] = make_uint4(0u, 0u, 0u, 0u);
+          if (res != nullptr && t < p.L && col < p.N)
+            y[q] = *reinterpret_cast<const uint4*>(res + ((size_t)w.n * p.L + t) * p.N + col);
+        }
+      };
+      load_res(0);
+      asm volatile("bar.sync 2, %0;\n" ::"r"(consumers) : "memory");
+#pragma unroll
+      for (int c0 = 0; c0 < TN; c0 += PW) {
+        if (c0 > 0) load_res(c0);
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int jb = c0 / 8; jb < (c0 + PW) / 8; ++jb) {
+            const int c = 8 * jb + 2 * t4;
+            store2(scr + (g + 8 * h) * LDS + c - c0, round_to<T>(acc[4 * jb + 2 * h] + bs[c]),
+                   round_to<T>(acc[4 * jb + 2 * h + 1] + bs[c + 1]));
+          }
+        __syncwarp();
+        const int col = w.n0 + c0 + E * v;
+#pragma unroll
+        for (int q = 0; q < 16 / RPI; ++q) {
+          const int r = RPI * q + lane / VR, t = w.t0 + wrow + r;
+          float x[E], u[E];
+          load16(scr + r * LDS + E * v, x);
+          if constexpr (E == 8) {
+            Raw8<T> rr;
+            rr.u[0] = y[q];
+            unpack8(rr, u);
+          } else {
+            u[0] = __uint_as_float(y[q].x); u[1] = __uint_as_float(y[q].y);
+            u[2] = __uint_as_float(y[q].z); u[3] = __uint_as_float(y[q].w);
+          }
+#pragma unroll
+          for (int j = 0; j < E; ++j) x[j] += u[j];
+          if (t < p.L && col < p.N) store16(out + ((size_t)w.n * p.L + t) * p.N + col, x);
+        }
+        __syncwarp();
+      }
+    } else {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int jb = 0; jb < TN / 8; ++jb)
+          *reinterpret_cast<float2*>(part + (wrow + g + 8 * h) * LDP + 8 * jb + 2 * t4) =
+              make_float2(acc[4 * jb + 2 * h], acc[4 * jb + 2 * h + 1]);
+      cluster_sync();   // every block's partial tile is written
+      const int r0 = rank * tm / p.split, nr = (rank + 1) * tm / p.split - r0;
+      for (int e = tid; e < nr * (TN / 2); e += consumers) {
+        const int row = r0 + e / (TN / 2), cc = 2 * (e % (TN / 2));
+        const unsigned addr = smem_u32(part + row * LDP + cc);
+        float s0 = 0.f, s1 = 0.f;
+        for (int q = 0; q < p.split; ++q) {   // in rank order
+          const float2 v = ld_cluster_f2(addr, (unsigned)q);
+          s0 += v.x;
+          s1 += v.y;
+        }
+        store_pair(w, bs, row, w.n0 + cc, cc, s0, s1);
+      }
+      cluster_sync();   // every block is done reading the partial tiles
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(aempty + 8 * b);   // the operand buffer (the epilogue's scratch) is free
+  }
+}
+
+// The level's weights K-major for the wide kernel, one 32 x 32 tile (output
+// channels x (tap, in)) a block, through shared memory: job j's [taps, cin,
+// N] tensor (element strides s_tap, s_in, s_out) -> rows [N][(tap, in)] at
+// element `begin` of hi (float32: TF32 hi, and lo = TF32 of the rest).
+constexpr int PREP_MAX_JOBS = 8;
+struct PrepJob {
+  const void* src;
+  long long s_tap, s_in, s_out, begin;
+  int taps, cin, N, tiles_k, first_tile;   // 32-wide tiles along K; the job's first tile
+};
+struct PrepArgs {
+  PrepJob job[PREP_MAX_JOBS];
+  void* hi;
+  float* lo;
+  int jobs;
+};
+
+template <bool BF16>
+__global__ void __launch_bounds__(256) filter_wide_weights_kernel(const PrepArgs p) {
+  using T = typename std::conditional<BF16, __nv_bfloat16, float>::type;
+  __shared__ float tile[32][33];
+  int j = 0;
+  while (j + 1 < p.jobs && (int)blockIdx.x >= p.job[j + 1].first_tile) ++j;
+  const PrepJob& q = p.job[j];
+  const int t = blockIdx.x - q.first_tile, tn = t / q.tiles_k, tk = t - tn * q.tiles_k;
+  const int kk = q.taps * q.cin, tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  const T* src = static_cast<const T*>(q.src);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {   // read: output channels along the warp
+    const int k = tk * 32 + ty + 8 * i, n = tn * 32 + tx;
+    float v = 0.f;
+    if (k < kk && n < q.N) {
+      const int tap = k / q.cin, ci = k - tap * q.cin;
+      v = to_f32(src[tap * q.s_tap + ci * q.s_in + n * q.s_out]);
+    }
+    tile[ty + 8 * i][tx] = v;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {   // write: K along the warp
+    const int n = tn * 32 + ty + 8 * i, k = tk * 32 + tx;
+    if (n >= q.N || k >= kk) continue;
+    const long long e = q.begin + (long long)n * kk + k;
+    const float v = tile[tx][ty + 8 * i];
+    if constexpr (BF16) {
+      static_cast<T*>(p.hi)[e] = from_f32<T>(v);
+    } else {
+      uint32_t h, l;
+      split_tf32(v, h, l);
+      static_cast<float*>(p.hi)[e] = __uint_as_float(h);
+      p.lo[e] = __uint_as_float(l);
+    }
+  }
+}
+
+int sm_count() {
+  static int sms[64] = {};   // by device (the hop is host-bound: no query a launch)
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) return 1;
+  if (sms[dev] == 0) cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+  return sms[dev];
+}
+
+int align_up(int b, int a) { return (b + a - 1) / a * a; }
+
+template <bool BF16, int TN>
+int launch_wide(const CUtensorMap (&maps)[5], WideArgs p, int wgs, cudaStream_t stream) {
+  auto kernel = filter_wide_kernel<BF16, TN>;
+  const int threads = 128 * (wgs + COOK_WGS), tm = 64 * wgs;
+  const int rows = tm + (p.taps - 1) * p.d;
+  p.a_buf = align_up(rows * A_LD, 128);
+  p.raw_a2 = rows * CHUNK_BYTES;
+  p.raw_f = p.raw_a2 + (p.has_a2 ? tm * CHUNK_BYTES : 0);
+  p.raw_buf = align_up(p.raw_f + (p.has_film ? 2 * p.fr_box * CHUNK_BYTES : 0), 128);
+  const size_t stage = (size_t)TN * CHUNK_BYTES * (BF16 ? 1 : 2);
+  p.bias_len = align_up(p.N, 32);
+  const size_t fixed = 1024 + WIDE_HEAD + 2 * (size_t)p.a_buf + 2 * (size_t)p.raw_buf + 4 * (size_t)p.bias_len +
+                       (p.split > 1 ? (size_t)tm * (TN + 8) * 4 : 0);
+  if (fixed + stage > (size_t)SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const int fit = (int)std::min<size_t>(WIDE_MAX_STAGES, (SMEM_MAX - fixed) / stage);
+  const int slabs = (p.chunks + p.split - 1) / p.split * p.taps;   // a block's slabs a tile, at most
+  p.resident = p.col_tiles == 1 && slabs <= fit;
+  p.stages = p.resident ? slabs : std::min(fit, WIDE_STREAM_STAGES);
+  if (!p.resident && p.stages < 2) return static_cast<int>(cudaErrorInvalidValue);   // two taps in flight
+  const size_t smem = fixed + (size_t)p.stages * stage;
+  // On each card the shared-memory limit is raised once to the most any
+  // launch of this instance asks, and each launch shape's occupancy is asked
+  // once (the hop is host-bound)
+  int dev = 0;
+  cudaGetDevice(&dev);
+  static size_t smem_set[64] = {};
+  static std::pair<size_t, int> occupancy[8] = {};   // ((card, smem, threads), blocks an SM), newest first
+  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (smem > smem_set[dev]) {
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set[dev] = smem;
+  }
+  const size_t key = ((size_t)dev << 40) + smem * 1024 + (size_t)threads;
+  int per_sm = 0;
+  for (const auto& e : occupancy)
+    if (e.first == key) per_sm = e.second;
+  if (per_sm == 0) {
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+    for (int i = 7; i > 0; --i) occupancy[i] = occupancy[i - 1];
+    occupancy[0] = {key, per_sm};
+  }
+  cudaError_t err = cudaSuccess;
+  const int blocks = std::min(p.tiles, std::max(1, sm_count() * std::max(per_sm, 1) / p.split));
+  if (p.split == 1) {
+    kernel<<<blocks, threads, smem, stream>>>(maps[0], maps[1], maps[2], maps[3], maps[4], p);
+    RETURN_LAUNCH_STATUS();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks, (unsigned)p.split, 1);
+  cfg.blockDim = dim3((unsigned)threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = (unsigned)p.split;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, maps[0], maps[1], maps[2], maps[3], maps[4], p);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  RETURN_LAUNCH_STATUS();
+}
+
 }  // namespace
 
 // One product (film == null) or causal conv (film != null) of a wide level.
 // Products: a (+ a2) [L, cin] x w [cin, N] + bias[col % nbias] -> out [L, N]
 // (n = 1).  Convs: gelu/FiLM of a [n, L, cin], causal taps k = taps at
-// dilation d, w [taps * cin, N], + bias (+ res) -> out [n, L, N]; film
-// [n, F, film_ld] with this conv's scale at column film_off and its shift at
-// film_off + cin, at r samples a frame (L == F * r).  bf16 storage when bf16 != 0, else float32.
-// cin, N multiples of 8; every pointer 16-byte aligned.
-extern "C" int filter_wide(const void* a, const void* a2, const void* w, const void* bias,
-                           const void* res, void* out, const void* film, int n, int L, int cin,
-                           int N, int taps, int d, int nbias, int F, int r, int film_ld,
-                           int film_off, int bf16, void* stream) {
+// dilation d, + bias (+ res) -> out [n, L, N]; film [n, F, film_ld] with
+// this conv's scale at column film_off and its shift at film_off + cin, at r
+// samples a frame (L == F * r).  w_hi (and, in float32, w_lo): the weights
+// K-major, [N][taps * cin] (filter_wide_weights).  The plan
+// (kernels/filter.py:wide_plan): tn output columns a tile (32, 64, 128, or
+// 256 in bf16), wgs warpgroups (64 rows each), split blocks a cluster
+// sharing a tile's K (1, 2 or 4, at most the K chunks of cin).  bf16
+// storage when bf16 != 0, else float32.  cin, N, film_ld multiples of 8;
+// every pointer 16-byte aligned.
+extern "C" int filter_wide(const void* a, const void* a2, const void* w_hi, const void* w_lo,
+                           const void* bias, const void* res, void* out, const void* film, int n,
+                           int L, int cin, int N, int taps, int d, int nbias, int F, int r,
+                           int film_ld, int film_off, int tn, int wgs, int split, int bf16,
+                           void* stream) {
+  const int ch = CHUNK_BYTES / (bf16 ? 2 : 4);
+  const int chunks = (cin + ch - 1) / ch;
   if (cin < 8 || cin % 8 || N < 8 || N % 8 || taps < 1 || taps > K_MAX || d < 0 ||
-      (taps - 1) * d > HALO_MAX || nbias < 1 || n < 1 || L < 1 || misaligned(a) ||
-      misaligned(a2) || misaligned(w) || misaligned(out) || misaligned(film))
+      (taps - 1) * d > HALO_MAX || nbias < 1 || n < 1 || L < 1 || misaligned(a) || misaligned(a2) ||
+      misaligned(w_hi) || misaligned(w_lo) || misaligned(out) || misaligned(film) ||
+      (!bf16 && w_lo == nullptr) || (wgs != 1 && wgs != 2) || (split != 1 && split != 2 && split != 4) ||
+      split > chunks || (tn != 32 && tn != 64 && tn != 128 && !(tn == 256 && bf16)) ||
+      (long long)n * L > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (film != nullptr && (L <= (taps - 1) * d || (long long)F * r != L || film_ld % 8 || film_off % 8))
+  if (film != nullptr && (L <= (taps - 1) * d || F < 1 || (long long)F * r != L || film_ld % 8 || film_off % 8 ||
+                          film_off + cin > film_ld || (long long)n * F > 0x7fffffff))
     return static_cast<int>(cudaErrorInvalidValue);
+  WideArgs p{};
+  p.bias = bias; p.res = res; p.out = out;
+  p.has_a2 = a2 != nullptr; p.has_film = film != nullptr;
+  p.L = L; p.cin = cin; p.N = N; p.taps = taps; p.d = d; p.nbias = nbias; p.F = F; p.r = r;
+  p.film_off = film_off;
+  const int tm = 64 * wgs, rows = tm + (taps - 1) * d;
+  p.tiles_w = (L + tm - 1) / tm;
+  p.col_tiles = (N + tn - 1) / tn;
+  const long long tiles = (long long)n * p.tiles_w * p.col_tiles;
+  if (tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  p.tiles = (int)tiles;
+  p.split = split;
+  p.chunks = chunks;
+  p.fr_box = film != nullptr ? std::min(F, (rows - 1) / r + 4) : 0;
+  // maps: the weights (hi, lo), the operand source, the skip, the FiLM
+  CUtensorMap maps[5];
+  if (!make_map(&maps[0], w_hi, bf16, N, taps * cin, tn) ||
+      (!bf16 && !make_map(&maps[1], w_lo, false, N, taps * cin, tn)) ||
+      !make_map(&maps[2], a, bf16, n * L, cin, rows, false) ||
+      (a2 != nullptr && !make_map(&maps[3], a2, bf16, L, cin, tm, false)) ||
+      (film != nullptr && !make_map(&maps[4], film, bf16, n * F, film_ld, p.fr_box, false)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (bf16) maps[1] = maps[0];
+  if (a2 == nullptr) maps[3] = maps[2];
+  if (film == nullptr) maps[4] = maps[2];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const WideArgs p{a, a2, w, bias, res, out, film, L, cin, N, taps, d, nbias, F, r, film_ld, film_off, 0, 0};
-  if (bf16) return film ? wide_dispatch<true, true>(p, n, s) : wide_dispatch<true, false>(p, 1, s);
-  return film ? wide_dispatch<false, true>(p, n, s) : wide_dispatch<false, false>(p, 1, s);
+  if (bf16) {
+    switch (tn) {
+      case 32: return launch_wide<true, 32>(maps, p, wgs, s);
+      case 64: return launch_wide<true, 64>(maps, p, wgs, s);
+      case 128: return launch_wide<true, 128>(maps, p, wgs, s);
+      default: return launch_wide<true, 256>(maps, p, wgs, s);
+    }
+  }
+  switch (tn) {
+    case 32: return launch_wide<false, 32>(maps, p, wgs, s);
+    case 64: return launch_wide<false, 64>(maps, p, wgs, s);
+    default: return launch_wide<false, 128>(maps, p, wgs, s);
+  }
+}
+
+// A level's weights K-major, in one launch: job j reads src[j] as [taps,
+// cin, N] with element strides strides[3 j .. 3 j + 2] (tap, in, out) and
+// dims[3 j ..] = (taps, cin, N), and writes [N][taps * cin] at element
+// begin_j of hi (the jobs one after another); float32 (bf16 == 0) writes
+// the TF32 split, hi and lo.
+extern "C" int filter_wide_weights(int jobs, const void* const* src, const long long* strides,
+                                   const int* dims, void* hi, void* lo, int bf16, void* stream) {
+  if (jobs < 1 || jobs > PREP_MAX_JOBS || misaligned(hi) || (!bf16 && (lo == nullptr || misaligned(lo))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  PrepArgs p{};
+  long long begin = 0;
+  int tiles = 0;
+  for (int j = 0; j < jobs; ++j) {
+    const int taps = dims[3 * j], cin = dims[3 * j + 1], nn = dims[3 * j + 2];
+    if (taps < 1 || cin < 1 || nn < 1 || src[j] == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    const int tiles_k = (taps * cin + 31) / 32;
+    p.job[j] = PrepJob{src[j], strides[3 * j], strides[3 * j + 1], strides[3 * j + 2], begin,
+                       taps, cin, nn, tiles_k, tiles};
+    begin += (long long)taps * cin * nn;
+    tiles += tiles_k * ((nn + 31) / 32);
+  }
+  p.hi = hi;
+  p.lo = static_cast<float*>(lo);
+  p.jobs = jobs;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16) filter_wide_weights_kernel<true><<<tiles, 256, 0, s>>>(p);
+  else filter_wide_weights_kernel<false><<<tiles, 256, 0, s>>>(p);
+  RETURN_LAUNCH_STATUS();
 }
 
 // A whole narrow level (C = 8 or 16) in one launch.  x_prev, skip

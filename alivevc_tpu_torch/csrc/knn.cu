@@ -119,98 +119,10 @@ __device__ __forceinline__ void quad_merge(float (&v)[R][K], int (&id)[R][K]) {
     }
 }
 
-// mbarriers (shared-space addresses) and TMA tensor copies
-__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
-  asm volatile(
-      "{\n .reg .pred p;\n WAIT:\n"
-      " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      " @!p bra WAIT;\n}\n" ::"r"(bar), "r"(parity) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(unsigned bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
-}
-// the box of ``tm`` at (column x, row y) -> shared dst; completion on bar
-__device__ __forceinline__ void tma_load(unsigned dst, const CUtensorMap& tm, int x, int y, unsigned bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n"
-      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(&tm)), "r"(x), "r"(y), "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// the 3xTF32 split: x ~ hi + lo, both TF32
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
 // The ranking key of the packed extraction (see the header).
 __device__ __forceinline__ float packed_key(float s, int c) {
   const unsigned bits = __float_as_uint(s + 2.0f);
   return __uint_as_float((bits & ~127u) | (127u - (unsigned)c));
-}
-
-// ldmatrix: four 8 x 16-byte matrices; lanes 8i..8i+7 give matrix i's rows
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], unsigned addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// d[0:64] += A . B^T over one k-step of 8 TF32 values, for the
-// warpgroup's 64 rows x 128 columns: A (this thread's m16k8 fragment,
-// TF32 bits) from registers, B (128 rows, K-major) from shared memory.
-__device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4], uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
-// d[0:64] += A . B^T over one k-step of 16 bf16 values, for the
-// warpgroup's 64 rows x 128 columns, both operands K-major in shared memory.
-__device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(1));
-}
-
-// A wgmma shared-memory descriptor: K-major rows of 128 bytes with the
-// 128-byte swizzle, 8-row groups 1024 bytes apart.
-__device__ __forceinline__ uint64_t desc_sw128(unsigned addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
-         ((uint64_t)1 << 62);
 }
 
 // Pass A.  Grid (query tiles, chunks).  A stage holds the query slab
@@ -294,7 +206,7 @@ knn_tile_kernel(const __grid_constant__ CUtensorMap tm_src, const __grid_constan
       asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
       for (int k = 0; k < KSTEPS; ++k)
-        wgmma_bf16(acc, desc_sw128(st + (warp >> 2) * 64 * SLAB_BYTES + 32 * k), desc_sw128(st + A_SLAB + 32 * k));
+        wgmma_ss_bf16_n128(acc, desc_sw128(st + (warp >> 2) * 64 * SLAB_BYTES + 32 * k), desc_sw128(st + A_SLAB + 32 * k));
     } else {
       // split the library slab: hi in place, lo beside it (positions, and
       // so the swizzle, unchanged)
@@ -317,7 +229,7 @@ knn_tile_kernel(const __grid_constant__ CUtensorMap tm_src, const __grid_constan
 #pragma unroll
       for (int k = 0; k < KSTEPS; ++k) {
         uint32_t f[4];
-        ldsm4(f, st + a_row + (((2 * k + ha) ^ sw) << 4));
+        ldsm_x4(f, st + a_row + (((2 * k + ha) ^ sw) << 4));
 #pragma unroll
         for (int j = 0; j < 4; ++j) split_tf32(__uint_as_float(f[j]), ah[k][j], al[k][j]);
       }
@@ -325,9 +237,9 @@ knn_tile_kernel(const __grid_constant__ CUtensorMap tm_src, const __grid_constan
 #pragma unroll
       for (int k = 0; k < KSTEPS; ++k) {
         const uint64_t dh = desc_sw128(st + A_SLAB + 32 * k), dl = desc_sw128(st + A_SLAB + B_SLAB + 32 * k);
-        wgmma_tf32(acc, al[k], dh);
-        wgmma_tf32(acc, ah[k], dl);
-        wgmma_tf32(acc, ah[k], dh);
+        wgmma_rs_tf32<128>(acc, al[k], dh);
+        wgmma_rs_tf32<128>(acc, ah[k], dl);
+        wgmma_rs_tf32<128>(acc, ah[k], dh);
       }
     }
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
@@ -421,43 +333,6 @@ knn_merge_kernel(const float* __restrict__ cand_v, const int* __restrict__ cand_
 #pragma unroll
     for (int s = 0; s < K; ++s) { out_v[(size_t)q * K + s] = v[s]; out_i[(size_t)q * K + s] = id[s]; }
   }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-#endif
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a [rows, d] row-major tensor read as boxes of [box_rows x 128 bytes],
-// 128-byte swizzled, rows past the tensor zero-filled
-bool make_map(CUtensorMap* tm, const void* ptr, bool bf16, int rows, int d, int box_rows) {
-  EncodeTiled fn = encode_fn();
-  if (!fn) return false;
-  const int esize = bf16 ? 2 : 4;
-  cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)rows};
-  cuuint64_t strides[1] = {(cuuint64_t)d * esize};
-  cuuint32_t box[2] = {(cuuint32_t)(SLAB_BYTES / esize), (cuuint32_t)box_rows};
-  cuuint32_t estr[2] = {1, 1};
-  return fn(tm, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
-            const_cast<void*>(ptr), dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int K, bool BF16, bool PACKED>

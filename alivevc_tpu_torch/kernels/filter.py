@@ -32,13 +32,23 @@ j*C + c is tap j of output channel c), ``in_w`` [C, C] ([in, out]),
 
 Routes on the card (``filter_level_cuda``): a level with C = 8 or 16 runs as
 one launch of ``filter_narrow_kernel`` (up conv, 1x1 and the six convs in
-shared memory; each time tile recomputes its lookback, and a tile that
-reaches sample 0 reflects in place); any other level as 8 launches of
+shared memory, on ``mma.sync``; each time tile recomputes its lookback, and
+a tile that reaches sample 0 reflects in place); any other level as one
+``filter_wide_weights_kernel`` launch (every weight of the level K-major,
+[out][(tap, in)], and in float32 its TF32 hi/lo split) and 8 launches of
 ``filter_wide_kernel`` (the up conv and the 1x1 as products, then one
-implicit GEMM per causal conv).  Every product runs on the tensor cores:
-bf16 operands with float32 accumulation in bf16 storage, 3xTF32 in float32
-storage.  ``filter_level_tiled`` replays the narrow kernel's tiling, and
-optionally its 3xTF32 products, on the CPU for the tests.
+implicit GEMM per causal conv) on ``wgmma``: the operand from registers
+(ldmatrix at any row, which the dilated taps need), the weights by TMA
+into an mbarrier ring, the next operand chunk staged by the block in the
+shadow of the current chunk's products, a persistent grid.  Each launch's
+tile shape, K split and cluster come from ``wide_plan``; at few rows (the
+streaming hop) it splits K over a cluster of 2 or 4 blocks that reduce
+through distributed shared memory in a fixed order.  Every product runs
+on the tensor cores: bf16 operands with float32 accumulation in bf16
+storage, 3xTF32 in float32 storage.  ``filter_level_tiled`` replays the
+narrow kernel's tiling, ``filter_level_wide_replay`` the wide kernel's K
+order and split, optionally with the 3xTF32 products, on the CPU for the
+tests.
 
 Gradients (training): on the card a level runs through
 ``FilterLevelFunction``, whose forward is the kernel launch and whose
@@ -51,7 +61,8 @@ kernel is written: JAX has none either.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+import functools
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -84,6 +95,14 @@ def narrow_tile(k: int, dilations: Sequence[int], rate: int) -> int:
     """Output samples a narrow-kernel tile writes: the tile's rows less the
     lookback and the up conv's alignment (199 at the default levels)."""
     return NARROW_ROWS - lookback(k, dilations) - (rate - 1)
+
+
+def takes_narrow(c: int, c_in: int, rate: int, k: int, dilations: Sequence[int]) -> bool:
+    """Whether a level runs as one ``filter_narrow_kernel`` launch (else the
+    wide route): C = 8 or 16, the up conv's inputs and rate within its shared
+    memory, and tiles that write at least 32 samples."""
+    return (c in NARROW_C and c_in <= NARROW_MAX_CIN and rate <= NARROW_MAX_RATE
+            and narrow_tile(k, dilations, rate) >= 32)
 
 
 def _gelu_film(x, film, i, c, length, dt):
@@ -192,6 +211,171 @@ def filter_level_tiled(x_prev, skip, up_w, up_b, in_w, in_b, conv_w, conv_b, fil
     return out
 
 
+WIDE_CHUNK_BYTES = 128   # a K chunk of the wide kernel: 128 bytes of input channels
+WIDE_TN = (32, 64, 128, 256)   # its column tiles (float32 up to 128)
+WIDE_MAX_SPLIT = 4       # blocks of a cluster that share a tile's K chunks
+H100_SMS = 132
+
+
+@functools.lru_cache(maxsize=256)
+def wide_plan(n: int, length: int, cin: int, cols: int, taps: int, dtype: torch.dtype,
+              sms: int = H100_SMS) -> dict:
+    """The launch plan of one ``filter_wide_kernel`` launch over ``n``
+    windows of ``length`` rows (a product: n = 1, length = its rows), ``cin``
+    input channels, ``cols`` output columns and ``taps`` taps (1 for a
+    product), on a card of ``sms`` SMs:
+
+    - ``tn``: the column tile, the narrowest of 32 .. 256 (float32: 128, the
+      A fragments' TF32 hi and lo take the registers) that covers the columns;
+    - ``wgs``: warpgroups a block, 64 rows each (``tm`` = 64 wgs): 2 where the
+      128-row tiles fill the card, else 1;
+    - ``split``: blocks of a cluster that share each tile's K chunks (128
+      bytes of input channels each, ``chunks`` in all), doubled up to 4 (and
+      at most to the chunks) while the blocks would fill at most half the
+      card; then ``tn`` halves, down to 32, while they still would.
+
+    ``tiles`` counts the (row, column) tiles, ``ctas`` = tiles x split the
+    blocks that work on them (the kernel's persistent grid caps them at one
+    wave)."""
+    bf16 = dtype == torch.bfloat16
+    chunks = -(-cin // (WIDE_CHUNK_BYTES // (2 if bf16 else 4)))
+    tn = WIDE_TN[0]
+    while tn < (256 if bf16 else 128) and tn < cols:
+        tn *= 2
+
+    def tiles(wgs_, tn_):
+        return n * -(-length // (64 * wgs_)) * -(-cols // tn_)
+
+    wgs = 2 if tiles(2, tn) >= sms else 1
+    split = 1
+    while split < WIDE_MAX_SPLIT and chunks >= 2 * split and 2 * tiles(wgs, tn) * split <= sms:
+        split *= 2
+    while tn > WIDE_TN[0] and 2 * tiles(wgs, tn) * split <= sms:
+        tn //= 2
+    t = tiles(wgs, tn)
+    return {"tm": 64 * wgs, "tn": tn, "wgs": wgs, "split": split, "chunks": chunks, "tiles": t,
+            "ctas": t * split}
+
+
+def wide_launches(n: int, l_in: int, cin: int, c: int, rate: int, taps: int, n_conv: int) -> list:
+    """(n, length, cin, cols, taps) of a wide level's 8 launches: the up conv
+    and the 1x1 (products over rows), then the causal convs."""
+    length = l_in * rate
+    return ([(1, n * l_in, cin, rate * c, 1), (1, n * length, c, c, 1)]
+            + [(n, length, c, c, taps)] * n_conv)
+
+
+def _wide_operand(x, film, i, c, length, dt, compute):
+    """gelu(x) * scale + shift of causal conv ``i`` in ``compute``, rounded
+    to ``dt`` (rounding point 4)."""
+    scale, shift = film_of(film, i, c)
+    g = (F.gelu(x.to(compute)) * linear_interpolate(scale.to(compute), length, axis=1)
+         + linear_interpolate(shift.to(compute), length, axis=1))
+    return g.to(dt).to(compute)
+
+
+def wide_product_replay(g: torch.Tensor, w: torch.Tensor, d: int, split: int, chunk: int,
+                        prod) -> torch.Tensor:
+    """One wide-kernel launch's sum, in its order: operand ``g`` [n, L, cin]
+    (reflect-padded over its head by (taps - 1) d rows here), weights ``w``
+    [taps, cin, N].  Block s of the split sums chunks [s C / split, (s + 1) C
+    / split) of ``chunk`` channels, all taps of a chunk before the next, each
+    slab's ``prod`` added in turn; the blocks' partial sums are then added in
+    rank order (tests only)."""
+    n, length, cin = g.shape
+    taps = w.shape[0]
+    halo = (taps - 1) * d
+    gp = torch.cat([g[:, 1:halo + 1].flip(1), g], dim=1) if halo else g
+    chunks = -(-cin // chunk)
+    total = None
+    for s in range(split):
+        acc = None
+        for ci in range(s * chunks // split, (s + 1) * chunks // split):
+            cs = slice(ci * chunk, min((ci + 1) * chunk, cin))
+            for j in range(taps):
+                a = gp[:, j * d:j * d + length, cs].reshape(n * length, -1)
+                y = prod(a, w[j, cs])
+                acc = y if acc is None else acc + y
+        total = acc if total is None else total + acc
+    return total.reshape(n, length, -1)
+
+
+def filter_level_wide_replay(x_prev, skip, up_w, up_b, in_w, in_b, conv_w, conv_b,
+                             film: torch.Tensor, rate: int, dilations: Sequence[int],
+                             split: Optional[int] = None, products: str = "exact",
+                             compute: torch.dtype = torch.float32,
+                             sms: int = H100_SMS) -> torch.Tensor:
+    """The wide route's 8 launches replayed on the CPU (tests only): each
+    launch's K order and split (``wide_plan``'s, or ``split`` for every
+    launch, at most its chunks), ``products`` 'exact' (in ``compute``) or
+    '3xtf32' (the float32 kernel's split); roundings to the storage type are
+    those of ``filter_level_plain``."""
+    dt = x_prev.dtype
+    n, l_in, cin = x_prev.shape
+    c = up_b.shape[0]
+    length = l_in * rate
+    k = conv_w[0].shape[0]
+    chunk = WIDE_CHUNK_BYTES // (2 if dt == torch.bfloat16 else 4)
+
+    def prod(a, b):
+        if products == "3xtf32":
+            return product_3xtf32(a.float(), b.float()).to(compute)
+        return a.to(compute) @ b.to(compute)
+
+    def rnd(v):
+        return v.to(dt).to(compute)
+
+    def launch(g, w, d, nn, rows, cols, taps):
+        plan = wide_plan(nn, rows, g.shape[2], cols, taps, dt, sms)
+        sp = plan["split"] if split is None else min(split, plan["chunks"])
+        return wide_product_replay(g, w.to(compute), d, sp, chunk, prod)
+
+    xs = rnd(x_prev.to(compute) + skip.to(compute))
+    x = launch(xs.reshape(1, n * l_in, cin), up_w[None], 0, 1, n * l_in, rate * c, 1)
+    x = rnd(x.reshape(n, length, c) + up_b.to(compute))
+    x = rnd(launch(x.reshape(1, n * length, c), in_w[None], 0, 1, n * length, c, 1).reshape(
+        n, length, c) + in_b.to(compute))
+    for i in range(0, len(conv_w), 2):
+        g = _wide_operand(x, film, i, c, length, dt, compute)
+        h = rnd(launch(g, conv_w[i], dilations[i], n, length, c, k) + conv_b[i].to(compute))
+        g = _wide_operand(h, film, i + 1, c, length, dt, compute)
+        y = rnd(launch(g, conv_w[i + 1], dilations[i + 1], n, length, c, k)
+                + conv_b[i + 1].to(compute))
+        x = rnd(y + x)
+    return x.to(dt)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _wide_weights(mats: Sequence[torch.Tensor], dt: torch.dtype, device: torch.device):
+    """Every weight of a wide level, each a [taps, cin, N] view (any
+    strides), K-major in one buffer by one ``filter_wide_weights_kernel``
+    launch: (hi, lo or None, element offsets).  float32 writes the TF32
+    split (hi, lo)."""
+    mats = [m.to(dt) for m in mats]
+    for m in mats:
+        if not m.is_cuda or m.dim() != 3:
+            raise ValueError("filter level weights must be 3-D views of CUDA tensors")
+    sizes = [m.numel() for m in mats]
+    offsets = [sum(sizes[:j]) for j in range(len(mats))]
+    total = sum(sizes)
+    hi = torch.empty((total,), dtype=dt, device=device)
+    lo = None if dt == torch.bfloat16 else torch.empty((total,), dtype=torch.float32, device=device)
+    jobs = len(mats)
+    src = (ctypes.c_void_p * jobs)(*[m.data_ptr() for m in mats])
+    strides = (ctypes.c_longlong * (3 * jobs))(*[s for m in mats for s in m.stride()])
+    dims = (ctypes.c_int * (3 * jobs))(*[s for m in mats for s in m.shape])
+    fn = _lib.function("filter", "filter_wide_weights", "ipppppip")
+    rc = fn(jobs, ctypes.addressof(src), ctypes.addressof(strides), ctypes.addressof(dims),
+            hi.data_ptr(), None if lo is None else lo.data_ptr(), int(dt == torch.bfloat16),
+            _lib.stream_of(hi))
+    _lib.check(rc, "filter level weights")
+    return hi, lo, offsets
+
+
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """The kernels read 16-byte vectors: a view that starts off 16 bytes is copied."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
@@ -227,7 +411,6 @@ def filter_level_cuda(x_prev, skip, up_w, up_b, in_w, in_b,
             or n_conv % 2 or not 0 < n_conv <= MAX_CONV
             or len(conv_b) != n_conv or len(dilations) != n_conv):
         raise ValueError("filter level weights do not match the level's shapes")
-    in_w_t = prep(in_w.t(), "in_w", 2)   # [out, in], the Linear's own layout
     conv_b = [prep(b, "conv_b", 1) for b in conv_b]
     k = conv_w[0].shape[0]
     if any(w.shape != (k, c, c) for w in conv_w) or any(b.shape != (c,) for b in conv_b):
@@ -243,14 +426,9 @@ def filter_level_cuda(x_prev, skip, up_w, up_b, in_w, in_b,
                          f"with F dividing the level's {length} samples")
     bf16 = int(dt == torch.bfloat16)
     stream = _lib.stream_of(x_prev)
-    narrow = (c in NARROW_C and c_in <= NARROW_MAX_CIN and rate <= NARROW_MAX_RATE
-              and narrow_tile(k, dilations, rate) >= 32)
-    if narrow:    # [out, in, tap], the Conv1d weight level_args took its view of
+    if takes_narrow(c, c_in, rate, k, dilations):   # [out, in, tap], the Conv1d weight level_args took its view of
+        in_w_t = prep(in_w.t(), "in_w", 2)   # [out, in], the Linear's own layout
         conv_w = [prep(w.permute(2, 1, 0), "conv_w", 3) for w in conv_w]
-    else:         # [out, tap, in], the wide kernel's streaming order
-        conv_w_t = [prep(w.permute(2, 0, 1), "conv_w", 3) for w in conv_w]
-
-    if narrow:
         fn = _lib.function("filter", "filter_narrow", "p" * 10 + "ii" + "p" + "i" * 7 + "p")
         ws = (ctypes.c_void_p * n_conv)(*[w.data_ptr() for w in conv_w])
         bs = (ctypes.c_void_p * n_conv)(*[b.data_ptr() for b in conv_b])
@@ -264,30 +442,35 @@ def filter_level_cuda(x_prev, skip, up_w, up_b, in_w, in_b,
         _lib.LAUNCHES["filter_level"] += 1
         return out
 
-    wide = _lib.function("filter", "filter_wide", "p" * 7 + "i" * 12 + "p")
+    # the weights K-major, [out][(tap, in)], from their [tap, in, out] views
+    hi, lo, offs = _wide_weights([up_w[None], in_w[None], *conv_w], dt, x_prev.device)
+    esz, lo_esz = hi.element_size(), 4
+    wide = _lib.function("filter", "filter_wide", "p" * 8 + "i" * 15 + "p")
+    sms = _sm_count(x_prev.get_device())
+    specs = wide_launches(n, l_in, c_in, c, rate, k, n_conv)
 
-    def launch(a, a2, w, b, res, o, film_ptr, nn, rows, cin, cols, taps, d, film_off, what):
-        rc = wide(a.data_ptr(), a2, w.data_ptr(), b.data_ptr(), res, o.data_ptr(), film_ptr,
-                  nn, rows, cin, cols, taps, d, c, frames, length // frames, film.shape[2], film_off,
-                  bf16, stream)
+    def launch(j, a, a2, b, res, o, film_ptr, d, film_off, what):
+        nn, rows, cin, cols, taps = specs[j]
+        plan = wide_plan(nn, rows, cin, cols, taps, dt, sms)
+        rc = wide(a.data_ptr(), a2, hi.data_ptr() + offs[j] * esz,
+                  None if lo is None else lo.data_ptr() + offs[j] * lo_esz, b.data_ptr(), res,
+                  o.data_ptr(), film_ptr, nn, rows, cin, cols, taps, d, c, frames,
+                  length // frames, film.shape[2], film_off, plan["tn"], plan["wgs"],
+                  plan["split"], bf16, stream)
         _lib.check(rc, what)
 
-    # the wide kernel streams the weights transposed, [out, (tap, in)]
     up = torch.empty((n, length, c), dtype=dt, device=x_prev.device)
-    launch(x_prev, skip.data_ptr(), up_w.t().contiguous(), up_b, None, up, None, 1, n * l_in, c_in,
-           rate * c, 1, 0, 0, "filter up conv")
+    launch(0, x_prev, skip.data_ptr(), up_b, None, up, None, 0, 0, "filter up conv")
     x = torch.empty_like(up)
-    launch(up, None, in_w_t, in_b, None, x, None, 1, n * length, c, c, 1, 0, 0,
-           "filter 1x1 conv")
+    launch(1, up, None, in_b, None, x, None, 0, 0, "filter 1x1 conv")
     del up
     h = torch.empty_like(x)
-    for i, (w, b, d) in enumerate(zip(conv_w_t, conv_b, dilations)):
+    for i, (b, d) in enumerate(zip(conv_b, dilations)):
         # the first conv of a block reads x and writes h; the second reads h
         # and adds x (the block's input) into x in place
         second = i % 2 == 1
-        launch(h if second else x, None, w, b, x.data_ptr() if second else None,
-               x if second else h, film.data_ptr(), n, length, c, c, k, d, 2 * i * c,
-               "filter causal conv")
+        launch(2 + i, h if second else x, None, b, x.data_ptr() if second else None,
+               x if second else h, film.data_ptr(), d, 2 * i * c, "filter causal conv")
     _lib.LAUNCHES["filter_level"] += 1
     return x
 

@@ -20,7 +20,12 @@ printing the final line:
      could take (bound; kNN 'high'/'highest' and the float32 filter levels
      at the 3xTF32 tensor-core floor, three TF32 products per product).
      Each filter level also records ``products_library_ms``: its eight
-     products alone as cuDNN/cuBLAS calls (a yardstick, not the function).
+     products alone as cuDNN/cuBLAS calls (a yardstick, not the function);
+     ``form_bytes_floor_ms``: the bytes its launches move (each launch's
+     inputs read once, its output written once: the wide route's 9
+     launches pass every intermediate through device memory) over the
+     card's memory rate, beside ``bound_ms``, which counts the level's own
+     inputs and output only; and its launches as ``wide_plan`` plans them.
      Each oscillator row also records ``kernel_ms``, the device time of its
      kernels alone (torch.profiler: the Chebyshev source; the formant
      source and its phase scan), and its grid (tiles of 4 frames, resident
@@ -531,25 +536,41 @@ def level_products(x, s, args, rate):
     return run
 
 
-def filter_grid(n, l_in, cin, c, r, length, k, dilations):
-    """The grid of a float32 level, by the launch rules of ``csrc/filter.cu``:
-    narrow levels (C = 8, 16) one launch over 256-row tiles (a tile writes
-    256 - lookback - (r - 1) samples; one block a tile, at most one wave of
-    blocks walking them); wide levels 8 launches of ceil(rows / TM) x ceil(cols / TN)
-    blocks (TN 256 where the columns are a multiple of 256, else 64; TM 128,
-    or 64 for float32 at TN 64 with more than 128 input channels)."""
-    from alivevc_tpu_torch.kernels.filter import NARROW_ROWS, lookback
+def filter_grid(n, l_in, cin, c, r, length, k, dilations, dtype):
+    """A level's launches as ``kernels/filter.py`` plans them: a narrow level
+    (C = 8, 16) one launch over 256-row tiles (a tile writes 256 - lookback
+    - (r - 1) samples; one block a tile, at most one wave of blocks walking
+    them); a wide level the weights' launch and 8 of ``filter_wide_kernel``,
+    each [tm, tn, split, blocks] by ``wide_plan`` (blocks = tiles x split,
+    which the persistent grid caps at one wave)."""
+    import torch
+    from alivevc_tpu_torch.kernels.filter import (NARROW_ROWS, lookback, takes_narrow,
+                                                  wide_launches, wide_plan)
 
-    def wide(rows, cin_, cols):
-        tn = 256 if cols % 256 == 0 else 64
-        tm = 64 if tn == 64 and cin_ > 128 else 128
-        return math.ceil(rows / tm) * math.ceil(cols / tn)
-
-    if c in (8, 16):
+    if takes_narrow(c, cin, r, k, dilations):
         return {"launches": 1, "tiles": n * math.ceil(length / (NARROW_ROWS - lookback(k, dilations)
                                                                  - (r - 1)))}
-    return {"launches": 8, "blocks": [wide(n * l_in, cin, r * c), wide(n * length, c, c)]
-            + [wide(n * length, c, c)] * 6}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plans = [wide_plan(*spec, dtype, sms) for spec in wide_launches(n, l_in, cin, c, r, k, len(dilations))]
+    return {"launches": 8, "plans": [[p["tm"], p["tn"], p["split"], p["ctas"]] for p in plans]}
+
+
+def form_bytes(n, l_in, cin, c, r, n_conv, film_frames, weights, isz, wide):
+    """Bytes the level's launches move, each launch's inputs read once and
+    its output written once: the narrow kernel's one launch (x_prev, skip,
+    FiLM, weights in; the level out), or the wide route's 9 (the weights
+    read and written K-major, float32 as TF32 hi + lo; the up conv; the
+    1x1; each causal conv reads its operand and its FiLM columns and writes
+    its output, the second of a block also reads the residual)."""
+    length = l_in * r
+    io = 2 * n * l_in * cin
+    film = n * film_frames * 2 * n_conv * c
+    if not wide:
+        return isz * (io + n * length * c + film + weights)
+    act = n * length * c
+    k_major = weights * (isz if isz == 2 else 8)     # the weights as the products read them
+    return (weights * isz + 2 * k_major
+            + isz * (io + act + 2 * act + n_conv * 2 * act + n_conv // 2 * act + film))
 
 
 def check_filter_levels(gen, dec, n=N_STEP, lw=LW, dtypes=("f32", "bf16"), tag=""):
@@ -557,7 +578,7 @@ def check_filter_levels(gen, dec, n=N_STEP, lw=LW, dtypes=("f32", "bf16"), tag="
     ``lw / 320`` frames), in each of ``dtypes``."""
     import torch
     from alivevc_tpu_torch.infer.offline import cast_params
-    from alivevc_tpu_torch.kernels.filter import filter_level_cuda, filter_level_plain
+    from alivevc_tpu_torch.kernels.filter import filter_level_cuda, filter_level_plain, takes_narrow
     from alivevc_tpu_torch.models.decoder import level_args
 
     cfg = dec.cfg
@@ -594,6 +615,10 @@ def check_filter_levels(gen, dec, n=N_STEP, lw=LW, dtypes=("f32", "bf16"), tag="
                 b, by = bound_ms(nbytes, 3.0 * flops, PEAK_TF32)
             else:
                 b, by = bound_ms(nbytes, flops, PEAK_BF16)
+            wide = not takes_narrow(c, cin, r, cfg.filter_kernel_size, args["dilations"])
+            n_weights = sum(p.numel() for p in list(up.parameters()) + list(blk.parameters()))
+            floor = form_bytes(n, l_in, cin, c, r, len(args["conv_w"]), args["film"].shape[1],
+                               n_weights, isz, wide) / PEAK_BYTES * 1e3
             rows.append({
                 "name": "filter_level", "variant": f"level {i} C={c} L={lens[i]} {dname}{tag}",
                 "max_abs_err": err, "tol": tol,
@@ -601,9 +626,9 @@ def check_filter_levels(gen, dec, n=N_STEP, lw=LW, dtypes=("f32", "bf16"), tag="
                 "plain_ms": cuda_ms(lambda: filter_level_plain(x, s, rate=r, **args), 2),
                 "library_ms": None,
                 "products_library_ms": cuda_ms(level_products(x, s, args, r)),
-                "bound_ms": b, "bound_by": by,
+                "bound_ms": b, "bound_by": by, "form_bytes_floor_ms": floor,
                 "grid": filter_grid(n, l_in, cin, c, r, lens[i], cfg.filter_kernel_size,
-                                    args["dilations"]),
+                                    args["dilations"], dt),
             })
             del got, want
     return rows
@@ -830,7 +855,7 @@ KERNEL_GROUPS = (
     ("stft", ("stft_fft",)),
     ("knn", ("knn_tile", "knn_merge")),
     ("oscillator", ("osc_scan", "osc_cheb", "osc_formant")),
-    ("filter_level", ("filter_wide_kernel", "filter_narrow_kernel")),
+    ("filter_level", ("filter_wide_kernel", "filter_wide_weights_kernel", "filter_narrow_kernel")),
 )
 
 
@@ -1720,7 +1745,7 @@ def print_train_rows(rows, card) -> None:
 
 
 TRAIN_GROUPS = (
-    ("filter kernels", ("filter_wide_kernel", "filter_narrow_kernel")),
+    ("filter kernels", ("filter_wide_kernel", "filter_wide_weights_kernel", "filter_narrow_kernel")),
     ("oscillator kernel", ("osc_cheb",)),
     ("STFT kernel", ("stft_fft",)),
     ("kNN kernels", ("knn_tile", "knn_merge")),
@@ -3143,7 +3168,8 @@ def kernels_line(rows, launches):
             "bound_by": max(main, key=lambda r: r["bound_ms"])["bound_by"],
             "library_ms": (None if any(r["library_ms"] is None for r in main)
                            else sum(r["library_ms"] for r in main)),
-            **({"products_library_ms": sum(r["products_library_ms"] for r in main)}
+            **({"products_library_ms": sum(r["products_library_ms"] for r in main),
+                "form_bytes_floor_ms": sum(r["form_bytes_floor_ms"] for r in main)}
                if name == "filter_level" else {}),
             **({"kernel_ms": main[0]["kernel_ms"]} if "kernel_ms" in main[0] else {}),
             "variants": [{k: v for k, v in r.items() if k != "name"} for r in mine],
@@ -3156,6 +3182,8 @@ def print_rows(rows, card) -> None:
     for r in rows:
         lib_ms = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.3f}"
         prod = f" products_library {r['products_library_ms']:.3f}" if "products_library_ms" in r else ""
+        if "form_bytes_floor_ms" in r:
+            prod += f" form_bytes_floor {r['form_bytes_floor_ms']:.4f}"
         if "kernel_ms" in r:
             kms = "not measured" if r["kernel_ms"] is None else f"{r['kernel_ms']:.4f}"
             prod += (f" kernels alone {kms} ({r['tiles']} tiles on {r['resident_blocks']} resident "

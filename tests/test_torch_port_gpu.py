@@ -185,9 +185,14 @@ def test_redesigned_kernel_edges_on_card(name):
 # (C = 256 / 64 / 16 / 8 at r = 10 / 8 / 2 / 2) at small L, none a multiple
 # of the kernels' time tiles (narrow 199, wide 64 or 128); narrow levels of
 # 60 samples, just over the 56-sample lookback, so that tile 0 is the only
-# tile and reflects; one FiLM frame for a whole level (F r == L, F = 1)
+# tile and reflects; one FiLM frame for a whole level (F r == L, F = 1).
+# The small wide levels take wide_plan's K splits over clusters of 2 and 4
+# and its narrow column tiles; the last two (4 x 4 510 and 2 x 9 608
+# samples) its 128-row tiles without a split, with streamed (C = 256) and
+# resident (C = 64) weights.
 FILTER_EDGES = [(0, 2, 50, 50), (1, 2, 120, 12), (2, 2, 480, 6), (3, 1, 640, 4),
-                (0, 1, 2, 2), (1, 1, 8, 1), (2, 1, 30, 1), (3, 2, 30, 1), (3, 3, 530, 53)]
+                (0, 1, 2, 2), (1, 1, 8, 1), (2, 1, 30, 1), (3, 2, 30, 1), (3, 3, 530, 53),
+                (0, 4, 451, 41), (1, 2, 1201, 1)]
 
 
 @pytest.mark.gpu
@@ -543,7 +548,9 @@ def test_hop_shape_kernels_on_card(name, monkeypatch):
     4, the last partial, reflect pad at both ends), kNN 'high' for 24
     queries over 887 rows, and the four float32 filter levels at N = 1 with
     their inputs at the end of their allocations and every output and
-    scratch buffer between sentinel guards that must stay untouched."""
+    scratch buffer (levels 0-1: the K-major weights too, read by TMA, and
+    the K split's cluster reduction writing the outputs) between sentinel
+    guards that must stay untouched."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; on the card run this file with --noconftest -m gpu")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -572,7 +579,10 @@ def test_hop_shape_kernels_on_card(name, monkeypatch):
             monkeypatch.undo()
             want = kfilter.filter_level_plain(x, s, rate=r, **args)
         assert got.shape == (1, HOP_LEVELS[level], dec.filter.ups[level].weight.shape[1])
-        assert guarded.buffers and guarded.guards_intact(), name
+        # levels 0-1 (the wide kernel): its K-major weights (TF32 hi, lo) and
+        # the up, 1x1 and conv outputs; levels 2-3: the one output
+        assert len(guarded.buffers) == (5 if level < 2 else 1), (name, len(guarded.buffers))
+        assert guarded.guards_intact(), name
         scale = float(want.abs().max())
         assert bool(torch.isfinite(got).all())
         assert max_err(got, want) <= 1e-3 * (1.0 + scale), (name, max_err(got, want))
