@@ -4,10 +4,10 @@
 //
 // Replaces: alivevc_tpu/kernels/knn_twopass.py:knn_topk_twopass (pass A
 // _tile_kernel / _tile_kernel_exact, pallas_call at :331/:344/:395; pass B
-// _merge_packed_kernel :372 and _merge_exact :195) and
-// alivevc_tpu/kernels/knn_pallas.py:knn_topk_pallas (the carried kernel,
-// pallas_call at :331, used below 4096 library rows).  One kernel pair
-// serves any library of at least k rows.
+// _merge_packed_kernel :372 and _merge_exact :195): the route of libraries
+// of 4096 rows and more.  Smaller libraries take csrc/knn_carried.cu (JAX's
+// carried kernel, knn_pallas.py:331); kernels/knn.py:knn_plan routes, and
+// either form takes any library of at least k rows when forced.
 //
 // Inputs arrive L2-normalised (x * rsqrt(max(sum x^2, 1e-30)), done in
 // float32 by the wrapper) and, for precision 'default', rounded to bf16.
@@ -17,7 +17,9 @@
 // cvt.rna.tf32(x - hi), and the score accumulates lo.hi + hi.lo + hi.hi per
 // k-step (~2^-22 relative per product, so the ranking is float32-faithful;
 // kernels/knn.py:scores_3xtf32 emulates it).  A score's summation order is
-// the same for every row wherever it falls in a tile, a chunk or a shard.
+// the same for every row wherever it falls in a tile, a chunk or a shard
+// (the sharded path routes its shards by the whole library's rows, so a
+// shard takes the form one rank takes).
 // Ties go to the smallest library index.
 //
 // Row exclusion (the sharded path's shard padding): rows at index >=

@@ -41,7 +41,7 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 NATIVE = PKG / "native"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("stft", "knn", "oscillator", "filter")
+SOURCES = ("stft", "knn", "knn_carried", "oscillator", "filter")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -51,7 +51,8 @@ NATIVE_SOURCES = ("world.cpp", "ringbuffer.cpp")
 CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-shared")   # native/Makefile's
 
 LAUNCHES: Dict[str, int] = {"stft": 0, "knn": 0, "oscillator": 0, "filter_level": 0,
-                            "knn_packed": 0, "oscillator_formants": 0, "knn_merge": 0}
+                            "knn_packed": 0, "oscillator_formants": 0, "knn_merge": 0,
+                            "knn_carried": 0, "knn_carried_packed": 0}
 
 # the profiler span each kernel ``Function``'s backward recomputes its
 # plain version in (``plain_vjp``; chip_smoke.py reads the device time under it)

@@ -1,9 +1,16 @@
-"""Cosine top-k over a library: CUDA kernel pair (``csrc/knn.cu``) and its
-plain PyTorch version.
+"""Cosine top-k over a library: two CUDA forms and their plain PyTorch
+version.
 
-Replaces ``alivevc_tpu/kernels/knn_twopass.py:knn_topk_twopass`` and
-``alivevc_tpu/kernels/knn_pallas.py:knn_topk_pallas`` (the route at
-``knn_pallas.py:244-259``): one kernel takes any library of at least k rows.
+Replaces ``alivevc_tpu/kernels/knn_pallas.py:knn_topk_pallas`` and
+``alivevc_tpu/kernels/knn_twopass.py:knn_topk_twopass`` with their route
+(``knn_pallas.py:244-259``), which ``knn_plan`` keeps:
+  * libraries under ``CARRIED_MAX_ROWS`` (4 096) rows take the carried form
+    (``csrc/knn_carried.cu``, for JAX's carried kernel): one launch that
+    normalises both operands, one that scores, takes the top k and merges
+    its blocks' winners;
+  * larger libraries take the two-pass form (``csrc/knn.cu``): tile scores
+    and per-block top-k, then a merge launch.
+Either form takes any library of at least k rows (``form`` forces one).
 
 Precision modes (the JAX names):
   * 'default': bf16 operands, float32 accumulation.  An exact top-k on those
@@ -15,16 +22,22 @@ Precision modes (the JAX names):
     float32, ~2^-22 relative per product.  That is at least as precise as
     JAX's own 'high' (bf16x3, ``knn_twopass.py:246-257``).
 
-What bounds the kernel on an H100 is operations: the score products (3x
-them in 3xTF32).  It runs them on the tensor cores (``wgmma``, three
-warpgroups of 64 queries a block) fed by a 4-stage ring of TMA tensor
+What bounds the two-pass form on an H100 is operations: the score
+products (3x them in 3xTF32).  It runs them on the tensor cores (``wgmma``,
+three warpgroups of 64 queries a block) fed by a 4-stage ring of TMA tensor
 copies with ``mbarrier``s.  It folds each 192 x 128 score tile into register
 top-k lists straight from the accumulators while the next slabs land, and
-merges the chunks' winners with a warp per query (``csrc/knn.cu``).
+merges the chunks' winners with a warp per query (``csrc/knn.cu``).  What
+bounds the carried form at its shapes (the streaming hop's 24 queries, a
+512-token voice library) is latency: it puts the library on the wgmma's M
+side and up to 128 queries on N, and takes no host operation but its
+outputs, its scratch and one C call (``csrc/knn_carried.cu``).
 
 Normalisation is ``x * rsqrt(max(sum x^2, 1e-30))`` in float32 before the
-mode cast (``knn_twopass.py:230-234``).  Ties go to the smallest library
-index.
+mode cast (``knn_twopass.py:230-234``): PyTorch operations before the
+two-pass form, the carried form's first launch (its sum of squares in
+another order: the two forms may differ in a score's last bits).  Ties go
+to the smallest library index.
 
 Row exclusion, in every mode (the sharded path's shard padding):
   * ``valid_rows`` (an int, or a 0-d integer tensor on the source's device):
@@ -48,7 +61,8 @@ key minus 2 (within 3.1e-5 of the score).  'auto' is the exact extraction.
 
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -64,6 +78,17 @@ _QUERIES_PER_BLOCK = 192     # csrc/knn.cu: QT
 _MAX_CHUNKS = 65535          # chunks ride gridDim.y
 _D_MULT = 64                 # the kernel's slab: 128 bytes of a bf16 row
 _SUB = 128                   # packed extraction's subtile width (7 index bits)
+FORMS = ("carried", "twopass")
+CARRIED_MAX_ROWS = 4096      # knn_pallas.py:244-259: smaller libraries take the carried kernel
+CARRIED_NQ = (8, 24, 64, 128)  # csrc/knn_carried.cu: queries a block (the wgmma N)
+CARRIED_WG = (1, 2)          # warpgroups a block, 64 library rows each
+CARRIED_SPLITS = (4, 2, 1)   # blocks of a cluster that split the depth
+CARRIED_MAX_STAGES = 4       # csrc/knn_carried.cu: ring stages, at most
+SMEM_LIMIT = 232_448 - 1024  # a block's 227 KB on an H100, less room for the static flag
+SMEM_PER_SM = 233_472        # shared memory of an SM; 1 KB of it is reserved a block
+H100_SMS = 132
+_HEAD = 1024                 # csrc/knn_carried.cu: HEAD_BYTES
+_S_PAD = 4                   # csrc/knn_carried.cu: S_PAD
 
 
 def normalize_rows(x: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -185,21 +210,224 @@ def chunking(ls: int, lr: int) -> Tuple[int, int]:
     return rows_per_chunk, -(-lr // rows_per_chunk)
 
 
+class KnnPlan(NamedTuple):
+    """How ``knn_topk_cuda`` runs one call.  ``form`` 'twopass':
+    ``rows_per_chunk`` library rows a block, ``chunks`` blocks a query tile
+    (``chunking``).  ``form`` 'carried': ``nq`` queries and ``64 wg``
+    library rows a block, a grid of ``q_tiles`` x ``lib_blocks`` clusters of
+    ``split`` blocks that split the depth, ``stages`` ring stages, ``smem``
+    bytes of dynamic shared memory, ``scratch`` bytes of scratch
+    (csrc/knn_carried.cu)."""
+    form: str
+    rows_per_chunk: int = 0
+    chunks: int = 0
+    nq: int = 0
+    wg: int = 0
+    q_tiles: int = 0
+    lib_blocks: int = 0
+    split: int = 0
+    stages: int = 0
+    smem: int = 0
+    scratch: int = 0
+
+
+def _mode(precision: str, packed: bool) -> int:
+    """csrc/knn_carried.cu's mode: 0 3xTF32, 1 bf16, 2 bf16 packed."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}")
+    return 2 if packed else int(precision == "default")
+
+
+def carried_smem(nq: int, wg: int, stages: int, mode: int) -> int:
+    """Dynamic shared memory of a carried block: alignment slack and the
+    mbarriers, then the larger of the ring and the score rows."""
+    planes = 2 if mode == 0 else 1
+    ring = stages * planes * (64 * wg + nq) * 128
+    return 2 * _HEAD + max(ring, nq * (64 * wg + _S_PAD) * 4)
+
+
+def carried_scratch_bytes(ls: int, lr: int, lv: int, d: int, k: int, mode: int, nq: int,
+                          wg: int) -> int:
+    """csrc/knn_carried.cu:knn_carried_scratch_bytes: the prepared operands
+    (bf16, or TF32 hi and lo planes, columns padded to whole slabs), and with
+    more than one library block the blocks' lists and a counter a query
+    tile; each region rounded up to 1024 bytes."""
+    def up(x, m=1024):
+        return -(-x // m) * m
+    tf32 = mode == 0
+    dp, esize, planes = up(d, 32 if tf32 else 64), 4 if tf32 else 2, 2 if tf32 else 1
+    kk = 4 if k <= 4 else 8
+    n_lb, q_tiles = -(-min(lr, lv) // (64 * wg)), -(-ls // nq)
+    total = up(planes * ls * dp * esize) + up(planes * lr * dp * esize)
+    if n_lb > 1:
+        total += 2 * up(ls * n_lb * kk * 4) + up(q_tiles * 4)
+    return total
+
+
+def carried_split(ls: int, d: int, mode: int) -> int:
+    """Blocks that split the depth of a carried score tile: 4 (at most the
+    slabs a row has) where the queries fit one tile, else 1.  It depends on
+    the queries and the width alone, never on the library, so that a row
+    scores the same bits on one rank and in any shard."""
+    slabs = -(-d // (32 if mode == 0 else 64))
+    if ls > CARRIED_NQ[-1]:
+        return 1
+    return next(s for s in CARRIED_SPLITS if s <= slabs)
+
+
+@functools.lru_cache(maxsize=4096)
+def _carried_plan(ls: int, lr: int, lv: int, d: int, k: int, mode: int, sms: int) -> KnnPlan:
+    split = carried_split(ls, d, mode)
+    slabs = -(-d // (32 if mode == 0 else 64))       # 128-byte slabs of a row
+    steps = -(-slabs // split)                       # ... that a block walks
+    cover = next((nq for nq in CARRIED_NQ if nq >= ls), CARRIED_NQ[-1])
+    # a query tile narrower than the queries only where they need several
+    choices = [nq for nq in CARRIED_NQ if nq <= cover] if ls > CARRIED_NQ[-1] else [cover]
+    best, best_key = None, None
+    rows = min(lr, lv)
+    for nq in choices:
+        for wg in CARRIED_WG:
+            stage = (2 if mode == 0 else 1) * (64 * wg + nq) * 128
+            stages = min(CARRIED_MAX_STAGES, (SMEM_LIMIT - 2 * _HEAD) // stage)
+            if stages < 2:      # one stage refills while another is read
+                continue
+            stages = max(2, min(stages, steps))
+            q_tiles, lib_blocks = -(-ls // nq), -(-rows // (64 * wg))
+            blocks = q_tiles * lib_blocks * split
+            smem = carried_smem(nq, wg, stages, mode)
+            per_sm = max(1, SMEM_PER_SM // (smem + 1024))
+            waves = -(-blocks // (sms * per_sm))
+            # each block streams its (64 wg + nq) rows over the whole depth
+            key = (waves * (64 * wg + nq), blocks)
+            if best_key is None or key < best_key:
+                best_key = key
+                best = KnnPlan("carried", nq=nq, wg=wg, q_tiles=q_tiles, lib_blocks=lib_blocks,
+                               split=split, stages=stages, smem=smem,
+                               scratch=carried_scratch_bytes(ls, lr, lv, d, k, mode, nq, wg))
+    return best
+
+
+def knn_form(lr: int, route_rows: Optional[int] = None) -> str:
+    """'carried' below ``CARRIED_MAX_ROWS`` rows of ``route_rows`` (default
+    ``lr``), else 'twopass' (``knn_pallas.py:244-259``)."""
+    return "carried" if (lr if route_rows is None else route_rows) < CARRIED_MAX_ROWS else "twopass"
+
+
+def knn_plan(ls: int, lr: int, precision: str = "default", k: int = 4, form: Optional[str] = None,
+             route_rows: Optional[int] = None, valid_rows: Optional[int] = None, d: int = 768,
+             packed: bool = False, sms: int = H100_SMS) -> KnnPlan:
+    """The form and launch shape of a top-k of ``ls`` queries over ``lr``
+    rows (``valid_rows`` of them ranked, where it is a host count) of width
+    ``d``.  The form: ``form`` if given, else 'carried' below
+    ``CARRIED_MAX_ROWS`` rows of ``route_rows`` (the whole library's rows;
+    the sharded path passes them, so that every shard takes the form one
+    rank takes), default ``lr``.  The carried form's tile: the query width
+    ``nq`` that covers the queries (a narrower one too where more than 128
+    queries need several tiles) and ``wg``, chosen for the fewest waves of
+    blocks times the rows each block streams (its ``64 wg`` library rows
+    and ``nq`` queries), then for the fewest blocks; ``carried_split``
+    blocks a tile; up to 4 ring stages, at most the slabs a block walks."""
+    form = form or knn_form(lr, route_rows)
+    if form not in FORMS:
+        raise ValueError(f"unknown form {form!r}")
+    lv = lr if valid_rows is None else max(1, min(lr, int(valid_rows)))
+    if form == "twopass":
+        rows_per_chunk, chunks = chunking(ls, lv)
+        return KnnPlan("twopass", rows_per_chunk=rows_per_chunk, chunks=chunks)
+    return _carried_plan(ls, lr, lv, d, k, _mode(precision, packed), sms)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def knn_topk_cuda(source: torch.Tensor, library: torch.Tensor, k: int = 4,
                   precision: str = "default", valid_rows=None, penalty=None,
-                  extraction: str = "auto"):
-    """The kernel launch (tile scores + per-block top-k, then the merge).
-    It has no backward (indices have none): an input that requires grad in
-    grad mode raises."""
+                  extraction: str = "auto", form: Optional[str] = None,
+                  route_rows: Optional[int] = None):
+    """The kernel launches of the form ``knn_plan`` takes (``form`` forces
+    one; ``route_rows``: the whole library's rows, when ``library`` is a
+    shard of it).  They have no backward (indices have none): an input that
+    requires grad in grad mode raises."""
+    form = form or knn_form(library.shape[0], route_rows)
+    if form == "carried":
+        return knn_topk_carried(source, library, k, precision, valid_rows, penalty, extraction)
+    if form != "twopass":
+        raise ValueError(f"unknown form {form!r}")
     out_v, out_i, _, _ = knn_topk_launch(source, library, k, precision, valid_rows, penalty,
                                          extraction)
     return out_v[:, :k], out_i[:, :k].long()
 
 
+def knn_topk_carried(source: torch.Tensor, library: torch.Tensor, k: int = 4,
+                     precision: str = "default", valid_rows=None, penalty=None,
+                     extraction: str = "auto"):
+    """The carried form (``csrc/knn_carried.cu``): the rows as they come
+    (float32; the first launch normalises them), values [Ls, k] float32 and
+    indices [Ls, k] int64 written by the second launch.  One count in
+    ``_lib.LAUNCHES`` a call ('knn_carried', or 'knn_carried_packed')."""
+    _lib.refuse_grad("knn_topk_cuda", source, library, penalty)
+    if not 1 <= k <= 8:
+        raise ValueError(f"k={k} must be in [1, 8]")
+    if library.shape[0] < k:
+        raise ValueError(f"library has {library.shape[0]} rows < k={k}")
+    packed = uses_packed(precision, k, valid_rows, penalty, extraction)
+    mode = _mode(precision, packed)
+    src = (source if source.dtype == torch.float32 else source.float()).contiguous()
+    lib = (library if library.dtype == torch.float32 else library.float()).contiguous()
+    _lib.require(src, "source", (torch.float32,), 2)
+    _lib.require(lib, "library", (torch.float32,), 2)
+    if lib.device != src.device or lib.shape[1] != src.shape[1]:
+        raise ValueError(f"source {tuple(src.shape)} and library {tuple(lib.shape)} must share "
+                         "one device and one width")
+    ls, lr, d = src.shape[0], lib.shape[0], src.shape[1]
+    vr_ptr, lv, pen_ptr, _keep = _exclusion_args(valid_rows, penalty, src.device, lr)
+    dev = src.device
+    plan = _carried_plan(ls, lr, lv, d, k, mode, _sm_count(src.get_device()))
+    scratch = torch.empty(plan.scratch, dtype=torch.uint8, device=dev)
+    out_v = torch.empty((ls, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((ls, k), dtype=torch.int64, device=dev)
+    fn = _lib.function("knn_carried", "knn_carried", "ppppplppiiiiiiiiiip")
+    rc = fn(src.data_ptr(), lib.data_ptr(), pen_ptr, vr_ptr, scratch.data_ptr(), plan.scratch,
+            out_v.data_ptr(), out_i.data_ptr(), ls, lr, lv, d, k, mode, plan.nq, plan.wg,
+            plan.split, plan.stages, _lib.stream_of(src))
+    _lib.check(rc, "knn_carried")
+    _lib.LAUNCHES["knn_carried_packed" if packed else "knn_carried"] += 1
+    return out_v, out_i
+
+
+def _exclusion_args(valid_rows, penalty, device: torch.device, lr: int):
+    """The exclusion arguments of a launch: (valid-row count pointer or 0,
+    rows the grid covers, penalty pointer or 0, the tensors behind the
+    pointers, which the caller keeps until the launch).  A device count is
+    read by the kernel (no host sync); a host count stops the grid."""
+    vr_ptr, lv, keep = 0, lr, []
+    if torch.is_tensor(valid_rows):
+        if valid_rows.numel() != 1 or valid_rows.dtype.is_floating_point:
+            raise ValueError("valid_rows must be one integer")
+        valid_rows = valid_rows.to(device=device, dtype=torch.int32).reshape(())
+        vr_ptr = valid_rows.data_ptr()
+        keep.append(valid_rows)
+    elif valid_rows is not None:
+        if int(valid_rows) < 1:
+            raise ValueError(f"valid_rows={valid_rows} leaves no row")
+        lv = min(lr, int(valid_rows))
+    pen_ptr = 0
+    if penalty is not None:
+        penalty = penalty.float().contiguous()
+        _lib.require(penalty, "penalty", (torch.float32,), 1)
+        if penalty.shape[0] != lr or penalty.device != device:
+            raise ValueError(f"penalty must be [{lr}] on {device}")
+        pen_ptr = penalty.data_ptr()
+        keep.append(penalty)
+    return vr_ptr, lv, pen_ptr, keep
+
+
 def knn_topk_launch(source: torch.Tensor, library: torch.Tensor, k: int = 4,
                     precision: str = "default", valid_rows=None, penalty=None,
                     extraction: str = "auto"):
-    """``knn_topk_cuda``'s launch with the merge's inputs and outputs: (out
+    """The two-pass form's launch with the merge's inputs and outputs: (out
     values, out indices, candidate values, candidate indices), the
     candidates [Ls, chunks, kk] (each chunk's top kk, kk = 4 or 8) and the
     outputs [Ls, kk] (int32 indices), so the merge can be checked and timed
@@ -222,24 +450,8 @@ def knn_topk_launch(source: torch.Tensor, library: torch.Tensor, k: int = 4,
     if lib.device != src.device or lib.shape[1] != src.shape[1]:
         raise ValueError(f"source {tuple(src.shape)} and library {tuple(lib.shape)} must share "
                          "one device and one width")
-    ls, lr = src.shape[0], lib.shape[0]
-    vr_ptr = 0
-    if torch.is_tensor(valid_rows):
-        if valid_rows.numel() != 1 or valid_rows.dtype.is_floating_point:
-            raise ValueError("valid_rows must be one integer")
-        valid_rows = valid_rows.to(device=src.device, dtype=torch.int32).reshape(())
-        vr_ptr = valid_rows.data_ptr()
-    elif valid_rows is not None:
-        if int(valid_rows) < 1:
-            raise ValueError(f"valid_rows={valid_rows} leaves no row")
-        lr = min(lr, int(valid_rows))   # the grid stops at the valid rows
-    pen_ptr = 0
-    if penalty is not None:
-        penalty = penalty.float().contiguous()
-        _lib.require(penalty, "penalty", (torch.float32,), 1)
-        if penalty.shape[0] != lib.shape[0] or penalty.device != src.device:
-            raise ValueError(f"penalty must be [{lib.shape[0]}] on {src.device}")
-        pen_ptr = penalty.data_ptr()
+    ls = src.shape[0]
+    vr_ptr, lr, pen_ptr, _keep = _exclusion_args(valid_rows, penalty, src.device, lib.shape[0])
     kk = 4 if k <= 4 else 8
     rows_per_chunk, n_chunks = chunking(ls, lr)
     dev = src.device
@@ -260,11 +472,13 @@ def knn_topk_launch(source: torch.Tensor, library: torch.Tensor, k: int = 4,
 
 def knn_topk(source: torch.Tensor, library: torch.Tensor, k: int = 4,
              precision: str = "default", valid_rows=None, penalty=None,
-             extraction: str = "auto"):
-    """Cosine top-k of source [Ls, D] against library [Lr, D]: the kernel on
-    CUDA tensors, the plain version on CPU tensors."""
+             extraction: str = "auto", route_rows: Optional[int] = None):
+    """Cosine top-k of source [Ls, D] against library [Lr, D]: the kernels on
+    CUDA tensors (the form ``knn_plan`` routes ``route_rows`` to, default
+    Lr), the plain version on CPU tensors."""
     if _lib.route(source) == "cuda":
-        return knn_topk_cuda(source, library, k, precision, valid_rows, penalty, extraction)
+        return knn_topk_cuda(source, library, k, precision, valid_rows, penalty, extraction,
+                             route_rows=route_rows)
     return knn_topk_plain(source, library, k, precision, valid_rows, penalty, extraction)
 
 

@@ -12,6 +12,12 @@ merged in two phases:
      owns, one ``all_reduce`` sums the partial sums, and /k gives the mean.
 
 Traffic is O(Q * (P*k + D)) values, independent of the library size.
+Each shard's top-k takes the kernel form of the whole (padded) library's
+size (``kernels/knn.py:knn_plan``), so a row scores the same bits on one
+rank and sharded; the one exception is a library of 4 097 - P to 4 095 rows
+whose padding reaches 4 096, which one rank scores with the carried form
+and the shards with the two-pass form (the two may differ in a score's last
+bits).
 Padding is a row suffix of the last shards (``pad_library_for_sharding``),
 so each shard passes its valid-row count to the kernel, in every precision
 (the JAX package's exact modes use a penalty column instead, and its
@@ -55,8 +61,9 @@ def local_topk_merge(src: torch.Tensor, lib_shard: torch.Tensor, valid_shard: to
     parts = dist.get_world_size(group)
     me = mesh.get_local_rank(axis_name)
     rows = lib_shard.shape[0]
+    # every shard takes the kernel form that the whole library takes on one rank
     vals, idx = knn_topk(src, lib_shard, k=k, precision=precision,
-                         valid_rows=valid_shard.sum())
+                         valid_rows=valid_shard.sum(), route_rows=rows * parts)
 
     # phase 1: score merge over the shard-major candidates
     all_v = [torch.empty_like(vals) for _ in range(parts)]

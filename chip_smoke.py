@@ -37,7 +37,17 @@ printing the final line:
      'high'), the hop's shape and the 524 288-row shard: its outputs against
      ``merge_plain`` on the same candidates (exact), its device time alone
      (torch.profiler), and ``torch.topk`` + ``torch.gather`` over the
-     flattened candidates as the library call;
+     flattened candidates as the library call (at the hop's shape the
+     two-pass form forced: there the carried form merges in its own
+     launch).  Libraries under 4 096 rows take the carried form
+     (``csrc/knn_carried.cu``, rows 'knn_carried' and 'knn_carried_packed');
+     its shapes (the hop's 24 x 887 'high' and 'default', a fine-tuning
+     step's 960 x 512 'highest', 7 200 x 512 'default' and 'high') run
+     through both forms on one draw ("A/B" rows).  Every kNN row also
+     records ``kernel_ms``, its form's kernels alone (torch.profiler),
+     ``library_norm_ms``, ``matmul`` + ``topk`` with the normalisation of
+     both operands (the function's whole work; ``library_ms`` starts from
+     normalised operands), and the plan (``grid``);
   3. the main path end to end at full model width (default configs, random
      weights from a seed, a 100 352 x 768 library from the seed):
      ``OfflineConverter.convert_16k`` answers three requests (10 s, 30 s,
@@ -206,7 +216,7 @@ SHARD_TIMEOUT_S = 600
 SEED = 0
 OFFLINE_KERNELS = ("stft", "knn", "oscillator", "filter_level")
 SHARDED_KERNELS = ("knn", "oscillator", "filter_level")
-API_KERNELS = ("knn_packed", "oscillator_formants")
+API_KERNELS = ("knn_packed", "knn_carried_packed", "oscillator_formants")
 
 
 class SmokeFailure(RuntimeError):
@@ -320,12 +330,24 @@ def check_stft(gen, n=N_STEP, length=LW, tag=""):
 
 
 def check_knn(gen, lib_rows, precision, valid_rows=None, penalty=False, extraction="auto",
-              ls=N_STEP * LF, suffix=""):
+              ls=N_STEP * LF, suffix="", form=None):
     """One kNN variant: ``valid_rows`` (a device scalar, as the sharded path
     passes it), a 0/-4 ``penalty`` column, or the packed extraction; ``ls``
-    queries (the streaming hop's 24)."""
+    queries (the streaming hop's 24); the form ``knn_plan`` routes the
+    library to, or ``form`` forced.  The row's name is its form's kernel
+    ('knn' / 'knn_packed': the two-pass form; 'knn_carried' /
+    'knn_carried_packed': the carried form).  Beside the wrapper's time, the
+    form's kernels alone (``kernel_ms``, torch.profiler), and two library
+    columns: ``matmul`` + ``topk`` on operands normalised beforehand
+    (``library_ms``), and with the normalisation (``library_norm_ms``, the
+    same work as the function)."""
     import torch
-    from alivevc_tpu_torch.kernels.knn import knn_topk_cuda, knn_topk_plain, prep_operands
+    from alivevc_tpu_torch.kernels.knn import (
+        knn_plan,
+        knn_topk_cuda,
+        knn_topk_plain,
+        prep_operands,
+    )
 
     q = torch.randn(ls, 768, generator=gen, device="cuda")
     lib = torch.randn(lib_rows, 768, generator=gen, device="cuda")
@@ -339,8 +361,12 @@ def check_knn(gen, lib_rows, precision, valid_rows=None, penalty=False, extracti
     packed = extraction == "packed"
     if packed:
         tag = " packed"
+    plan = knn_plan(ls, lib_rows, precision, 4, form=form, packed=packed)
+    name = ("knn_carried" if plan.form == "carried" else "knn") + ("_packed" if packed else "")
+    kw["form"] = plan.form
     v, i = knn_topk_cuda(q, lib, 4, precision, **kw)
-    pv, pi = knn_topk_plain(q, lib, 5, precision, **kw)
+    plain_kw = {key: val for key, val in kw.items() if key != "form"}
+    pv, pi = knn_topk_plain(q, lib, 5, precision, **plain_kw)
     torch.cuda.synchronize()
     err = float((v - pv[:, :4]).abs().max())
     # float32 sums of the mode's operand products, in another order: the
@@ -357,8 +383,9 @@ def check_knn(gen, lib_rows, precision, valid_rows=None, penalty=False, extracti
          f"knn[{precision},{lib_rows}{tag}]: max abs err {err}, {bad} index sets differ")
     src, lb = prep_operands(q, lib, precision)
 
-    def library_call():
-        s = src @ lb.t()
+    def library_call(normalise=False):
+        a, b = prep_operands(q, lib, precision) if normalise else (src, lb)
+        s = a @ b.t()
         if valid_rows is not None:
             s[:, valid_rows:] = float("-inf")
         if penalty:
@@ -375,20 +402,26 @@ def check_knn(gen, lib_rows, precision, valid_rows=None, penalty=False, extracti
         b, by = bound_ms(nbytes, flops, PEAK_BF16)
     else:
         b, by = bound_ms(nbytes, 3.0 * flops, PEAK_TF32)
+    keys = ("knn_carried",) if plan.form == "carried" else ("knn_tile", "knn_merge")
     return {
-        "name": "knn_packed" if packed else "knn",
+        "name": name,
         "variant": f"{ls} x {lib_rows} x 768 {precision}{tag}{suffix}",
         "max_abs_err": err, "tol": tol, "index_sets_differing": bad,
         "ms": cuda_ms(lambda: knn_topk_cuda(q, lib, 4, precision, **kw)),
-        "plain_ms": cuda_ms(lambda: knn_topk_plain(q, lib, 4, precision, **kw), 2),
+        "kernel_ms": kernel_device_ms(lambda: knn_topk_cuda(q, lib, 4, precision, **kw), keys),
+        "plain_ms": cuda_ms(lambda: knn_topk_plain(q, lib, 4, precision, **plain_kw), 2),
         "library_ms": cuda_ms(library_call),
+        "library_norm_ms": cuda_ms(lambda: library_call(True)),
         "bound_ms": b, "bound_by": by,
+        "grid": {k: val for k, val in plan._asdict().items() if val or k == "form"},
     }
 
 
 def check_knn_merge(gen, lib_rows, precision, ls=N_STEP * LF, valid_rows=None, suffix=""):
     """The kNN merge (``knn_merge_kernel``, pass B of ``csrc/knn.cu``) on its
-    own, on the candidates a kNN call at this shape gives it: its outputs
+    own, on the candidates a two-pass kNN call at this shape gives it (the
+    two-pass form forced where the library is small enough for the carried
+    form, which merges inside its own launch): its outputs
     against ``merge_plain`` on the same candidates (values and indices
     exact: both take the top k by score, ties to the smallest index); its
     device time alone (torch.profiler, the tile kernel left out); the plain
@@ -421,7 +454,8 @@ def check_knn_merge(gen, lib_rows, precision, ls=N_STEP * LF, valid_rows=None, s
 
     nbytes = cand_v.numel() * 4 + cand_i.numel() * 4 + out_v.numel() * 4 + out_i.numel() * 4
     b, by = bound_ms(nbytes, 0.0, PEAK_F32)
-    ms = kernel_device_ms(lambda: knn_topk_cuda(q, lib, 4, precision, **kw), ("knn_merge_kernel",))
+    ms = kernel_device_ms(lambda: knn_topk_cuda(q, lib, 4, precision, form="twopass", **kw),
+                          ("knn_merge_kernel",))
     need(ms is not None, "knn merge: the profiler recorded no device time for knn_merge_kernel")
     return {
         "name": "knn_merge",
@@ -853,7 +887,7 @@ def knn_flip_rates_over_draws(ce, xa, draws: int = 4):
 
 KERNEL_GROUPS = (
     ("stft", ("stft_fft",)),
-    ("knn", ("knn_tile", "knn_merge")),
+    ("knn", ("knn_tile", "knn_merge", "knn_carried")),
     ("oscillator", ("osc_scan", "osc_cheb", "osc_formant")),
     ("filter_level", ("filter_wide_kernel", "filter_wide_weights_kernel", "filter_narrow_kernel")),
 )
@@ -1115,18 +1149,22 @@ def run_kernel_api(gen, card):
     q = torch.randn(N_STEP * LF, 768, generator=gen, device="cuda")
     lib = torch.randn(LIB_ROWS, 768, generator=gen, device="cuda")
     f0, formants, amps = formant_inputs(gen)
+    small = lib[:512]                  # a voice library's size: the carried form's packed kernel
     reset_launches()
     pv, pi = kernels.knn_topk(q, lib, 4, "default", extraction="packed")
+    spv, spi = kernels.knn_topk(q, small, 4, "default", extraction="packed")
     src = kernels.harmonic_source_formants(formants, amps)
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
     need(all(launches[k] > 0 for k in API_KERNELS), f"kernel API: a kernel did not launch: {launches}")
     # uncounted: each against its exact counterpart
-    ev, ei = knn_topk_cuda(q, lib, 5, "default")
-    clear = (ev[:, 3] - ev[:, 4]) > 1e-4
-    same = (torch.sort(pi, 1).values == torch.sort(ei[:, :4], 1).values).all(1)
-    bad = int((clear & ~same).sum())
-    kerr = float((pv - ev[:, :4]).abs().max())
+    kerr, bad = 0.0, 0
+    for got_v, got_i, rows in ((pv, pi, lib), (spv, spi, small)):
+        ev, ei = knn_topk_cuda(q, rows, 5, "default")
+        clear = (ev[:, 3] - ev[:, 4]) > 1e-4
+        same = (torch.sort(got_i, 1).values == torch.sort(ei[:, :4], 1).values).all(1)
+        bad += int((clear & ~same).sum())
+        kerr = max(kerr, float((got_v - ev[:, :4]).abs().max()))
     serr = float((src - harmonic_source_cuda(f0, amps)).abs().max())
     print(f"kernel API [{card}]: packed vs exact 'default' max abs {kerr:.3e} (<= 3.2e-5), "
           f"{bad} clear index sets differ; formant vs Chebyshev source max abs {serr:.3e} (<= 5e-3); "
@@ -1147,7 +1185,8 @@ HOP_WINDOW = HOP_CHUNK * HOP_PRIME
 COMPARE_HOPS = 50
 LATENCY_HOPS = 200
 PROFILE_HOPS = 20
-STREAM_KERNELS = ("stft", "knn", "filter_level")
+STREAM_KERNELS = ("stft", "knn_carried", "filter_level")   # the hop's 887 rows: the carried form
+CLI_OFFLINE_KERNELS = ("stft", "knn_carried", "oscillator", "filter_level")
 PHASE6_LIMIT_S = 60.0
 WPE_LATENCY_HOPS = 60        # the -wpe forms' latency hops (WORLD runs on the host each hop)
 
@@ -1209,8 +1248,9 @@ def run_cli_phase(card, flags=()):
         target = os.path.join(tmp, "target.wav")
         write_wav(target, request_wave(10.0, rng), 16_000)
         length16 = math.ceil(160 * len(wave) / 441)
+        # a 10 s target is a library of ~500 rows: the carried kNN form
         runs = (
-            ("offline", OFFLINE_KERNELS, lambda: inference.main(
+            ("offline", CLI_OFFLINE_KERNELS, lambda: inference.main(
                 ["-i", os.path.join(tmp, "in"), "-o", os.path.join(tmp, "out"), "-t", target,
                  *flags])[0],
              os.path.join(tmp, "out", "0_voice.wav"), sr, math.ceil(441 * length16 / 160)),
@@ -1380,7 +1420,8 @@ def run_realtime(ce, f0m, dec, gen, card):
                             f"{PROFILE_HOPS} hops, {name}, synchronous")
         if prof is not None:
             print(f"realtime: {name} hop device time {prof['device_busy_ms'] / PROFILE_HOPS:.4f} ms, "
-                  f"{prof['device_spans'] / PROFILE_HOPS:.1f} device spans a hop")
+                  f"{prof['device_spans'] / PROFILE_HOPS:.1f} device spans a hop, kNN kernels "
+                  f"{prof['by_group_ms']['knn'] / PROFILE_HOPS:.4f} ms a hop")
         profiles[name] = prof
     # 8. WORLD pitch: the same three forms with f0 from the host
     wpe_launches, wpe_report = run_realtime_world(ce, f0m, dec, tgt, prime, hops, card)
@@ -1394,6 +1435,8 @@ def run_realtime(ce, f0m, dec, gen, card):
               "card_vs_cpu_wave": wave_err, "card_vs_cpu_phi": phi_err, "latency_ms": latency,
               "hop_device_ms": {k: None if v is None else v["device_busy_ms"] / PROFILE_HOPS
                                 for k, v in profiles.items()},
+              "hop_knn_device_ms": {k: None if v is None else v["by_group_ms"]["knn"] / PROFILE_HOPS
+                                    for k, v in profiles.items()},
               "hop_busy_share": {k: None if v is None else v["device_busy_ms"] / v["wall_ms"]
                                  for k, v in profiles.items()},
               "elapsed_s": elapsed, **wpe_report}
@@ -1748,7 +1791,7 @@ TRAIN_GROUPS = (
     ("filter kernels", ("filter_wide_kernel", "filter_wide_weights_kernel", "filter_narrow_kernel")),
     ("oscillator kernel", ("osc_cheb",)),
     ("STFT kernel", ("stft_fft",)),
-    ("kNN kernels", ("knn_tile", "knn_merge")),
+    ("kNN kernels", ("knn_tile", "knn_merge", "knn_carried")),
     ("cuDNN/cuBLAS", ("gemm", "cudnn", "cutlass", "xmma", "cublas", "implicit_convolve",
                       "fprop", "dgrad", "wgrad")),
 )
@@ -2150,8 +2193,10 @@ def run_training(card):
     print(f"train fine-tune [{card}]: 2 fine_tune_steps at {TRAIN_N} x {TRAIN_LEN} with a 512-token "
           f"library: ms/step {', '.join(f'{x:.2f}' for x in ft_ms)}; launches {ft_launches}; tokens "
           f"moved by up to {moved:.3e}")
-    need(ft_launches["knn"] == 2 and moved > 0, f"fine-tune: kNN launches {ft_launches['knn']}, "
-         f"tokens moved {moved}")
+    # the 512-token library takes the carried form, one launch a step
+    need(ft_launches["knn_carried"] == 2 and ft_launches["knn"] == 0 and moved > 0,
+         f"fine-tune: kNN launches {ft_launches['knn_carried']} carried, {ft_launches['knn']} "
+         f"two-pass, tokens moved {moved}")
     del ft, vl
     f0s = init_f0_train(copy.deepcopy(f0m))
     f0_wave, base = train_batch(F0_TRAIN_N, F0_TRAIN_LEN, SEED + 14)
@@ -2450,7 +2495,7 @@ def run_distill_clis(card, teacher, wavlm_path, tmp):
     ce = load_params_or_init(paths["wavlm"], "content_encoder", torch.device(DEV))
     same = all(torch.equal(ce.state_dict()[k].cpu(), v) for k, v in a.items())
     need(out.shape == (32_000,) and written.shape == (1, 32_000) and bool(np.isfinite(out).all())
-         and same and all(got[k] > 0 for k in OFFLINE_KERNELS),
+         and same and all(got[k] > 0 for k in CLI_OFFLINE_KERNELS),
          f"inference -cep: output {out.shape}, file {written.shape}, encoder as trained {same}, {got}")
     print(f"inference CLI -cep <the distillation's training state>: 2 s in, {out.shape[0]} samples "
           f"out, {dt:.2f} s wall, the encoder read as trained, launches {got}; the two distillation "
@@ -2703,7 +2748,7 @@ DETERMINISTIC_TIMEOUT_S = 300
 # 60 s before the deterministic sub-run; it takes ~30 s in a process of its own (30.5 s in its
 # first run on an H100 at 700 W, the phase 57.9 s), so the limit is raised by 30 s
 PHASE10_LIMIT_S = 90.0
-RESUME_KERNELS = ("filter_level", "oscillator", "stft", "knn")
+RESUME_KERNELS = ("filter_level", "oscillator", "stft", "knn_carried")   # fine-tuning's library
 
 
 def state_tensors(state) -> dict:
@@ -2985,7 +3030,7 @@ def run_resume(card):
 # ---------------------------------------------------------------------------
 
 PHASE11_LIMIT_S = 60.0
-CHAIN_KERNELS = ("stft", "filter_level", "oscillator", "knn")
+CHAIN_KERNELS = ("stft", "filter_level", "oscillator", "knn_carried")   # small libraries
 
 
 def state_digest(sd) -> str:
@@ -3126,7 +3171,10 @@ def run_cli_chain(card):
 REPLACES = {
     "stft": ("alivevc_tpu_torch/csrc/stft.cu", "alivevc_tpu/kernels/stft_pallas.py:77"),
     "knn": ("alivevc_tpu_torch/csrc/knn.cu",
-            "alivevc_tpu/kernels/knn_twopass.py:331 (+ :344, :395; knn_pallas.py:331)"),
+            "alivevc_tpu/kernels/knn_twopass.py:331 (+ :344, :395)"),
+    "knn_carried": ("alivevc_tpu_torch/csrc/knn_carried.cu",
+                    "alivevc_tpu/kernels/knn_pallas.py:331 (_knn_kernel; + knn_twopass.py:195 "
+                    "_merge_exact at its shapes)"),
     "knn_merge": ("alivevc_tpu_torch/csrc/knn.cu (knn_merge_kernel)",
                   "alivevc_tpu/kernels/knn_twopass.py:372 (_merge_packed_kernel; + :195 _merge_exact)"),
     "oscillator": ("alivevc_tpu_torch/csrc/oscillator.cu",
@@ -3134,6 +3182,8 @@ REPLACES = {
     "filter_level": ("alivevc_tpu_torch/csrc/filter.cu", "alivevc_tpu/kernels/filter_pallas.py:771"),
     "knn_packed": ("alivevc_tpu_torch/csrc/knn.cu",
                    "alivevc_tpu/kernels/knn_pallas.py:331 (_knn_kernel_fast, _pack_topk)"),
+    "knn_carried_packed": ("alivevc_tpu_torch/csrc/knn_carried.cu",
+                           "alivevc_tpu/kernels/knn_pallas.py:331 (_knn_kernel_fast, _pack_topk)"),
     "oscillator_formants": ("alivevc_tpu_torch/csrc/oscillator.cu",
                             "alivevc_tpu/kernels/oscillator_pallas.py:281"),
 }
@@ -3143,7 +3193,8 @@ def kernels_line(rows, launches):
     """One entry per kernel.  The numbers are those of the kernel's variant
     on the bf16 main path (kNN 'default' at the 100 352-row library; the
     filter's four up levels in bf16, summed: one step runs all four; the
-    packed kNN at the 100 352-row library); every measured variant, the
+    packed kNN at the 100 352-row library; the carried kNN form at the
+    streaming hop, 'high', and its packed kernel at 512 rows); every measured variant, the
     streaming hop's and the training Functions' included, is listed under 'variants'.  Launches
     are summed over the paths driven (phases 3, 4 with both ranks, 5, 6, 7 with both ranks, 8, 9,
     10 with its deterministic sub-run, 11)."""
@@ -3154,6 +3205,10 @@ def kernels_line(rows, launches):
             main = [r for r in mine if r["variant"].endswith(f"{LIB_ROWS} x 768 default")]
         elif name == "knn_packed":
             main = [r for r in mine if f" {LIB_ROWS} x 768" in r["variant"]]
+        elif name == "knn_carried":       # the streaming hop's call, phase 6's target matrix
+            main = [r for r in mine if r["variant"].endswith("high (hop)")]
+        elif name == "knn_carried_packed":
+            main = [r for r in mine if r["variant"].startswith(f"{N_STEP * LF} x 512 x 768")]
         elif name == "filter_level":
             main = [r for r in mine if r["variant"].endswith("bf16")]
         else:     # the STFT and the oscillators: the offline row, not the hop's, training's or distillation's
@@ -3186,8 +3241,12 @@ def print_rows(rows, card) -> None:
             prod += f" form_bytes_floor {r['form_bytes_floor_ms']:.4f}"
         if "kernel_ms" in r:
             kms = "not measured" if r["kernel_ms"] is None else f"{r['kernel_ms']:.4f}"
-            prod += (f" kernels alone {kms} ({r['tiles']} tiles on {r['resident_blocks']} resident "
-                     f"blocks, {r['waves']:.2f} waves)")
+            prod += f" kernels alone {kms}"
+            if "tiles" in r:
+                prod += (f" ({r['tiles']} tiles on {r['resident_blocks']} resident blocks, "
+                         f"{r['waves']:.2f} waves)")
+        if "library_norm_ms" in r:
+            prod += f" library+normalise {r['library_norm_ms']:.4f}"
         if "grid" in r:
             prod += f" grid {r['grid']}"
         print(f"kernel {r['name']:19s} {r['variant']:52s} err {r['max_abs_err']:.3e} "
@@ -3245,6 +3304,14 @@ def main() -> int:
         rows.append(check_knn(gen, shard, precision, valid_rows=shard - 1))
     rows.append(check_knn(gen, 512, "highest", valid_rows=509))
     rows.append(check_knn(gen, LIB_ROWS, "high", penalty=True))
+    # the carried form's shapes, each form on the same draw (a generator of
+    # their own, so that `gen` and phase 3's library draw as before)
+    for ls, lib_rows, precision in ((24, 887, "high"), (24, 887, "default"), (960, 512, "highest"),
+                                    (N_STEP * LF, 512, "default"), (N_STEP * LF, 512, "high")):
+        for form in ("carried", "twopass"):
+            ab_gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+            rows.append(check_knn(ab_gen, lib_rows, precision, ls=ls, form=form,
+                                  suffix=" (A/B carried)" if form == "carried" else " (A/B two-pass)"))
     merge_gen = torch.Generator(device="cuda").manual_seed(SEED + 7)   # leaves `gen` as it was
     for precision in ("default", "high"):
         rows.append(check_knn_merge(merge_gen, LIB_ROWS, precision))

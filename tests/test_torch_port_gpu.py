@@ -111,11 +111,12 @@ def test_kernel_matches_plain_on_card(name):
         assert max_err(got, want) <= 1e-3
 
 
-def _knn_vs_plain(q, lib, k, precision, **kw):
+def _knn_vs_plain(q, lib, k, precision, got=None, **kw):
     """Kernel vs plain version: values within 1e-4, sentinels in the same
     places, index sets equal wherever the plain k-th and (k+1)-th scores
-    are more than 1e-4 apart (or fewer than k + 1 rows rank)."""
-    v, i = kknn.knn_topk_cuda(q, lib, k, precision, **kw)
+    are more than 1e-4 apart (or fewer than k + 1 rows rank).  ``got``: the
+    kernel's (values, indices), if already computed."""
+    v, i = got if got is not None else kknn.knn_topk_cuda(q, lib, k, precision, **kw)
     kp = min(k + 1, lib.shape[0])
     pv, pi = kknn.knn_topk_plain(q, lib, kp, precision, **kw)
     assert torch.equal(torch.isneginf(v), torch.isneginf(pv[:, :k]))
@@ -179,6 +180,173 @@ def test_redesigned_kernel_edges_on_card(name):
         assert float(clear.float().mean()) > 0.8
         same = (torch.sort(i, 1).values == torch.sort(order[:, :4], 1).values).all(1)
         assert bool(same[clear].all())
+
+
+# The carried form's card cases (csrc/knn_carried.cu): queries around its
+# query tiles (8, 24, 64 and 128 wide; 960 and 7 200 over several tiles)
+# and rows around its library blocks (64 rows a warpgroup, 1 or 2 a block)
+# up to the route's bound; "k": a library of k rows.
+KNN_CARRIED_QUERIES = (1, 24, 63, 64, 65, 960, 7200)
+KNN_CARRIED_ROWS = ("k", 127, 128, 887, 4095)
+KNN_CARRIED_NARROW = 100     # a width of 2 bf16 slabs (a depth split of 2) and 4 TF32 slabs
+
+
+def knn_carried_variants(rows):
+    """(k, precision, library rows, keyword arguments) of each card case at
+    ``rows``: every mode, k = 8, valid_rows as a host int and as a device
+    scalar, a 0/-4 penalty ("penalty" stands for it) and the packed
+    extraction."""
+    if rows == "k":
+        return ([(k, p, k, {}) for k in (4, 8) for p in kknn.PRECISIONS]
+                + [(4, "highest", 4, {"valid_rows": "device:2"}),
+                   (4, "default", 4, {"extraction": "packed"})])
+    return [(4, "default", rows, {}), (4, "high", rows, {}), (4, "highest", rows, {}),
+            (8, "high", rows, {}), (4, "highest", rows, {"valid_rows": rows - 5}),
+            (4, "default", rows, {"valid_rows": f"device:{rows // 2}"}),
+            (5, "high", rows, {"penalty": "penalty"}),
+            (4, "default", rows, {"extraction": "packed"})]
+
+
+def _carried_kw(kw, rows, g):
+    out = dict(kw)
+    if isinstance(kw.get("valid_rows"), str):
+        out["valid_rows"] = torch.tensor(int(kw["valid_rows"].split(":")[1]), device="cuda")
+    if "penalty" in kw:
+        out["penalty"] = torch.where(torch.rand(rows, generator=g, device="cuda") < 0.3, -4.0, 0.0)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ls", KNN_CARRIED_QUERIES)
+def test_knn_carried_edges_on_card(ls, monkeypatch):
+    """The carried form against ``knn_topk_plain`` (``_knn_vs_plain``'s
+    tolerances) at the edges of its tiles, every mode and exclusion: the
+    inputs at the end of their allocations, its outputs and scratch (the
+    prepared operands, the blocks' lists and the counters) between sentinel
+    guards, one launch count a call and none of the two-pass form's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; on the card run this file with --noconftest -m gpu")
+    from alivevc_tpu_torch.kernels import LAUNCHES
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(11)
+    q = _at_end(torch.randn(ls, 768, generator=g, device="cuda"))
+    for spec in KNN_CARRIED_ROWS:
+        for k, precision, rows, kw in knn_carried_variants(spec):
+            lib = _at_end(torch.randn(rows, 768, generator=g, device="cuda"))
+            kw = _carried_kw(kw, rows, g)
+            assert kknn.knn_plan(ls, rows, precision, k).form == "carried"
+            before = dict(LAUNCHES)
+            guarded = _GuardedTorch()
+            monkeypatch.setattr(kknn, "torch", guarded)
+            got = kknn.knn_topk_cuda(q, lib, k, precision, **kw)
+            torch.cuda.synchronize()
+            monkeypatch.undo()
+            case = (ls, rows, k, precision, sorted(kw))
+            assert len(guarded.buffers) == 3 and guarded.guards_intact(), case
+            packed = kknn.uses_packed(precision, k, kw.get("valid_rows"), kw.get("penalty"),
+                                      kw.get("extraction", "auto"))
+            grew = {key: LAUNCHES[key] - before[key] for key in LAUNCHES}
+            assert grew == {**{key: 0 for key in LAUNCHES},
+                            "knn_carried_packed" if packed else "knn_carried": 1}, case
+            assert got[0].shape == (ls, k) and got[1].dtype == torch.int64, case
+            _knn_vs_plain(q, lib, k, precision, got=got, **kw)
+            if "valid_rows" in kw:
+                idx = got[1][got[1] != kknn.SENTINEL]
+                assert idx.numel() == 0 or int(idx.max()) < int(kw["valid_rows"]), case
+    lib = torch.randn(887, 768, generator=g, device="cuda")
+    for precision in kknn.PRECISIONS:       # the columns padded to whole slabs
+        _knn_vs_plain(q[:, :KNN_CARRIED_NARROW], lib[:, :KNN_CARRIED_NARROW], 4, precision)
+
+
+@pytest.mark.gpu
+def test_knn_carried_repeatable_on_card():
+    """Five calls give the same bits: the hop (24 x 887 'high', one query
+    tile over 14 library blocks merged by the last block to finish), a
+    fine-tuning step (960 x 512 'highest') and 7 200 x 512 'default' and
+    packed (several query tiles and library blocks)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; on the card run this file with --noconftest -m gpu")
+    g = torch.Generator(device="cuda").manual_seed(12)
+    for ls, rows, precision, kw in ((24, 887, "high", {}), (960, 512, "highest", {}),
+                                    (7200, 512, "default", {}),
+                                    (7200, 512, "default", {"extraction": "packed"})):
+        q = torch.randn(ls, 768, generator=g, device="cuda")
+        lib = torch.randn(rows, 768, generator=g, device="cuda")
+        assert kknn.knn_plan(ls, rows, precision).lib_blocks > 1
+        first = kknn.knn_topk_cuda(q, lib, 4, precision, **kw)
+        for _ in range(4):
+            again = kknn.knn_topk_cuda(q, lib, 4, precision, **kw)
+            assert torch.equal(again[0], first[0]) and torch.equal(again[1], first[1]), (ls, rows)
+
+
+@pytest.mark.gpu
+def test_knn_forms_agree_on_card():
+    """The two forms forced at shapes both take (24 x 887, 960 x 512, 65 x
+    4 095; every mode): values within 1e-5 of each other in 'high' and
+    'highest' (each form normalises the rows with its own order of the sum
+    of squares, so a score may move in its last bits) and 1e-4 in 'default'
+    (where such a move may round a bf16 operand the other way), and index
+    sets equal wherever the plain 4th and 5th scores are further apart than
+    that.  And the property the sharded path's
+    exactness rests on: a row scores the same bits wherever it falls, so
+    the carried form over a library and over a shard of it (the shard's
+    valid rows on the device) give bit-equal values for the winners inside
+    the shard.  The sharded path routes every shard by the whole library's
+    rows (``route_rows``), so one rank and the shards take the same form."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; on the card run this file with --noconftest -m gpu")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(13)
+    for ls, rows in ((24, 887), (960, 512), (65, 4095)):
+        q = torch.randn(ls, 768, generator=g, device="cuda")
+        lib = torch.randn(rows, 768, generator=g, device="cuda")
+        for precision in kknn.PRECISIONS:
+            cv, ci = kknn.knn_topk_cuda(q, lib, 4, precision, form="carried")
+            tv, ti = kknn.knn_topk_cuda(q, lib, 4, precision, form="twopass")
+            pv, _ = kknn.knn_topk_plain(q, lib, 5, precision)
+            tol = 1e-4 if precision == "default" else 1e-5
+            assert max_err(cv, tv) <= tol, (ls, rows, precision, max_err(cv, tv))
+            clear = (pv[:, 3] - pv[:, 4]) > tol
+            same = (torch.sort(ci, 1).values == torch.sort(ti, 1).values).all(1)
+            assert bool((same | ~clear).all()), (ls, rows, precision)
+    lib = torch.randn(2000, 768, generator=g, device="cuda")
+    q = lib[1500:1524] + 0.01 * torch.randn(24, 768, generator=g, device="cuda")
+    assert kknn.knn_plan(24, 1000, "highest", route_rows=2000).form == "carried"
+    for precision in kknn.PRECISIONS:
+        fv, fi = kknn.knn_topk(q, lib, 4, precision)
+        sv, si = kknn.knn_topk(q, lib[1000:], 4, precision, valid_rows=torch.tensor(990, device="cuda"),
+                               route_rows=2000)
+        assert torch.equal(fi[:, 0], torch.arange(1500, 1524, device="cuda")), precision
+        assert torch.equal(si[:, 0] + 1000, fi[:, 0]) and torch.equal(sv[:, 0], fv[:, 0]), precision
+
+
+@pytest.mark.gpu
+def test_knn_carried_scratch_formula_on_card():
+    """``kernels/knn.py:carried_scratch_bytes`` (what the wrapper allocates)
+    equals the kernel's own ``knn_carried_scratch_bytes`` at every card
+    case's plan, and every plan's shared memory fits a block."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; on the card run this file with --noconftest -m gpu")
+    import ctypes
+
+    from alivevc_tpu_torch.kernels import _lib
+
+    fn = _lib.library("knn_carried").knn_carried_scratch_bytes
+    fn.argtypes = [ctypes.c_int] * 8
+    fn.restype = ctypes.c_longlong
+    for ls in KNN_CARRIED_QUERIES:
+        for spec in KNN_CARRIED_ROWS:
+            for k, precision, rows, kw in knn_carried_variants(spec):
+                vr = kw.get("valid_rows")
+                lv = vr if isinstance(vr, int) else rows
+                packed = kw.get("extraction") == "packed"
+                plan = kknn.knn_plan(ls, rows, precision, k, valid_rows=lv, packed=packed)
+                mode = 2 if packed else int(precision == "default")
+                kk = 4 if k <= 4 else 8
+                assert plan.scratch == fn(ls, rows, lv, 768, kk, mode, plan.nq, plan.wg), (ls, rows)
+                assert plan.smem <= kknn.SMEM_LIMIT
 
 
 # (level, windows, input samples, FiLM frames): the four (C, r) level shapes
@@ -479,7 +647,9 @@ def test_sharded_path_two_ranks_on_card(tmp_path):
     assert torch.equal(torch.sort(two["idx"], 1).values, torch.sort(one["idx"], 1).values)
     assert max_err(two["wave"], one["wave"]) <= 1e-4
     for res in (two, two_b, one):
-        assert all(res["launches"][k] > 0 for k in ("knn", "oscillator", "filter_level")), res["launches"]
+        # 4 001 rows (4 002 padded) take the carried form on one rank and on each shard
+        assert all(res["launches"][k] > 0 for k in ("knn_carried", "oscillator", "filter_level")), \
+            res["launches"]
 
 
 # ---------------------------------------------------------------------------
@@ -514,7 +684,7 @@ class _GuardedTorch:
 
     def empty(self, shape, dtype, device):
         numel = int(np.prod(shape))
-        buf = torch.full((2 * GUARD + numel,), SENTINEL, dtype=dtype, device=device)
+        buf = torch.full((2 * GUARD + numel,), _sentinel(dtype), dtype=dtype, device=device)
         self.buffers.append((buf, numel))
         return buf[GUARD:GUARD + numel].view(shape)
 
@@ -522,8 +692,13 @@ class _GuardedTorch:
         return self.empty(t.shape, dtype=t.dtype, device=t.device)
 
     def guards_intact(self) -> bool:
-        return all(bool((buf[:GUARD] == SENTINEL).all()) and bool((buf[GUARD + n:] == SENTINEL).all())
-                   for buf, n in self.buffers)
+        return all(bool((buf[:GUARD] == _sentinel(buf.dtype)).all())
+                   and bool((buf[GUARD + n:] == _sentinel(buf.dtype)).all()) for buf, n in self.buffers)
+
+
+def _sentinel(dtype):
+    """The guard value of a buffer: SENTINEL, or 0xA5 in a byte buffer."""
+    return 0xA5 if dtype == torch.uint8 else SENTINEL
 
 
 def _hop_level(dec, level, g):
@@ -597,6 +772,7 @@ def _graph_cases(g):
     formants = f0 * torch.arange(1, 65, device="cuda")
     q = torch.randn(24, 768, generator=g, device="cuda")
     lib = torch.randn(887, 768, generator=g, device="cuda")
+    many = torch.randn(960, 768, generator=g, device="cuda")    # several query tiles
     x = 0.3 * torch.randn(1, HOP, generator=g, device="cuda")
     wide = _hop_level(dec, 1, g)
     narrow = _hop_level(dec, 3, g)
@@ -604,6 +780,8 @@ def _graph_cases(g):
         ("stft", lambda: kstft.stft_magnitude_cuda(x), [x]),
         ("knn_high", lambda: kknn.knn_topk_cuda(q, lib, 4, "high")[1], [q, lib]),
         ("knn_default", lambda: kknn.knn_topk_cuda(q, lib, 4, "default")[1], [q, lib]),
+        ("knn_high_twopass", lambda: kknn.knn_topk_cuda(q, lib, 4, "high", form="twopass")[1], [q, lib]),
+        ("knn_carried_tiles", lambda: kknn.knn_topk_cuda(many, lib, 8, "highest")[1], [many, lib]),
         ("oscillator", lambda: kosc.harmonic_source_cuda(f0, amps), [f0, amps]),
         ("oscillator_formants", lambda: kosc.harmonic_source_formants_cuda(formants, amps),
          [formants, amps]),
@@ -675,7 +853,7 @@ def test_streaming_graph_equals_eager_on_card():
         reset_launches()
         outs[name] = [conv.process_chunk(c) for c in chunks] + conv.flush()
         if name == "eager":
-            assert all(LAUNCHES[k] == 10 for k in ("stft", "knn")) and LAUNCHES["filter_level"] == 40
+            assert all(LAUNCHES[k] == 10 for k in ("stft", "knn_carried")) and LAUNCHES["filter_level"] == 40
         else:   # the warm-up hops and the capture only
             assert LAUNCHES["stft"] == 3
         conv.reset()
@@ -967,7 +1145,7 @@ def test_every_parameter_learns_on_card():
     ft = init_fine_tune(dec, disc, vl)
     reset_launches()
     fine_tune_step(ft, ce, f0m, wave, amp)
-    assert LAUNCHES["knn"] == 1 and not torch.equal(vl.tokens, tokens)
+    assert LAUNCHES["knn_carried"] == 1 and not torch.equal(vl.tokens, tokens)
 
 
 WAVLM_NARROW = dict(hidden_size=64, num_layers=10, num_heads=4, intermediate_size=128,
@@ -1063,7 +1241,7 @@ def test_exported_graphs_match_the_kernel_path_on_card(tmp_path):
         reset_launches()
         want_f = filter_unet(dec.filter, x, c, dec.cfg)[..., 0]
         want_v = voice_library_match(vl, content)
-        assert LAUNCHES["filter_level"] == 4 and LAUNCHES["knn"] == 1
+        assert LAUNCHES["filter_level"] == 4 and LAUNCHES["knn_carried"] == 1
         got_f, got_v = loaded["filter"](x, c), loaded["voice_library"](content)
     assert got_f.is_cuda and max_err(got_f, want_f) <= 1e-3 * (1.0 + float(want_f.abs().max()))
     assert max_err(got_v, want_v) <= 1e-6

@@ -141,11 +141,18 @@ def _exact(src, lib, k):
     return sims, order[:, :k], np.take_along_axis(sims, order[:, :k + 1], axis=1)
 
 
-@pytest.mark.parametrize("lr,precision", [(1000, "highest"), (1000, "high"), (4096, "high")])
+# queries a case, where not 64: the streaming hop's 24 (887 rows, 'high')
+# and a fine-tuning-like 96 (a 512-token library, 'highest')
+_EXACT_MODE_QUERIES = {887: 24, 512: 96}
+
+
+@pytest.mark.parametrize("lr,precision", [(1000, "highest"), (1000, "high"), (4096, "high"),
+                                          (887, "high"), (512, "highest")])
 def test_knn_exact_modes_vs_pallas(lr, precision):
-    """1000 rows take the carried kernel in JAX, 4096 the two-pass one."""
+    """1000, 887 and 512 rows take the carried kernel in JAX (and the
+    carried form on the card), 4096 the two-pass one."""
     rng = np.random.default_rng(lr)
-    src = rng.standard_normal((64, 768)).astype(np.float32)
+    src = rng.standard_normal((_EXACT_MODE_QUERIES.get(lr, 64), 768)).astype(np.float32)
     lib = rng.standard_normal((lr, 768)).astype(np.float32)
     with pltpu.force_tpu_interpret_mode():
         _, want_i = knn_topk_pallas(jnp.asarray(src), jnp.asarray(lib), 4, precision=precision)
