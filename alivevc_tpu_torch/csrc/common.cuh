@@ -1,7 +1,8 @@
-// Shared helpers of the port's kernels: storage-type conversion, the
-// exact-erf GELU, and the Hopper pieces that the kNN and filter kernels
-// share (mbarriers, TMA tensor copies and tensor maps, the TF32 split,
-// ldmatrix, wgmma and its shared-memory descriptor, cluster barriers).
+// Shared helpers of the port's kernels: storage-type conversion and the
+// Hopper pieces that the kNN and filter kernels
+// share (mbarriers, TMA tensor and bulk copies in both directions and tensor
+// maps, the TF32 split, ldmatrix, wgmma and its shared-memory descriptors,
+// named and cluster barriers).
 // Every kernel keeps its arithmetic in float32 registers; tensors are
 // stored as float or __nv_bfloat16.
 #pragma once
@@ -19,11 +20,6 @@ template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
-}
-
-// torch F.gelu default (approximate='none'): 0.5 x (1 + erf(x / sqrt 2))
-__device__ __forceinline__ float gelu_erf(float x) {
-  return 0.5f * x * (1.0f + erff(x * 0.70710678118654752f));
 }
 
 // The C entry points return the launch's error code (0 when the launch was
@@ -61,6 +57,39 @@ __device__ __forceinline__ void tma_load(unsigned dst, const CUtensorMap& tm, in
       ::"r"(dst), "l"(reinterpret_cast<uint64_t>(&tm)), "r"(x), "r"(y), "r"(bar) : "memory");
 }
 
+// the 3-D box of ``tm`` at (x, y, z) -> shared dst; completion on bar
+__device__ __forceinline__ void tma_load_3d(unsigned dst, const CUtensorMap& tm, int x, int y, int z, unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(&tm)), "r"(x), "r"(y), "r"(z), "r"(bar) : "memory");
+}
+// shared src -> the 3-D box of ``tm`` at (x, y, z); elements outside the
+// tensor are not written.  Issued into the thread's bulk async-group.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap& tm, int x, int y, int z, unsigned src) {
+  asm volatile("cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%1, %2, %3}], [%4];\n"
+               ::"l"(reinterpret_cast<uint64_t>(&tm)), "r"(x), "r"(y), "r"(z), "r"(src) : "memory");
+}
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+// the thread's bulk stores have read their shared sources (N groups may still be pending)
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() { asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory"); }
+// ... and have completed
+template <int N>
+__device__ __forceinline__ void bulk_wait() { asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory"); }
+// ``bytes`` (a multiple of 16, both addresses 16-byte aligned) of global
+// memory -> shared dst, one bulk copy; completion on bar
+__device__ __forceinline__ void bulk_load(unsigned dst, const void* src, unsigned bytes, unsigned bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+               ::"r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar) : "memory");
+}
+// order this thread's generic shared-memory accesses before later
+// asynchronous-proxy (TMA) accesses to them
+__device__ __forceinline__ void fence_async_shared() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+// a barrier of ``count`` threads (a multiple of 32) on named barrier ``id``
+__device__ __forceinline__ void named_barrier(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
 // float32 -> TF32 bits, rounded to nearest, ties away from zero
 __device__ __forceinline__ uint32_t tf32_rna(float x) {
   uint32_t r;
@@ -84,6 +113,13 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], unsigned addr) {
 __device__ __forceinline__ uint64_t desc_sw128(unsigned addr) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
          ((uint64_t)1 << 62);
+}
+
+// The same with the 32-byte swizzle: rows of 32 bytes (one k-step of 16
+// bf16 or 8 TF32 values), 8-row groups 256 bytes apart.
+__device__ __forceinline__ uint64_t desc_sw32(unsigned addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(256 >> 4) << 32) |
+         ((uint64_t)3 << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
@@ -121,6 +157,22 @@ template <int N>
 __device__ __forceinline__ void wgmma_rs_bf16(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc_b, int scale_d = 1);
 template <int N>
 __device__ __forceinline__ void wgmma_rs_tf32(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc_b, int scale_d = 1);
+template <> __device__ __forceinline__ void wgmma_rs_bf16<8>(float (&d)[4], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+template <> __device__ __forceinline__ void wgmma_rs_bf16<16>(float (&d)[8], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
 template <> __device__ __forceinline__ void wgmma_rs_bf16<32>(float (&d)[16], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
@@ -157,6 +209,22 @@ template <> __device__ __forceinline__ void wgmma_rs_bf16<128>(float (&d)[64], c
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+template <> __device__ __forceinline__ void wgmma_rs_tf32<8>(float (&d)[4], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+template <> __device__ __forceinline__ void wgmma_rs_tf32<16>(float (&d)[8], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 template <> __device__ __forceinline__ void wgmma_rs_tf32<32>(float (&d)[16], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
@@ -238,6 +306,28 @@ inline EncodeTiled encode_fn() {
       fn = reinterpret_cast<EncodeTiled>(p);
   }
   return fn;
+}
+
+// a [d2, d1, d0] row-major tensor (d0 innermost, rows of d0 elements, 16-byte
+// multiples) moved as boxes of [box1 rows x box0 elements] at one z;
+// ``swizzle`` 0 (dense rows), or 32, 64 or 128 (box0 elements must then
+// span exactly that many bytes); loads zero-fill elements past the tensor,
+// stores skip them
+inline bool make_map_3d(CUtensorMap* tm, const void* ptr, bool bf16, long long d0, long long d1, long long d2,
+                        int box0, int box1, int swizzle) {
+  EncodeTiled fn = encode_fn();
+  if (!fn) return false;
+  const int esize = bf16 ? 2 : 4;
+  cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2};
+  cuuint64_t strides[2] = {(cuuint64_t)(d0 * esize), (cuuint64_t)(d0 * d1 * esize)};
+  cuuint32_t box[3] = {(cuuint32_t)box0, (cuuint32_t)box1, 1};
+  cuuint32_t estr[3] = {1, 1, 1};
+  const CUtensorMapSwizzle sw = swizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : swizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                : swizzle == 32 ? CU_TENSOR_MAP_SWIZZLE_32B : CU_TENSOR_MAP_SWIZZLE_NONE;
+  return fn(tm, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(ptr),
+            dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // a [rows, cols] row-major tensor read as boxes of [box_rows x 128 bytes],

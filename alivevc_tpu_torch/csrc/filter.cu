@@ -27,15 +27,53 @@
 //                         convs) after one filter_wide_weights_kernel launch
 //                         that writes every weight of the level K-major,
 //                         [out][(tap, in)] (float32: its TF32 hi and lo).
-//   filter_narrow_kernel  a whole narrow level (C = 8 or 16) in one launch:
-//                         for each tile of T output samples plus the level's
-//                         lookback (56 samples: 2*(k-1)*(1+2+4)) a block
-//                         computes the up conv, the 1x1 and the six convs in
-//                         shared memory and writes its T samples once.  Rows
-//                         whose history the tile cut feed only rows it does
-//                         not write; a tile whose rows start at sample 0
-//                         reflects each conv's head in place, so no second
-//                         pass is needed.  Its products are mma.sync.
+//   filter_narrow_kernel  a whole narrow level (C = 8 or 16) in one launch,
+//                         after one filter_narrow_weights_kernel launch that
+//                         writes the level's weights in the layout wgmma
+//                         reads and its biases as float32 (below).
+//
+// The narrow kernel.  Per output sample the level does ~9 000 MACs at C = 16
+// but reads 64 input values and writes 16, so the tensor cores are not the
+// bound: the bytes are (0.056 ms bf16 at the bench shape), and beside them
+// the gelu/FiLM pass of every conv (six passes of C values a sample, on the
+// CUDA cores).  The design keeps every intermediate on chip and overlaps
+// the copies, the products and that pass:
+//   - Tiles: a tile writes T samples and computes T + A rows before them, A
+//     >= the convs' lookback (56 at k = 5, dilations 1, 1, 2, 2, 4, 4):
+//     rows whose history the tile cut feed only rows it does not write; the
+//     tile at sample 0 reflects each conv's head in place.  The plan
+//     (kernels/filter.py:narrow_plan) sizes T per shape: large at the bench
+//     shape (the lookback under 10 % in bf16), narrow at the streaming hop
+//     so that the grid covers at least 64 SMs.
+//   - Tile owners: a block holds 1-2 tile owners (each with its buffers
+//     and its own named barrier, bar.sync 1 + i over its threads, 8 a
+//     tile) of 1-4 warpgroups that split the tile's 64-row subtiles, up to
+//     4 warpgroups a block (2 in float32 at C = 16: registers); the
+//     persistent grid gives each owner its own sequence of tiles, so one
+//     owner's barrier waits overlap the other's work.
+//   - Copies by TMA: the level's weights (one bulk copy a block, resident);
+//     x_prev and skip in chunks of 64 input rows (3-D tensor maps, swizzled
+//     by the row's width) into a ring of 2-4 stages with full and empty
+//     mbarriers (each stage read by one warpgroup), the next chunks
+//     requested while the current tile computes;
+//     the tile's FiLM frames (one box); the output by TMA store from dense
+//     staging rows, issued at the next tile's start.
+//   - Products on wgmma (m64nCk16 bf16, m64nCk8 3xTF32), B (weights,
+//     K-major, 32-byte slabs with the 32-byte swizzle) by descriptor, A from
+//     registers: ldmatrix at any row of a 16-byte-chunk-swizzled operand
+//     buffer (the dilated taps shift rows by 1-4, which a swizzled
+//     descriptor cannot start on); the up conv's A is x_prev + skip, added
+//     and rounded in registers, one wgmma per phase j of the rate.  A conv
+//     runs a warpgroup's 64-row subtiles in turn; in bf16 subtile m + 1's
+//     products are in flight while subtile m's epilogue runs (TF32's hi and
+//     lo fragments and the epilogue's registers together do not fit: there
+//     the other warpgroups of the SM overlap the epilogues).
+//   - The epilogue works on the accumulators in registers: bias, rounding,
+//     the residual (the level state X, which each thread keeps in shared
+//     memory in its own fragment order), then gelu (gelu_fast) and FiLM for
+//     the next conv (each row's frame and weight, and a float32 table of
+//     scale, shift and their steps to the next frame, computed once a
+//     tile), written once into the other operand buffer.
 //
 // The wide kernel.  A block owns a tile of TM = 64 or 128 time rows (one or
 // two consumer warpgroups, 64 rows each) x TN = 32-256 output columns and
@@ -100,31 +138,7 @@ namespace {
 
 constexpr int K_MAX = 7;       // taps of a causal conv, at most
 constexpr int HALO_MAX = 24;   // (k - 1) * d, at most
-constexpr int ZERO_BYTES = 128;
-
-// Row stride (elements) of a shared tile whose rows hold n values (n a
-// multiple of 8), chosen so that the 8 rows an ldmatrix phase or a TF32
-// fragment load touches fall in distinct banks: bf16 8 (mod 16) elements,
-// float32 4 (mod 8).
-template <bool BF16>
-__host__ __device__ constexpr int ld_of(int n) { return BF16 ? (n % 16 == 0 ? n + 8 : n + 16) : n + 4; }
-__host__ __device__ constexpr int round_up(int a, int b) { return (a + b - 1) / b * b; }
-
-// d += a . b over one m16 x n8 tile: k16 of bf16, or k8 of TF32
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+constexpr int SMEM_MAX = 232448;   // dynamic shared memory a block may take
 
 // 8 consecutive values (16-byte aligned) <-> float registers
 __device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
@@ -196,20 +210,11 @@ __device__ __forceinline__ float gelu_fast(float x) {
 template <typename T>
 __device__ __forceinline__ float round_to(float v) { return to_f32(from_f32<T>(v)); }
 
-// Global loads of 8 consecutive values (16-byte aligned) through the
-// read-only path, kept raw so that a loop can put several in flight before
-// it converts them.
+// 8 consecutive values (16 bytes of bf16, 32 of float32) held raw
 template <typename T>
 struct Raw8 {
   uint4 u[sizeof(T) / 2];
 };
-template <typename T>
-__device__ __forceinline__ Raw8<T> ldg8(const T* p) {
-  Raw8<T> r;
-#pragma unroll
-  for (int i = 0; i < (int)(sizeof(T) / 2); ++i) r.u[i] = __ldg(reinterpret_cast<const uint4*>(p) + i);
-  return r;
-}
 __device__ __forceinline__ void unpack8(const Raw8<__nv_bfloat16>& r, float (&v)[8]) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r.u[0]);
 #pragma unroll
@@ -246,390 +251,633 @@ __device__ __forceinline__ Taps2 film_taps(int s, int r, int F) {
 }
 
 // ---------------------------------------------------------------------------
-// The narrow kernel's products: one warp's share from shared memory,
-//   acc[WM][WN] (m16 x n8 tiles) += A . B over k-groups [kg0, kg1)
-// A k-group is 8 consecutive rows of B, i.e. 8 input channels of one tap:
-// k-group kg is tap kg / cg, channels 8 (kg % cg) ..; its A rows for the
-// warp's output row m are plane rows arow + 16 mi + tap * d + (row in tile).
-// B is held transposed, [n][k]: output channel nb + n is row nb + n of
-// ``b`` (``ldb`` elements a row), and k-group kg is its columns
-// 8 (kg - kg0) ...  bf16 takes k-groups in pairs (k16); an odd last group
-// pairs with the zero block, and its B columns must hold zeros.  TF32:
-// SPLIT reads hi and lo planes (a_lo), else float32 values split here.
-// B fragments are 32-bit shared loads on this layout.
+// The narrow kernel (C = 8 or 16; see the header)
 // ---------------------------------------------------------------------------
-template <bool BF16, bool SPLIT, int WM, int WN>
-__device__ __forceinline__ void warp_mma(float (&acc)[WM][WN][4], const void* a, const float* a_lo,
-                                         int lda, int arow, int d, int cg, int kg0, int kg1,
-                                         int kg_total, const void* b, int ldb, int nb,
-                                         const void* zero) {
-  const int lane = threadIdx.x & 31;
-  if (BF16) {
-    const __nv_bfloat16* A = static_cast<const __nv_bfloat16*>(a);
-    const __nv_bfloat16* B = static_cast<const __nv_bfloat16*>(b);
-    for (int kg = kg0; kg < kg1 && kg < kg_total; kg += 2) {
-      // lanes 0-15 address the first k-group's rows, 16-31 the second's
-      // (addresses only in the branch: ldmatrix runs converged)
-      const int mine = kg + (lane >> 4);
-      unsigned addr = smem_u32(zero), step = 0;
-      if (mine < kg_total) {
-        const int tap = mine / cg, ch = mine - tap * cg;
-        addr = smem_u32(A + (size_t)(arow + tap * d + (lane & 15)) * lda + 8 * ch);
-        step = 32u * lda;   // 16 rows of bf16
-      }
-      uint32_t af[WM][4];
-#pragma unroll
-      for (int mi = 0; mi < WM; ++mi) ldsm_x4(af[mi], addr + mi * step);
-      // b0 / b1 of n-tile ni: columns 2 t4 .. and 8 + 2 t4 .. of row g,
-      // one 32-bit load each
-      const __nv_bfloat16* brow = B + (size_t)(nb + (lane >> 2)) * ldb + 8 * (kg - kg0) + 2 * (lane & 3);
-#pragma unroll
-      for (int ni = 0; ni < WN; ++ni) {
-        const uint32_t* bp = reinterpret_cast<const uint32_t*>(brow + (size_t)8 * ni * ldb);
-        const uint32_t b0 = bp[0], b1 = bp[4];
-#pragma unroll
-        for (int mi = 0; mi < WM; ++mi) mma_bf16(acc[mi][ni], af[mi], b0, b1);
-      }
-    }
-  } else {
-    const float* A = static_cast<const float*>(a);
-    const float* B = static_cast<const float*>(b);
-    const int g = lane >> 2, t4 = lane & 3;
-    for (int kg = kg0; kg < kg1 && kg < kg_total; ++kg) {
-      const int tap = kg / cg, ch = kg - tap * cg;
-      uint32_t ah[WM][4], al[WM][4];
-#pragma unroll
-      for (int mi = 0; mi < WM; ++mi) {
-        const size_t o = (size_t)(arow + tap * d + 16 * mi + g) * lda + 8 * ch + t4;
-        const size_t idx[4] = {o, o + (size_t)8 * lda, o + 4, o + (size_t)8 * lda + 4};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          if (SPLIT) {
-            ah[mi][e] = __float_as_uint(A[idx[e]]);
-            al[mi][e] = __float_as_uint(a_lo[idx[e]]);
-          } else {
-            split_tf32(A[idx[e]], ah[mi][e], al[mi][e]);
-          }
-        }
-      }
-      const float* bb = B + (size_t)(nb + g) * ldb + 8 * (kg - kg0) + t4;
-#pragma unroll
-      for (int ni = 0; ni < WN; ++ni) {
-        uint32_t bh0, bl0, bh1, bl1;
-        split_tf32(bb[(size_t)8 * ni * ldb], bh0, bl0);
-        split_tf32(bb[(size_t)8 * ni * ldb + 4], bh1, bl1);
-#pragma unroll
-        for (int mi = 0; mi < WM; ++mi) {
-          mma_tf32(acc[mi][ni], al[mi], bh0, bh1);
-          mma_tf32(acc[mi][ni], ah[mi], bl0, bl1);
-          mma_tf32(acc[mi][ni], ah[mi], bh0, bh1);
-        }
-      }
-    }
-  }
-}
 
-constexpr int ROWS_CAP = 256;   // rows a narrow tile holds: T output samples + lookback + alignment
-constexpr int HOFF = HALO_MAX;         // operand rows above sample b0 (a conv's reflected head)
 constexpr int MAX_CONV = 8;
-constexpr int NARROW_THREADS = 256;
+constexpr int HOFF = HALO_MAX;         // operand rows above a tile's first row (a conv's reflected head)
+// warpgroups a block: 4 (128 registers a thread), 2 in float32 at C = 16
+// (its TF32 fragments take more)
+template <bool BF16, int C> __host__ __device__ constexpr int narrow_max_wgs() { return BF16 || C == 8 ? 4 : 2; }
+constexpr int NARROW_MAX_STAGES = 4;   // input chunks in flight a tile owner
+constexpr int UP_ROWS = 64;            // input rows an up-conv subtile (one wgmma M)
+constexpr int KG = 8;                  // k-steps a group of products, at most: one register set of A fragments
+constexpr int SLAB = 32;               // bytes of K a weight slab row: one k-step, 32-byte swizzle
+constexpr int OUT_BOX = 64;            // rows a TMA store box
+
+int align_to(long long b, int a) { return (int)((b + a - 1) / a * a); }
+
+// The narrow level's shared memory and weight blob, from its shape and plan
+// (kernels/filter.py:narrow_layout mirrors it; the card test
+// test_narrow_layout_formula_on_card holds the two to each other).
+//   head (1024 bytes): mbarriers (the weights'; a warpgroup's ring full and
+//     empty and its FiLM box's), 256 bytes of zeros (A rows of a padded
+//     k-group);
+//   the weight blob (filter_narrow_weights), 1024-aligned;
+//   per tile owner (1 or 2 a block): the input ring (stages x [x_prev box, skip box], each
+//     UP_ROWS rows of cin values, TMA-swizzled by the row's width), the
+//     operand buffers G0 and G1 ((HOFF + 64 ms) rows of C values, rows
+//     16-byte-chunk swizzled; G1 is also the tile's output staging, dense
+//     rows), X (the level state a thread holds, in its fragment order; the
+//     next tile's FiLM frames land there first), RT (each row's FiLM
+//     frame and weight) and the FiLM table (frame, conv, channel: scale,
+//     its step to the next frame, shift, its step).
+struct NarrowLayout {
+  int es, rb, ms, us, fbox, bw, nbx, swz;   // bytes a value and a G row; subtiles; up subtiles; FiLM frames; input box
+  int stage, g, x, rt, tab, wg;             // bytes of each per-warpgroup buffer, and of a warpgroup's region
+  int w_in, w_conv, conv_bytes, w_lo, b_off, blob, w_bytes;   // blob offsets (the up conv's matrix at 0)
+  long long smem;
+};
+
+NarrowLayout narrow_layout(int n_conv, int K, int cin, int C, int r, int fr, int rows, int owners, int stages,
+                           bool bf16) {
+  NarrowLayout l{};
+  l.es = bf16 ? 2 : 4;
+  l.rb = C * l.es;
+  l.ms = (rows + 63) / 64;
+  l.us = (rows + UP_ROWS * r - 1) / (UP_ROWS * r);
+  l.fbox = (rows - 1 + fr - 1) / fr + 2;
+  const int rowbytes = cin * l.es;
+  l.swz = (rowbytes == 32 || rowbytes == 64 || rowbytes == 128) ? rowbytes : (rowbytes % 128 == 0 ? 128 : 0);
+  l.bw = l.swz ? std::min(rowbytes, 128) : rowbytes;
+  l.nbx = rowbytes / l.bw;
+  l.stage = align_to(2LL * l.nbx * UP_ROWS * l.bw, 1024);
+  l.g = align_to((long long)(HOFF + 64 * l.ms) * l.rb, 128);
+  l.x = align_to(std::max(64LL * l.ms * C * l.es, (long long)l.fbox * 2 * n_conv * C * l.es), 128);
+  l.rt = align_to(64LL * l.ms * 8, 128);
+  l.tab = align_to((long long)l.fbox * n_conv * C * 16, 128);
+  l.wg = align_to((long long)stages * l.stage + 2LL * l.g + l.x + l.rt + l.tab, 1024);
+  auto slabs = [&](int kdim) { return (kdim * l.es + SLAB - 1) / SLAB; };
+  l.w_in = r * C * SLAB * slabs(cin);
+  l.w_conv = l.w_in + C * SLAB * slabs(C);
+  l.conv_bytes = C * SLAB * slabs(K * C);
+  const int hi = l.w_conv + n_conv * l.conv_bytes;
+  l.w_lo = bf16 ? 0 : hi;
+  l.b_off = bf16 ? hi : 2 * hi;
+  l.blob = l.b_off + (2 + n_conv) * C * 4;
+  l.w_bytes = align_to(l.blob, 1024);
+  l.smem = 1024LL + 1024 + l.w_bytes + (long long)owners * l.wg;
+  return l;
+}
 
 struct NarrowArgs {
-  const void *x_prev, *skip, *up_w, *up_b, *in_w, *in_b, *film;
-  void* out;
-  const void* conv_w[MAX_CONV];
-  const void* conv_b[MAX_CONV];
+  NarrowLayout ly;
+  const void* blob;          // the prepared weights and biases
   int dil[MAX_CONV];
-  int n_conv, K, L, cin, r, F, fr, film_ld, T, lookback, tiles;   // r: up rate, fr = L / F: FiLM rate
-  int total;          // tiles in all windows
-  int off_x, off_u, off_h, off_g, off_w, w_in, w_conv, w_stride, off_f, f_stride, off_t;   // shared (bytes)
+  int n_conv, K, L, cin, r, F, fr, fbox;    // fbox: FiLM frames a tile's box (<= F)
+  int T, A, tiles_w, tiles, stages, ob;     // samples a tile writes, rows before them; a store box's rows
+  int wpt;                                  // warpgroups a tile
 };
 
-// A row's FiLM mix: frames lo, hi (relative to the tile's first frame) and weights
-struct RowTap {
-  int lo, hi;
-  float wl, wh;
+// A thread's A fragments of one group of k-steps (TF32: hi, and lo in l)
+template <bool BF16>
+struct Frag {
+  uint32_t a[KG][4];
+  uint32_t l[BF16 ? 1 : KG][4];
 };
 
-// One wave of blocks walks the tiles (window, t0).  A tile writes samples
-// [t0, t0 + T) and computes rows [b0, t0 + T), b0 = max(0, t0 - lookback)
-// rounded down to a multiple of r.  Shared buffers: X (the level state) and
-// H (a block's first conv's output), [rows][C]; G, the staged operand,
-// HOFF + rows rows (row HOFF is sample b0; above it a conv's reflected head
-// when b0 = 0); U, the up conv's input rows (x_prev + skip), aliasing H and
-// G; the level's weights, loaded once a block; two FiLM frame buffers
-// (float32), so that the next conv's frames load while the current conv
-// multiplies; RT, each row's FiLM mix.  Two barriers a conv.  Each warp
-// owns whole 16-row tiles (all C columns) of every product.
+// The persistent grid: a block holds `owners` tile owners of `wpt`
+// warpgroups each (1 x 2 where two tiles' buffers do not fit, else 2 x 1);
+// owner o = block * owners + i takes tiles o, o + owners * gridDim.x, ...;
+// its warpgroups split a tile's 64-row subtiles (subtile m to warpgroup m %
+// wpt).  Tile j of window n writes samples [j T, (j + 1) T) and computes
+// rows [b0, b0 + 64 ms), b0 = max(0, j T - A): the lookback rows feed only
+// rows it does not write; a tile at b0 = 0 reflects each conv's head in
+// place.  Per tile (the owner's named barrier 1 + i, 128 wpt threads,
+// between the steps):
+//   (A) the previous tile's output leaves by TMA store; this tile's FiLM
+//       box is requested; RT;
+//   the up conv, chunk by chunk from the ring (x_prev + skip rounded in
+//   registers, one wgmma a phase j of the rate: rows [j C, (j + 1) C) of its
+//   weight matrix), into G0; the next chunks are requested as each is read;
+//   the FiLM table from the box;
+//   (B) the 1x1: G0 -> X (rounded) and G1 (conv 0's operand);
+//   (C) conv i: G[(i + 1) & 1] -> G[i & 1] (conv i + 1's operand; X on the
+//       second conv of a block), the last conv -> the staging rows.
+// Each conv runs a warpgroup's subtiles in turn: subtile m + wpt's products
+// are issued before subtile m's epilogue (gelu/FiLM, rounding, residual), so
+// the tensor cores work while the epilogue runs.
 template <bool BF16, int C>
-__global__ void __launch_bounds__(NARROW_THREADS)
-filter_narrow_kernel(const NarrowArgs p) {
+__global__ void __launch_bounds__(128 * narrow_max_wgs<BF16, C>(), 1)
+filter_narrow_kernel(const __grid_constant__ CUtensorMap m_x, const __grid_constant__ CUtensorMap m_s,
+                     const __grid_constant__ CUtensorMap m_f, const __grid_constant__ CUtensorMap m_o1,
+                     const __grid_constant__ CUtensorMap m_o2, const NarrowArgs p) {
   using T = typename std::conditional<BF16, __nv_bfloat16, float>::type;
-  constexpr int NWARPS = NARROW_THREADS / 32, NT = C / 8, CG = C / 8;
-  constexpr int LDX = ld_of<BF16>(C);   // X, H and G rows
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* X = reinterpret_cast<T*>(smem + p.off_x);
-  T* U = reinterpret_cast<T*>(smem + p.off_u);
-  T* H = reinterpret_cast<T*>(smem + p.off_h);
-  T* G = reinterpret_cast<T*>(smem + p.off_g);
-  RowTap* RT = reinterpret_cast<RowTap*>(smem + p.off_t);
-  // the weights, resident: up conv, 1x1, then one tile a causal conv
-  T* W_up = reinterpret_cast<T*>(smem + p.off_w);
-  T* W_in = reinterpret_cast<T*>(smem + p.off_w + p.w_in);
-  auto wconv = [&](int i) { return reinterpret_cast<T*>(smem + p.off_w + p.w_conv + i * p.w_stride); };
-  auto fbuf = [&](int i) { return reinterpret_cast<float*>(smem + p.off_f + (i & 1) * p.f_stride); };
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t4 = lane & 3;
-  const int l_in = p.L / p.r;
-  const int ldu = ld_of<BF16>(p.cin);
-  const int NU = p.r * C;
-  // weight tiles are held transposed ([n][k]); their row strides
-  const int ldwu = ld_of<BF16>(round_up(p.cin, 16)), ldw1 = ld_of<BF16>(round_up(C, 16));
-  const int ldwc = ld_of<BF16>(round_up(p.K * C, 16));
-  if (tid < ZERO_BYTES / 4) reinterpret_cast<float*>(smem)[tid] = 0.f;
+  using T2 = typename std::conditional<BF16, __nv_bfloat162, float2>::type;
+  constexpr int ES = sizeof(T), RB = C * ES, RBM = RB / 16 - 1, NP = C / 4, J = C / 8;
+  // k-steps a group: the up conv's (all of the decoder's levels': 64 input
+  // channels at C = 16, 16 at C = 8; other widths take more groups); the
+  // 1x1's (all of them); a conv's (all of a k = 5 conv's, in float32 at
+  // C = 16 half of them)
+  constexpr int NK_UP = (C == 16 ? 4 : 1) * (BF16 ? 1 : 2), NK_IN = BF16 ? 1 : C / 8;
+  constexpr int NK_CONV = BF16 && C == 8 ? 3 : 5;
+  static_assert(NK_UP <= KG && NK_IN <= KG && NK_CONV <= KG, "a group's fragments");
+  extern __shared__ unsigned char smem_raw[];
+  const unsigned raw_addr = smem_u32(smem_raw);
+  const unsigned base = (raw_addr + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw_addr);
+  const NarrowLayout& ly = p.ly;
+  const int wpt = p.wpt, owners = (int)blockDim.x / (128 * wpt), team = 128 * wpt;
+  const int tid = threadIdx.x, wg = tid >> 7, wt = tid & 127, warp = wt >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int own = wg / wpt, sub = wg - own * wpt, tt = tid - own * team;   // tt: thread of the team
+  const bool lead = tt == 0;
+  const unsigned wbar = base, full = base + 64 + 128 * own, empty = full + 32, fbar = full + 64;
+  const unsigned zeros = base + 768;
+  const unsigned wsm = base + 1024;
+  const float* bias_s = reinterpret_cast<const float*>(smem + 1024 + ly.b_off);   // up, 1x1, convs: C each
+  unsigned char* region = smem + 1024 + ly.w_bytes + own * ly.wg;
+  const unsigned ring = smem_u32(region);
+  unsigned char* gbuf[2] = {region + p.stages * ly.stage, region + p.stages * ly.stage + ly.g};
+  unsigned char* xreg = gbuf[1] + ly.g;
+  T2* X = reinterpret_cast<T2*>(xreg);
+  int2* RT = reinterpret_cast<int2*>(xreg + ly.x);
+  float4* TAB = reinterpret_cast<float4*>(xreg + ly.x + ly.rt);
 
-  // weights [rows][cols] -> dst transposed, [cols][rows] (ldw a row);
-  // columns rows .. up to a multiple of 16 are zeros
-  auto load_w = [&](T* dst, const void* wsrc, int rows, int cols, int ldw) {
-    const T* s = static_cast<const T*>(wsrc);
-    const int vpr = cols / 8, rows16 = round_up(rows, 16);
-    for (int i = tid; i < rows16 * vpr; i += NARROW_THREADS) {
-      const int row = i / vpr, c = (i - row * vpr) * 8;
-      float v[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) v[j] = 0.f;
-      if (row < rows) unpack8(ldg8(s + (size_t)row * cols + c), v);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) dst[(size_t)(c + j) * ldw + row] = from_f32<T>(v[j]);
+  if (tid == 0) {
+    mbar_init(wbar, 1);
+    for (int o = 0; o < owners; ++o) {
+      const unsigned f = base + 64 + 128 * o;
+      for (int s = 0; s < p.stages; ++s) {
+        mbar_init(f + 8 * s, 1);
+        mbar_init(f + 32 + 8 * s, 4);   // a stage is free when each warp of the warpgroup that read it has
+      }
+      mbar_init(f + 64, 1);
     }
-  };
-  // The 1x1 and the causal convs arrive in the modules' own layouts,
-  // [out][in] and [out][in][tap]: tile column tap C + in of row out.
-  // Columns past the weights, up to a multiple of 16, are zeros.
-  auto load_native = [&](T* dst, const void* wsrc, int taps, int ldw) {
-    const T* s = static_cast<const T*>(wsrc);
-    const int k16 = round_up(taps * C, 16);
-    for (int i = tid; i < C * k16; i += NARROW_THREADS) {
-      const int n = i / k16, k = i - n * k16;
-      const int tap = k / C, ci = k - tap * C;
-      dst[n * ldw + k] = k < taps * C ? s[((size_t)n * C + ci) * taps + tap] : from_f32<T>(0.f);
-    }
-  };
-  load_w(W_up, p.up_w, p.cin, NU, ldwu);
-  load_native(W_in, p.in_w, 1, ldw1);
-  for (int ci = 0; ci < p.n_conv; ++ci) load_native(wconv(ci), p.conv_w[ci], p.K, ldwc);
-
-  // one wave of blocks, each walking over tiles
-  for (int tile = blockIdx.x; tile < p.total; tile += gridDim.x) {
-  const int n = tile / p.tiles;
-  const int t0 = (tile - n * p.tiles) * p.T;
-  const int b0 = max(0, t0 - p.lookback) / p.r * p.r;
-  const int e = min(t0 + p.T, p.L);
-  const int R = e - b0, q0 = b0 / p.r, Q = (R + p.r - 1) / p.r;
-  const int fa = max(b0 / p.fr - 1, 0), nf = min((e - 1) / p.fr + 1, p.F - 1) - fa + 1;
-  const T* film = static_cast<const T*>(p.film) + ((size_t)n * p.F + fa) * p.film_ld;
-  // conv ci's FiLM frames fa .. fa + nf (scale, shift) -> its float32 buffer
-  auto load_film = [&](int ci) {
-    float* fr = fbuf(ci);
-    for (int i = tid; i < nf * 2 * C; i += NARROW_THREADS) {
-      const int f = i / (2 * C), c = i - f * 2 * C;
-      fr[i] = to_f32(film[(size_t)f * p.film_ld + 2 * ci * C + c]);
-    }
-  };
-
-  // 1. the up conv: input rows q0 .. q0 + Q of x_prev + skip (rounded to the
-  // storage type), [Q, cin] x [cin, r C]; column j C + c of input row q is
-  // sample q r + j.  Meanwhile each row's FiLM mix.
-  for (int row = tid; row < R; row += NARROW_THREADS) {
-    const Taps2 tp = film_taps(b0 + row, p.fr, p.F);
-    RT[row] = RowTap{tp.lo - fa, tp.hi - fa, tp.wl, tp.wh};
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  {
-    const T* xp = static_cast<const T*>(p.x_prev) + (size_t)n * l_in * p.cin;
-    const T* sk = static_cast<const T*>(p.skip) + (size_t)n * l_in * p.cin;
-    const int vpr = p.cin / 8, tasks = Q * vpr;
-    constexpr int UNR = BF16 ? 4 : 2;
-    for (int e0 = tid; e0 < tasks; e0 += UNR * NARROW_THREADS) {
-      Raw8<T> ra[UNR], rb[UNR];
+  if (tid < 64) reinterpret_cast<float*>(smem + 768)[tid] = 0.f;
+  __syncthreads();
+  if (tid == 0) {   // the weights, once a block
+    mbar_expect_tx(wbar, ly.blob);
+    bulk_load(wsm, p.blob, ly.blob, wbar);
+  }
+
+  const int gw = blockIdx.x * owners + own, nw = gridDim.x * owners;
+  if (gw >= p.tiles) return;   // (never owner 0: the grid has no block without tiles)
+  const int my_tiles = (p.tiles - 1 - gw) / nw + 1, chunks = my_tiles * ly.us;
+  struct Tile {
+    int n, t0, b0;
+  };
+  auto tile_of = [&](int k) {
+    const int tile = gw + k * nw, n = tile / p.tiles_w, t0 = (tile - n * p.tiles_w) * p.T;
+    return Tile{n, t0, max(0, t0 - p.A)};
+  };
+  // input chunk c (tile c / us, up subtile c % us) -> ring stage c % stages
+  auto fetch_chunk = [&](int c) {
+    const Tile t = tile_of(c / ly.us);
+    const int q = t.b0 / p.r + UP_ROWS * (c % ly.us), s = c % p.stages;
+    const unsigned bar = full + 8 * s, dst = ring + s * ly.stage, box = UP_ROWS * ly.bw;
+    mbar_expect_tx(bar, 2 * ly.nbx * box);
+    for (int b = 0; b < ly.nbx; ++b) {
+      tma_load_3d(dst + b * box, m_x, b * ly.bw / ES, q, t.n, bar);
+      tma_load_3d(dst + (ly.nbx + b) * box, m_s, b * ly.bw / ES, q, t.n, bar);
+    }
+  };
+  // row t's FiLM mix (align_corners=False, fr samples a frame): frame f
+  // plus lam times the step to frame f + 1
+  auto film_row = [&](int t, int& f, float& lam) {
+    if (t >= p.L) {
+      f = p.F - 1;
+      lam = 0.f;
+      return;
+    }
+    const int q = t / p.fr;
+    const float u = ((float)(t - q * p.fr) + 0.5f) / (float)p.fr - 0.5f;
+    if (u >= 0.f) {
+      f = q;
+      lam = u;
+    } else {
+      f = max(q - 1, 0);
+      lam = q > 0 ? 1.f + u : 0.f;
+    }
+  };
+  auto film_first = [&](int b0) {
+    int f;
+    float lam;
+    film_row(b0, f, lam);
+    return max(0, min(f, p.F - p.fbox));
+  };
+  // the tile's staging rows [t0 - b0, t0 - b0 + T) -> out by TMA (rows past L are not written)
+  auto store_tile = [&](int k) {
+    const Tile t = tile_of(k);
+    const unsigned src = smem_u32(gbuf[1]) + (t.t0 - t.b0) * RB;
+    int o = 0;
+    for (; o + p.ob <= p.T; o += p.ob) tma_store_3d(m_o1, 0, t.t0 + o, t.n, src + o * RB);
+    if (o < p.T) tma_store_3d(m_o2, 0, t.t0 + o, t.n, src + o * RB);
+    bulk_commit();
+  };
+  // byte offset of channel c of row `row` in an operand buffer (16-byte
+  // chunks swizzled by the row, so that 8 consecutive rows of a chunk lie
+  // in distinct banks)
+  auto g_off = [&](int row, int c) {
+    const int byte = c * ES;
+    return row * RB + ((((byte >> 4) ^ ((row * RB >> 7) & RBM)) << 4) | (byte & 15));
+  };
+  auto pack = [&](float v0, float v1) {
+    if constexpr (BF16) return __floats2bfloat162_rn(v0, v1);
+    else return make_float2(v0, v1);
+  };
+  auto unpack = [&](const T2 v, float& a, float& b) {
+    if constexpr (BF16) {
+      const float2 f = __bfloat1622float2(v);
+      a = f.x;
+      b = f.y;
+    } else {
+      a = v.x;
+      b = v.y;
+    }
+  };
+
+  // The products: A fragments of k-steps [ks0, ks0 + NK) of a subtile
+  // (ldmatrix at the rows each tap reads; past the last k-step, zeros),
+  // then the wgmmas against the weight slabs (slab ks of a matrix of
+  // `nrows` rows at wm + ks nrows SLAB).  NK is a compile-time count
+  // (std::integral_constant), so that every wgmma of a group issues
+  // unconditionally and ptxas keeps them in flight together.
+  auto load_conv = [&](auto nk, const unsigned char* gsrc, int m, int ks0, int nks, int taps, int d,
+                       Frag<BF16>& f) {
+    constexpr int NK = decltype(nk)::value;
+    const unsigned gs = smem_u32(gsrc);
 #pragma unroll
-      for (int k = 0; k < UNR; ++k) {
-        const int i = e0 + k * NARROW_THREADS;
-        if (i < tasks) {
-          const int row = i / vpr, c = (i - row * vpr) * 8;
-          ra[k] = ldg8(xp + (size_t)(q0 + row) * p.cin + c);
-          rb[k] = ldg8(sk + (size_t)(q0 + row) * p.cin + c);
+    for (int kk = 0; kk < NK; ++kk) {
+      const int ks = ks0 + kk;
+      const int k0 = BF16 ? 16 * ks + 8 * (lane >> 4) : 8 * ks;
+      const int tap = k0 / C, c0 = k0 - tap * C;
+      unsigned addr = zeros;
+      if (ks < nks && tap < taps) {
+        const int row = HOFF + 64 * m + 16 * warp + (lane & 15) - (taps - 1 - tap) * d;
+        const int ch = BF16 ? c0 / 8 : c0 / 4 + (lane >> 4);
+        addr = gs + row * RB + ((ch ^ ((row * RB >> 7) & RBM)) << 4);
+      }
+      ldsm_x4(f.a[kk], addr);
+      if constexpr (!BF16) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(f.a[kk][e]), f.a[kk][e], f.l[kk][e]);
+      }
+    }
+  };
+  auto issue = [&](auto nk, unsigned wm, int nrows, int ks0, int nks, Frag<BF16>& f, float (&acc)[C / 2]) {
+    constexpr int NK = decltype(nk)::value;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) {
+      const int ks = ks0 + kk;
+      const unsigned b = wm + (ks < nks ? ks : 0) * nrows * SLAB;   // zero A past the last k-step
+      if constexpr (BF16) {
+        wgmma_rs_bf16<C>(acc, f.a[kk], desc_sw32(b), ks != 0);
+      } else {
+        const uint64_t dh = desc_sw32(b), dl = desc_sw32(b + ly.w_lo);
+        wgmma_rs_tf32<C>(acc, f.l[kk], dh, ks != 0);
+        wgmma_rs_tf32<C>(acc, f.a[kk], dl);
+        wgmma_rs_tf32<C>(acc, f.a[kk], dh);
+      }
+    }
+    wgmma_commit();
+  };
+  // The epilogue of subtile m: this thread's values (rows 64 m + 16 warp +
+  // g + 8 h, channels 8 jj + 2 t4 + e) + bias, rounded; then by MODE (a
+  // compile-time std::integral_constant, so that no branch on it sits
+  // between a wgmma and its wait):
+  //   0 (the 1x1)              -> X; conv fc's operand into gb
+  //   1 (a block's first conv) -> conv fc's operand into gb
+  //   2 (a block's second)     -> + X, rounded again -> X; conv fc's operand
+  //   3 (the last conv)        -> + X, rounded again -> the level's output
+  //                               in the dense staging rows of gb.
+  // An operand is gelu(v) * scale + shift, reflected into the head on the
+  // tile at sample 0.  Every load comes first, so that a subtile's loads are
+  // in flight together.
+  auto finish = [&](auto mode, int m, const float (&ep)[C / 2], const float (&bv)[C / 4], int fc,
+                    unsigned char* gb, bool head) {
+    constexpr int MODE = decltype(mode)::value;
+    constexpr bool ADD_X = MODE >= 2, KEEP_X = MODE == 0 || MODE == 2, FILM = MODE != 3;
+    int rows[2];
+    int2 rt[2];
+    T2 xo[J][2];
+    float4 tb[J][2][2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) rows[h] = 64 * m + 16 * warp + g + 8 * h;
+    if constexpr (FILM) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) rt[h] = RT[rows[h]];
+    }
+    if constexpr (ADD_X) {
+#pragma unroll
+      for (int jj = 0; jj < J; ++jj)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) xo[jj][h] = X[(m * NP + 2 * jj + h) * 128 + wt];
+    }
+    if constexpr (FILM) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float4* tr = TAB + (rt[h].x * p.n_conv + fc) * C + 2 * t4;
+#pragma unroll
+        for (int jj = 0; jj < J; ++jj) {
+          tb[jj][h][0] = tr[8 * jj];
+          tb[jj][h][1] = tr[8 * jj + 1];
         }
       }
+    }
 #pragma unroll
-      for (int k = 0; k < UNR; ++k) {
-        const int i = e0 + k * NARROW_THREADS;
-        if (i >= tasks) break;
-        const int row = i / vpr, c = (i - row * vpr) * 8;
-        float v[8], u[8];
-        unpack8(ra[k], v);
-        unpack8(rb[k], u);
+    for (int jj = 0; jj < J; ++jj)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) v[j] += u[j];
-        store8(U + (size_t)row * ldu + c, v);   // bf16: rounds the sum
+      for (int h = 0; h < 2; ++h) {
+        const int cc = 8 * jj + 2 * t4;
+        float v0 = round_to<T>(ep[4 * jj + 2 * h] + bv[2 * jj]);
+        float v1 = round_to<T>(ep[4 * jj + 2 * h + 1] + bv[2 * jj + 1]);
+        if constexpr (ADD_X) {   // + the block's input, rounded again
+          float x0, x1;
+          unpack(xo[jj][h], x0, x1);
+          v0 = round_to<T>(v0 + x0);
+          v1 = round_to<T>(v1 + x1);
+        }
+        if constexpr (KEEP_X) X[(m * NP + 2 * jj + h) * 128 + wt] = pack(v0, v1);
+        if constexpr (FILM) {
+          const float lam = __int_as_float(rt[h].y);
+          const float4 f0 = tb[jj][h][0], f1 = tb[jj][h][1];
+          const T2 a = pack(gelu_fast(v0) * fmaf(lam, f0.y, f0.x) + fmaf(lam, f0.w, f0.z),
+                            gelu_fast(v1) * fmaf(lam, f1.y, f1.x) + fmaf(lam, f1.w, f1.z));
+          *reinterpret_cast<T2*>(gb + g_off(HOFF + rows[h], cc)) = a;
+          if (head && rows[h] >= 1 && rows[h] <= HOFF)
+            *reinterpret_cast<T2*>(gb + g_off(HOFF - rows[h], cc)) = a;
+        } else {
+          *reinterpret_cast<T2*>(gb + rows[h] * RB + cc * ES) = pack(v0, v1);
+        }
+      }
+  };
+  // one product over this warpgroup's subtiles m = sub, sub + wpt, ... (the
+  // plan gives every warpgroup one); the bias of this thread's channels in
+  // registers.  bf16: subtile m + wpt's first group of k-steps in flight
+  // while subtile m's epilogue runs.  TF32 keeps no products in flight
+  // through an epilogue: its fragments (hi and lo) and the epilogue's
+  // registers together would not fit, and ptxas would then serialise every
+  // wgmma; the other warpgroups of the SM overlap its epilogues.
+  auto product = [&](auto nk, auto mode, const unsigned char* gsrc, unsigned wm, int taps, int d, int nks,
+                     int bias_off, int fc, unsigned char* gb, bool head) {
+    constexpr int NK = decltype(nk)::value;
+    Frag<BF16> f;
+    float acc[C / 2], bv[C / 4];
+#pragma unroll
+    for (int jj = 0; jj < J; ++jj) {
+      bv[2 * jj] = bias_s[bias_off + 8 * jj + 2 * t4];
+      bv[2 * jj + 1] = bias_s[bias_off + 8 * jj + 2 * t4 + 1];
+    }
+    const int groups = (nks + NK - 1) / NK;
+    if constexpr (BF16) {
+      float ep[C / 2];
+      load_conv(nk, gsrc, sub, 0, nks, taps, d, f);
+      issue(nk, wm, C, 0, nks, f, acc);
+#pragma unroll 1
+      for (int m = sub; m < ly.ms; m += wpt) {
+#pragma unroll 1
+        for (int q = 1; q < groups; ++q) {
+          wgmma_wait<0>();
+          load_conv(nk, gsrc, m, q * NK, nks, taps, d, f);
+          issue(nk, wm, C, q * NK, nks, f, acc);
+        }
+        wgmma_wait<0>();
+#pragma unroll
+        for (int e = 0; e < C / 2; ++e) {
+          ep[e] = acc[e];
+          asm volatile("" : "+f"(ep[e]));   // the copy stays before the next products' fence
+        }
+        if (m + wpt < ly.ms) {
+          load_conv(nk, gsrc, m + wpt, 0, nks, taps, d, f);
+          issue(nk, wm, C, 0, nks, f, acc);
+        }
+        finish(mode, m, ep, bv, fc, gb, head);
+      }
+      wgmma_wait<0>();   // nothing in flight past the loop on any path (else ptxas serialises every wgmma)
+    } else {
+#pragma unroll 1
+      for (int m = sub; m < ly.ms; m += wpt) {
+#pragma unroll 1
+        for (int q = 0; q < groups; ++q) {
+          load_conv(nk, gsrc, m, q * NK, nks, taps, d, f);
+          issue(nk, wm, C, q * NK, nks, f, acc);
+          wgmma_wait<0>();
+        }
+        finish(mode, m, acc, bv, fc, gb, head);
       }
     }
-  }
-  __syncthreads();
-  {
-    const T* bias = static_cast<const T*>(p.up_b);
-    const int kg = p.cin / 8;
-    for (int mt = warp; mt < (Q + 15) / 16; mt += NWARPS)
-      for (int j = 0; j < p.r; ++j) {
-        float acc[1][NT][4] = {};
-        warp_mma<BF16, false, 1, NT>(acc, U, nullptr, ldu, 16 * mt, 0, kg, 0, kg, kg, W_up, ldwu, j * C,
-                                     smem);
+  };
+
+  if (lead)
+    for (int c = 0; c < min(p.stages, chunks); ++c) fetch_chunk(c);
+  mbar_wait(wbar, 0u);
+  const int nks_up = BF16 ? (p.cin + 15) / 16 : p.cin / 8;
+  const int nks_in = BF16 ? 1 : C / 8;
+  const int nks_conv = BF16 ? (p.K * C + 15) / 16 : p.K * C / 8;
+  const int up_rows = p.r * C;   // the up conv's weight rows
+  const int film_ld = 2 * p.n_conv * C;
+  const int bar_id = 1 + own;
+#pragma unroll 1
+  for (int k = 0; k < my_tiles; ++k) {
+    const Tile tl = tile_of(k);
+    const int fb = film_first(tl.b0);
+    const bool head = tl.b0 == 0;
+    named_barrier(bar_id, team);   // (A) the previous tile is done
+    if (lead) {
+      if (k > 0) store_tile(k - 1);
+      fence_async_shared();
+      mbar_expect_tx(fbar, p.fbox * film_ld * ES);
+      tma_load_3d(smem_u32(xreg), m_f, 0, fb, tl.n, fbar);
+    }
+    for (int row = tt; row < 64 * ly.ms; row += team) {
+      int f;
+      float lam;
+      film_row(tl.b0 + row, f, lam);
+      RT[row] = make_int2(min(max(f - fb, 0), p.fbox - 1), __float_as_int(lam));
+    }
+
+    // the up conv: input rows q (this lane's ldmatrix row of the chunk)
+    // -> samples q r + j of G0.  Chunk c to warpgroup c % wpt: with stages
+    // a multiple of wpt, each stage has one consumer, which is never two
+    // phases ahead of its full barrier (mbarrier parity waits alias there)
+#pragma unroll 1
+    for (int u = (sub - (k * ly.us) % wpt + wpt) % wpt; u < ly.us; u += wpt) {
+      const int c = k * ly.us + u, s = c % p.stages;
+      mbar_wait(full + 8 * s, (unsigned)((c / p.stages) & 1));
+      const unsigned xs = ring + s * ly.stage, box = UP_ROWS * ly.bw;
+      const int q = 16 * warp + (lane & 15), cpb = ly.bw / 16;
+      const int sw = ly.swz ? ((q * ly.bw) >> 7) & (cpb - 1) : 0;
+      Frag<BF16> f;
+      auto load_up = [&](int ks0) {
 #pragma unroll
-        for (int ni = 0; ni < NT; ++ni)
+        for (int kk = 0; kk < NK_UP; ++kk) {
+          const int ks = ks0 + kk;
+          const int k0 = BF16 ? 16 * ks + 8 * (lane >> 4) : 8 * ks;
+          const int ch = BF16 ? k0 / 8 : k0 / 4 + (lane >> 4), b = ch / cpb;
+          const unsigned off = b * box + q * ly.bw + (((ch - b * cpb) ^ sw) << 4);
+          const bool in = ks < nks_up && k0 < p.cin;
+          uint32_t xa[4], sa[4];
+          ldsm_x4(xa, in ? xs + off : zeros);
+          ldsm_x4(sa, in ? xs + ly.nbx * box + off : zeros);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if constexpr (BF16) {
+              float a0, a1, b0, b1;
+              unpack(*reinterpret_cast<const __nv_bfloat162*>(&xa[e]), a0, a1);
+              unpack(*reinterpret_cast<const __nv_bfloat162*>(&sa[e]), b0, b1);
+              const __nv_bfloat162 v = __floats2bfloat162_rn(a0 + b0, a1 + b1);   // the sum, rounded
+              f.a[kk][e] = *reinterpret_cast<const uint32_t*>(&v);
+            } else {
+              split_tf32(__uint_as_float(xa[e]) + __uint_as_float(sa[e]), f.a[kk][e], f.l[kk][e]);
+            }
+          }
+        }
+      };
+      const int groups = (nks_up + NK_UP - 1) / NK_UP;
+#pragma unroll 1
+      for (int j = 0; j < p.r; ++j) {
+        float acc[C / 2];
+#pragma unroll 1
+        for (int gq = 0; gq < groups; ++gq) {
+          if (j == 0 || groups > 1) load_up(gq * NK_UP);
+          issue(std::integral_constant<int, NK_UP>{}, wsm + j * C * SLAB, up_rows, gq * NK_UP, nks_up, f, acc);
+          wgmma_wait<0>();
+        }
+#pragma unroll
+        for (int jj = 0; jj < J; ++jj)
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
-            const int qi = 16 * mt + g + 8 * h, row = qi * p.r + j, col = 8 * ni + 2 * t4;
-            if (qi < Q && row < R)
-              store2(X + row * LDX + col, acc[0][ni][2 * h] + to_f32(bias[col]),
-                     acc[0][ni][2 * h + 1] + to_f32(bias[col + 1]));
+            const int row = (UP_ROWS * u + 16 * warp + g + 8 * h) * p.r + j, cc = 8 * jj + 2 * t4;
+            if (row < 64 * ly.ms)
+              *reinterpret_cast<T2*>(gbuf[0] + g_off(HOFF + row, cc)) =
+                  pack(round_to<T>(acc[4 * jj + 2 * h] + bias_s[cc]), round_to<T>(acc[4 * jj + 2 * h + 1] + bias_s[cc + 1]));
           }
       }
-  }
-  __syncthreads();
+      // this warp has read the stage; the last warp's read lets the next chunk in
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * s);
+      if (wt == 0 && c + p.stages < chunks) {
+        mbar_wait(empty + 8 * s, (unsigned)((c / p.stages) & 1));
+        fence_async_shared();
+        fetch_chunk(c + p.stages);
+      }
+    }
 
-  // 2. the 1x1 input conv; conv 0's FiLM frames load meanwhile
-  const int mtx = (R + 15) / 16;
-  load_film(0);
-  for (int i = tid; i < R * CG; i += NARROW_THREADS) {
-    const int row = i / CG, c = (i - row * CG) * 8;
-    float v[8];
-    load8(X + row * LDX + c, v);
-    store8(G + (HOFF + row) * LDX + c, v);
-  }
-  __syncthreads();
-  {
-    const T* bias = static_cast<const T*>(p.in_b);
-    for (int mt = warp; mt < mtx; mt += NWARPS) {
-      float acc[1][NT][4] = {};
-      warp_mma<BF16, false, 1, NT>(acc, G, nullptr, LDX, HOFF + 16 * mt, 0, CG, 0, CG, CG, W_in, ldw1, 0,
-                                   smem);
-#pragma unroll
-      for (int ni = 0; ni < NT; ++ni)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = 16 * mt + g + 8 * h, col = 8 * ni + 2 * t4;
-          if (row < R)
-            store2(X + row * LDX + col, acc[0][ni][2 * h] + to_f32(bias[col]),
-                   acc[0][ni][2 * h + 1] + to_f32(bias[col + 1]));
+    // the FiLM table from the box in X
+    mbar_wait(fbar, (unsigned)(k & 1));
+    {
+      const T* raw = reinterpret_cast<const T*>(xreg);
+      for (int e = tt; e < p.fbox * p.n_conv * C; e += team) {
+        const int fr = e / (p.n_conv * C), rem = e - fr * p.n_conv * C, ci = rem / C, cc = rem - ci * C;
+        const T* at = raw + fr * film_ld + 2 * ci * C + cc;
+        const float sc = to_f32(at[0]), sh = to_f32(at[C]);
+        float ds = 0.f, dh = 0.f;
+        if (fr + 1 < p.fbox) {
+          ds = to_f32(at[film_ld]) - sc;
+          dh = to_f32(at[film_ld + C]) - sh;
         }
+        TAB[e] = make_float4(sc, ds, sh, dh);
+      }
     }
-  }
-  __syncthreads();
+    if (lead) bulk_wait_read<0>();   // the previous tile's staging rows (G1) are read out
+    named_barrier(bar_id, team);     // (B)
 
-  // 3. the causal convs: conv 2i reads X and writes H, conv 2i + 1 reads H
-  // and adds into X.  Conv ci's FiLM frames are in buffer ci & 1.
-  for (int ci = 0; ci < p.n_conv; ++ci) {
-    const int d = p.dil[ci];
-    const float* fr = fbuf(ci);
-    const T* src = (ci & 1) ? H : X;
-    for (int i = tid; i < R * CG; i += NARROW_THREADS) {
-      const int row = i / CG, c = (i - row * CG) * 8;
-      const RowTap rt = RT[row];
-      float v[8], sl[8], sh[8], hl[8], hh[8];
-      load8(fr + rt.lo * 2 * C + c, sl);
-      load8(fr + rt.hi * 2 * C + c, sh);
-      load8(fr + rt.lo * 2 * C + C + c, hl);
-      load8(fr + rt.hi * 2 * C + C + c, hh);
-      load8(src + row * LDX + c, v);
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        v[j] = gelu_erf(v[j]) * (sl[j] * rt.wl + sh[j] * rt.wh) + (hl[j] * rt.wl + hh[j] * rt.wh);
-      store8(G + (HOFF + row) * LDX + c, v);   // bf16: rounds the operand
-      if (b0 == 0 && row >= 1 && row <= HOFF) store8(G + (HOFF - row) * LDX + c, v);   // reflect
-    }
-    __syncthreads();   // G is whole; the previous conv is done with buffer (ci + 1) & 1
-    if (ci + 1 < p.n_conv) load_film(ci + 1);
-    const T* bias = static_cast<const T*>(p.conv_b[ci]);
-    float bv[NT][2];
-#pragma unroll
-    for (int ni = 0; ni < NT; ++ni) {
-      bv[ni][0] = to_f32(bias[8 * ni + 2 * t4]);
-      bv[ni][1] = to_f32(bias[8 * ni + 2 * t4 + 1]);
-    }
-    T* dst = (ci & 1) ? X : H;
-    for (int mt = warp; mt < mtx; mt += NWARPS) {
-      float acc[1][NT][4] = {};
-      warp_mma<BF16, false, 1, NT>(acc, G, nullptr, LDX, HOFF - (p.K - 1) * d + 16 * mt, d, CG, 0,
-                                   p.K * CG, p.K * CG, wconv(ci), ldwc, 0, smem);
-#pragma unroll
-      for (int ni = 0; ni < NT; ++ni)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = 16 * mt + g + 8 * h, col = 8 * ni + 2 * t4;
-          if (row >= R) continue;
-          float v0 = round_to<T>(acc[0][ni][2 * h] + bv[ni][0]);
-          float v1 = round_to<T>(acc[0][ni][2 * h + 1] + bv[ni][1]);
-          if (ci & 1) {
-            v0 += to_f32(X[row * LDX + col]);
-            v1 += to_f32(X[row * LDX + col + 1]);
-          }
-          store2(dst + row * LDX + col, v0, v1);
-        }
-    }
-    __syncthreads();   // the conv's output is whole; G and buffer ci & 1 are free
-  }
+    // the 1x1: G0 -> X (rounded) and conv 0's operand in G1
+    using Mode0 = std::integral_constant<int, 0>;
+    using Mode1 = std::integral_constant<int, 1>;
+    using Mode2 = std::integral_constant<int, 2>;
+    using Mode3 = std::integral_constant<int, 3>;
+    using NkConv = std::integral_constant<int, NK_CONV>;
+    product(std::integral_constant<int, NK_IN>{}, Mode0{}, gbuf[0], wsm + ly.w_in, 1, 0, nks_in, C, 0, gbuf[1],
+            head);
+    named_barrier(bar_id, team);   // (C)
 
-  // 4. the tile's samples [t0, e), once
-  T* out = static_cast<T*>(p.out) + (size_t)n * p.L * C;
-  const int first = t0 - b0;
-  for (int i = tid; i < (R - first) * CG; i += NARROW_THREADS) {
-    const int row = first + i / CG, c = (i % CG) * 8;
-    float v[8];
-    load8(X + row * LDX + c, v);
-    store8(out + (size_t)(b0 + row) * C + c, v);
+    // the causal convs: conv ci reads G[(ci + 1) & 1] and writes G[ci & 1]
+#pragma unroll 1
+    for (int ci = 0; ci < p.n_conv; ++ci) {
+      const unsigned char* src = gbuf[(ci + 1) & 1];
+      const unsigned wm = wsm + ly.w_conv + ci * ly.conv_bytes;
+      const int d = p.dil[ci], b = (2 + ci) * C;
+      if (ci + 1 == p.n_conv) {
+        product(NkConv{}, Mode3{}, src, wm, p.K, d, nks_conv, b, 0, gbuf[ci & 1], head);
+      } else {
+        if (ci & 1) product(NkConv{}, Mode2{}, src, wm, p.K, d, nks_conv, b, ci + 1, gbuf[ci & 1], head);
+        else product(NkConv{}, Mode1{}, src, wm, p.K, d, nks_conv, b, ci + 1, gbuf[ci & 1], head);
+        named_barrier(bar_id, team);
+      }
+    }
+    fence_async_shared();   // the staging rows, before the TMA store reads them
   }
-  __syncthreads();   // X is read out before the next tile's up conv writes it
+  named_barrier(bar_id, team);
+  if (lead) {
+    store_tile(my_tiles - 1);
+    bulk_wait<0>();
   }
 }
 
-size_t align128(size_t b) { return (b + 127) & ~(size_t)127; }
-
 template <bool BF16, int C>
-int launch_narrow(NarrowArgs p, int n, cudaStream_t stream) {
-  const size_t sz = BF16 ? 2 : 4;
-  const int ldx = ld_of<BF16>(C);
-  const int ldu = ld_of<BF16>(p.cin);
-  const int q_cap = round_up((ROWS_CAP + p.r - 1) / p.r, 16);
-  size_t off = ZERO_BYTES;
-  p.off_x = (int)off;
-  off += align128((size_t)ROWS_CAP * ldx * sz);
-  const size_t h_bytes = align128((size_t)ROWS_CAP * ldx * sz);
-  const size_t g_bytes = align128((size_t)(HOFF + ROWS_CAP) * ldx * sz);
-  const size_t u_bytes = align128((size_t)q_cap * ldu * sz);
-  p.off_u = p.off_h = (int)off;
-  p.off_g = (int)(off + h_bytes);
-  off += u_bytes > h_bytes + g_bytes ? u_bytes : h_bytes + g_bytes;
-  p.off_w = (int)off;
-  p.w_in = (int)align128((size_t)p.r * C * ld_of<BF16>(round_up(p.cin, 16)) * sz);
-  p.w_conv = p.w_in + (int)align128((size_t)C * ld_of<BF16>(round_up(C, 16)) * sz);
-  p.w_stride = (int)align128((size_t)C * ld_of<BF16>(round_up(p.K * C, 16)) * sz);
-  off += (size_t)p.w_conv + (size_t)p.n_conv * p.w_stride;
-  p.off_f = (int)off;
-  p.f_stride = (int)align128((size_t)((ROWS_CAP + p.fr - 1) / p.fr + 3) * 2 * C * 4);
-  off += 2 * (size_t)p.f_stride;
-  p.off_t = (int)off;
-  off += align128((size_t)ROWS_CAP * sizeof(RowTap));
-  if (off > 232448) return static_cast<int>(cudaErrorInvalidValue);
+int launch_narrow(const CUtensorMap (&maps)[5], const NarrowArgs& p, int owners, int blocks, cudaStream_t stream) {
   auto kernel = filter_narrow_kernel<BF16, C>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)off);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  p.tiles = (p.L + p.T - 1) / p.T;
-  if ((long long)n * p.tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  p.total = n * p.tiles;
-  int dev = 0, sms = 0, per_sm = 0;
+  const size_t smem = (size_t)p.ly.smem;
+  int dev = 0;
   cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NARROW_THREADS, off);
-  kernel<<<(unsigned)min(p.total, max(1, sms * per_sm)), NARROW_THREADS, off, stream>>>(p);
+  static size_t smem_set[64] = {};   // the shared-memory limit raised once a card to the most any launch asks
+  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (smem > smem_set[dev]) {
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set[dev] = smem;
+  }
+  kernel<<<blocks, 128 * owners * p.wpt, smem, stream>>>(maps[0], maps[1], maps[2], maps[3], maps[4], p);
   RETURN_LAUNCH_STATUS();
+}
+
+// The narrow level's weights and biases in the blob the kernel copies to
+// shared memory whole: matrix j (the up conv [r C][cin], the 1x1 [C][C],
+// conv i [C][K C]: [out][(tap, in)], K-major) as 32-byte slabs of K, each
+// [rows][32 bytes] with the 32-byte swizzle (chunk h of row n at h ^ ((n >>
+// 2) & 1)), the layout wgmma reads B in; float32 as TF32 hi, and the lo
+// half after all the hi matrices; then every bias as float32.  One thread
+// writes 16 bytes (one chunk of a row).
+struct NarrowPrepArgs {
+  const void* src[2 + MAX_CONV];
+  const void* bias[2 + MAX_CONV];
+  long long st[2 + MAX_CONV][3];   // element strides of the [taps, in, out] view: tap, in, out
+  int taps[2 + MAX_CONV], cin[2 + MAX_CONV], rows[2 + MAX_CONV], off[2 + MAX_CONV], first[2 + MAX_CONV];
+  int jobs, items, C, lo, b_off;
+};
+
+template <bool BF16>
+__global__ void __launch_bounds__(256) filter_narrow_weights_kernel(const NarrowPrepArgs p, unsigned char* blob) {
+  using T = typename std::conditional<BF16, __nv_bfloat16, float>::type;
+  constexpr int E = 16 / (int)sizeof(T);
+  const int i = blockIdx.x * 256 + threadIdx.x;
+  if (i >= p.items) {
+    const int b = i - p.items;
+    if (b < p.jobs * p.C)
+      reinterpret_cast<float*>(blob + p.b_off)[b] = to_f32(static_cast<const T*>(p.bias[b / p.C])[b % p.C]);
+    return;
+  }
+  int j = 0;
+  while (j + 1 < p.jobs && i >= p.first[j + 1]) ++j;
+  const int kk = p.taps[j] * p.cin[j], units = (kk * (int)sizeof(T) + SLAB - 1) / SLAB * 2;
+  const int local = i - p.first[j], nr = local / units, q = local - nr * units;
+  const T* src = static_cast<const T*>(p.src[j]);
+  float v[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int kx = q * E + e, tap = kx / p.cin[j], ci = kx - tap * p.cin[j];
+    v[e] = kx < kk ? to_f32(src[tap * p.st[j][0] + ci * p.st[j][1] + nr * p.st[j][2]]) : 0.f;
+  }
+  const int s = q >> 1, h = q & 1;
+  const size_t dst = (size_t)p.off[j] + (size_t)s * p.rows[j] * SLAB + nr * SLAB + ((h ^ ((nr >> 2) & 1)) << 4);
+  if constexpr (BF16) {
+    uint4 u;
+    __nv_bfloat162* hp = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) hp[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
+    *reinterpret_cast<uint4*>(blob + dst) = u;
+  } else {
+    uint32_t hi[4], lo[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split_tf32(v[e], hi[e], lo[e]);
+    *reinterpret_cast<uint4*>(blob + dst) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    *reinterpret_cast<uint4*>(blob + p.lo + dst) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+  }
 }
 
 bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; }
@@ -644,7 +892,6 @@ constexpr int WIDE_HEAD = 1024;                // mbarriers; the weight ring sta
 constexpr int WIDE_MAX_STAGES = 16;
 constexpr int WIDE_STREAM_STAGES = 4;          // ring depth where the weights stream
 constexpr int KSTEPS = CHUNK_BYTES / 32;       // 32-byte wgmma k-steps a slab
-constexpr int SMEM_MAX = 232448;
 constexpr int COOK_WGS = 2;                    // warpgroups that cook the operand
 // Registers a cook thread keeps (setmaxnreg) and a consumer takes: 256 x
 // 200 + 256 x 56 = 65 536; at TN = 256 the consumers' 128 accumulators
@@ -850,9 +1097,9 @@ filter_wide_kernel(const __grid_constant__ CUtensorMap w_hi, const __grid_consta
       __syncwarp();
       if (lane == 0) mbar_arrive(afull + 8 * b);   // this warp's share of the operand is written
       // every cook is done with raw buffer b: item + 2's rows go there
-      asm volatile("bar.sync 1, %0;\n" ::"n"(COOKS) : "memory");
+      named_barrier(1, COOKS);
       if (ct == 0 && item + 2 < items) {
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        fence_async_shared();
         fetch_raw(item + 2);
       }
       if (p.split > 1 && k == my_chunks - 1) {   // the consumers' two cluster barriers of the tile
@@ -954,7 +1201,7 @@ filter_wide_kernel(const __grid_constant__ CUtensorMap w_hi, const __grid_consta
           released[slot] = 0;
           __threadfence_block();
           if (s + p.stages < total_steps) {
-            asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+            fence_async_shared();
             fetch(s + p.stages);
           }
         }
@@ -1017,7 +1264,7 @@ filter_wide_kernel(const __grid_constant__ CUtensorMap w_hi, const __grid_consta
         }
       };
       load_res(0);
-      asm volatile("bar.sync 2, %0;\n" ::"r"(consumers) : "memory");
+      named_barrier(2, consumers);
 #pragma unroll
       for (int c0 = 0; c0 < TN; c0 += PW) {
         if (c0 > 0) load_res(c0);
@@ -1310,42 +1557,116 @@ extern "C" int filter_wide_weights(int jobs, const void* const* src, const long 
   RETURN_LAUNCH_STATUS();
 }
 
-// A whole narrow level (C = 8 or 16) in one launch.  x_prev, skip
-// [n, l_in, cin]; up_w [cin, r C], up_b [C]; in_w [C, C] ([out, in]), in_b
-// [C]; conv_w and conv_b: host arrays of n_conv device pointers ([C, C, K]:
-// [out, in, tap], a Conv1d weight; and [C]);
-// dil: host array of n_conv dilations; film [n, F, 2 n_conv C] (conv i:
-// scale at 2 i C, shift at (2 i + 1) C) with F dividing l_in r; out
-// [n, l_in r, C].
-extern "C" int filter_narrow(const void* x_prev, const void* skip, const void* up_w,
-                             const void* up_b, const void* in_w, const void* in_b,
-                             const void* const* conv_w, const void* const* conv_b, const int* dil,
-                             const void* film, int n_conv, int K, void* out, int n, int l_in,
-                             int cin, int C, int r, int F, int bf16, void* stream) {
+// The narrow level's weights and biases -> blob (filter_narrow_kernel's
+// layout), one launch.  mats: host array of 2 + n_conv device pointers (the
+// up conv, the 1x1, the causal convs), each read as [taps, in, out] with
+// element strides strides[3 j .. 3 j + 2]; biases: 2 + n_conv device
+// pointers ([C] each); blob: filter_narrow_layout's bytes.
+static int launch_narrow_weights(const void* const* mats, const long long* strides, const void* const* biases, int n_conv,
+                          int K, int cin, int C, int r, void* blob, int bf16, cudaStream_t s) {
+  if ((C != 8 && C != 16) || n_conv < 2 || n_conv > MAX_CONV || K < 1 || K > K_MAX || cin < 8 || r < 1 ||
+      misaligned(blob))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const NarrowLayout l = narrow_layout(n_conv, K, cin, C, r, 1, 64, 1, 1, bf16 != 0);
+  NarrowPrepArgs p{};
+  p.jobs = 2 + n_conv;
+  p.C = C;
+  p.lo = l.w_lo;
+  p.b_off = l.b_off;
+  int items = 0;
+  for (int j = 0; j < p.jobs; ++j) {
+    if (mats[j] == nullptr || biases[j] == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    p.src[j] = mats[j];
+    p.bias[j] = biases[j];
+    for (int e = 0; e < 3; ++e) p.st[j][e] = strides[3 * j + e];
+    p.taps[j] = j < 2 ? 1 : K;
+    p.cin[j] = j == 0 ? cin : C;
+    p.rows[j] = j == 0 ? r * C : C;
+    p.off[j] = j == 0 ? 0 : j == 1 ? l.w_in : l.w_conv + (j - 2) * l.conv_bytes;
+    p.first[j] = items;
+    items += p.rows[j] * ((p.taps[j] * p.cin[j] * l.es + SLAB - 1) / SLAB * 2);
+  }
+  p.items = items;
+  const int blocks = (items + p.jobs * C + 255) / 256;
+  unsigned char* b = static_cast<unsigned char*>(blob);
+  if (bf16) filter_narrow_weights_kernel<true><<<blocks, 256, 0, s>>>(p, b);
+  else filter_narrow_weights_kernel<false><<<blocks, 256, 0, s>>>(p, b);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// A whole narrow level (C = 8 or 16): the weights' launch, then one launch
+// of filter_narrow_kernel, back to back (the tensor maps are encoded
+// first).  x_prev, skip [n, l_in, cin]; mats, strides, biases: the level's
+// weights and biases as launch_narrow_weights reads them, into blob
+// (filter_narrow_layout's bytes); film [n, F, 2 n_conv C] (conv i: scale
+// at 2 i C, shift at (2 i + 1) C) with F dividing l_in r; dil: host array of
+// n_conv dilations; out [n, l_in r, C].  The plan (kernels/filter.py:
+// narrow_plan): a tile writes T samples after A rows of lookback (A >= the
+// convs' lookback, A and T multiples of 8 and of r) and computes rows
+// samples (>= A + T); owners (1, 2) tiles a block at once, of wpt
+// warpgroups each (owners x wpt <= 4; 2 in float32 at C = 16); stages input
+// chunks in flight a tile (a multiple of wpt, at most 4); blocks, the
+// persistent grid.  bf16 storage when bf16 != 0, else float32 (3xTF32
+// products).  Every pointer 16-byte aligned.
+extern "C" int filter_narrow(const void* x_prev, const void* skip, const void* const* mats, const long long* strides,
+                             const void* const* biases, void* blob, const void* film, void* out,
+                             const int* dil, int n_conv, int K, int n, int l_in, int cin, int C, int r, int F,
+                             int rows, int T, int A, int owners, int wpt, int stages, int blocks, int bf16,
+                             void* stream) {
   const long long L = (long long)l_in * r;
-  if (n_conv < 2 || n_conv > MAX_CONV || n_conv % 2 || K < 1 || K > K_MAX || cin < 8 || cin % 8 ||
-      r < 1 || n < 1 || l_in < 1 || L > 0x7fffffff || F < 1 || L % F || misaligned(x_prev) ||
-      misaligned(skip) || misaligned(up_w) || misaligned(in_w) || misaligned(film) || misaligned(out))
+  if ((C != 8 && C != 16) || n_conv < 2 || n_conv > MAX_CONV || n_conv % 2 || K < 1 || K > K_MAX || cin < 8 ||
+      cin % 8 || r < 1 || n < 1 || l_in < 1 || L > 0x7fffffff || F < 1 || L % F || 2 * n_conv * C > 256 ||
+      misaligned(x_prev) || misaligned(skip) || misaligned(blob) || misaligned(film) || misaligned(out) ||
+      owners < 1 || owners > 2 || wpt < 1 || owners * wpt > (bf16 || C == 8 ? 4 : 2) || stages < 1 ||
+      stages > NARROW_MAX_STAGES || stages % wpt ||
+      blocks < 1 || T < 8 || T % 8 || T % r || A < 0 || A % 8 || A % r || rows < A + T)
     return static_cast<int>(cudaErrorInvalidValue);
   NarrowArgs p{};
-  p.x_prev = x_prev; p.skip = skip; p.up_w = up_w; p.up_b = up_b; p.in_w = in_w; p.in_b = in_b;
-  p.film = film; p.out = out;
   int lookback = 0;
   for (int i = 0; i < n_conv; ++i) {
-    if (dil[i] < 1 || (K - 1) * dil[i] > HALO_MAX || L <= (K - 1) * dil[i] || misaligned(conv_w[i]))
-      return static_cast<int>(cudaErrorInvalidValue);
-    p.conv_w[i] = conv_w[i];
-    p.conv_b[i] = conv_b[i];
+    if (dil[i] < 1 || (K - 1) * dil[i] > HALO_MAX || L <= (K - 1) * dil[i]) return static_cast<int>(cudaErrorInvalidValue);
     p.dil[i] = dil[i];
     lookback += (K - 1) * dil[i];
   }
+  if (A < lookback) return static_cast<int>(cudaErrorInvalidValue);
+  p.ly = narrow_layout(n_conv, K, cin, C, r, (int)(L / F), rows, owners, stages, bf16 != 0);
+  if (p.ly.smem > SMEM_MAX || p.ly.bw % 16 || wpt > p.ly.ms) return static_cast<int>(cudaErrorInvalidValue);
+  p.blob = blob;
   p.n_conv = n_conv; p.K = K; p.L = (int)L; p.cin = cin; p.r = r; p.F = F; p.fr = (int)(L / F);
-  p.film_ld = 2 * n_conv * C;
-  p.lookback = lookback;
-  p.T = ROWS_CAP - lookback - (r - 1);
-  if (p.T < 32) return static_cast<int>(cudaErrorInvalidValue);
+  p.fbox = std::min(p.ly.fbox, F);
+  p.T = T; p.A = A; p.stages = stages; p.wpt = wpt;
+  p.tiles_w = (int)((L + T - 1) / T);
+  if ((long long)n * p.tiles_w > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  p.tiles = n * p.tiles_w;
+  p.ob = std::min(OUT_BOX, T);
+  const int film_ld = 2 * n_conv * C, es = bf16 ? 2 : 4;
+  // maps: x_prev and skip (boxes of UP_ROWS rows x the input box), the FiLM
+  // box, the output in boxes of ob rows and of the last T % ob
+  CUtensorMap maps[5];
+  if (!make_map_3d(&maps[0], x_prev, bf16, cin, l_in, n, p.ly.bw / es, UP_ROWS, p.ly.swz) ||
+      !make_map_3d(&maps[1], skip, bf16, cin, l_in, n, p.ly.bw / es, UP_ROWS, p.ly.swz) ||
+      !make_map_3d(&maps[2], film, bf16, film_ld, F, n, film_ld, p.fbox, 0) ||
+      !make_map_3d(&maps[3], out, bf16, C, L, n, C, p.ob, 0) ||
+      (T % p.ob && !make_map_3d(&maps[4], out, bf16, C, L, n, C, T % p.ob, 0)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (T % p.ob == 0) maps[4] = maps[3];
+  blocks = std::min(blocks, (p.tiles + owners - 1) / owners);   // every block has a tile for its first owner
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (C == 16) return bf16 ? launch_narrow<true, 16>(p, n, s) : launch_narrow<false, 16>(p, n, s);
-  if (C == 8) return bf16 ? launch_narrow<true, 8>(p, n, s) : launch_narrow<false, 8>(p, n, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const int rc = launch_narrow_weights(mats, strides, biases, n_conv, K, cin, C, r, blob, bf16, s);
+  if (rc != 0) return rc;
+  if (C == 16)
+    return bf16 ? launch_narrow<true, 16>(maps, p, owners, blocks, s) : launch_narrow<false, 16>(maps, p, owners, blocks, s);
+  return bf16 ? launch_narrow<true, 8>(maps, p, owners, blocks, s) : launch_narrow<false, 8>(maps, p, owners, blocks, s);
 }
+
+// The narrow kernel's layout for a plan: {shared-memory bytes, blob bytes}
+// into out[0..1] (kernels/filter.py:narrow_layout computes the same).
+extern "C" int filter_narrow_layout(int n_conv, int K, int cin, int C, int r, int fr, int rows, int owners,
+                                    int stages, int bf16, long long* out) {
+  if (n_conv < 1 || K < 1 || cin < 8 || C < 8 || r < 1 || fr < 1 || rows < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const NarrowLayout l = narrow_layout(n_conv, K, cin, C, r, fr, rows, owners, stages, bf16 != 0);
+  out[0] = l.smem;
+  out[1] = l.blob;
+  return 0;
+}
+

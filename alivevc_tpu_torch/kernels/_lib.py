@@ -51,6 +51,7 @@ NATIVE_SOURCES = ("world.cpp", "ringbuffer.cpp")
 CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-shared")   # native/Makefile's
 
 LAUNCHES: Dict[str, int] = {"stft": 0, "knn": 0, "oscillator": 0, "filter_level": 0,
+                            "filter_narrow": 0, "filter_wide": 0,
                             "knn_packed": 0, "oscillator_formants": 0, "knn_merge": 0,
                             "knn_carried": 0, "knn_carried_packed": 0}
 

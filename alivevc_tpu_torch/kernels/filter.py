@@ -31,9 +31,13 @@ j*C + c is tap j of output channel c), ``in_w`` [C, C] ([in, out]),
 (``models/decoder.py:level_args``).
 
 Routes on the card (``filter_level_cuda``): a level with C = 8 or 16 runs as
-one launch of ``filter_narrow_kernel`` (up conv, 1x1 and the six convs in
-shared memory, on ``mma.sync``; each time tile recomputes its lookback, and
-a tile that reaches sample 0 reflects in place); any other level as one
+one ``filter_narrow_weights_kernel`` launch (its weights in the layout the
+products read, float32 as TF32 hi/lo, and its biases) and one launch of
+``filter_narrow_kernel`` (up conv, 1x1 and the six convs of a time tile on
+chip, on ``wgmma``, inputs, FiLM frames and weights by TMA, the output by
+TMA store; each tile recomputes its lookback, a tile that reaches sample 0
+reflects in place; its tiles, warpgroups and ring from ``narrow_plan``);
+any other level as one
 ``filter_wide_weights_kernel`` launch (every weight of the level K-major,
 [out][(tap, in)], and in float32 its TF32 hi/lo split) and 8 launches of
 ``filter_wide_kernel`` (the up conv and the 1x1 as products, then one
@@ -62,6 +66,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Optional, Sequence
 
 import torch
@@ -72,12 +77,12 @@ from alivevc_tpu_torch.kernels.knn import tf32_round
 from alivevc_tpu_torch.ops.interp import linear_interpolate
 
 NARROW_C = (8, 16)     # channel counts of the one-launch kernel (csrc/filter.cu)
-NARROW_ROWS = 256      # csrc/filter.cu ROWS_CAP: rows a narrow tile holds, lookback included
-NARROW_MAX_CIN = 128   # up-conv input channels the narrow kernel's shared memory takes
+NARROW_MAX_CIN = 128   # up-conv input channels the narrow route takes
 NARROW_MAX_RATE = 8
 MAX_CONV = 8
 MAX_TAPS = 7
 MAX_HALO = 24          # (k - 1) * dilation of one causal conv, at most
+DILATIONS = (1, 1, 2, 2, 4, 4)   # the default level's causal convs (k = 5)
 
 
 def film_of(film: torch.Tensor, i: int, c: int):
@@ -91,18 +96,154 @@ def lookback(k: int, dilations: Sequence[int]) -> int:
     return sum((k - 1) * d for d in dilations)
 
 
-def narrow_tile(k: int, dilations: Sequence[int], rate: int) -> int:
-    """Output samples a narrow-kernel tile writes: the tile's rows less the
-    lookback and the up conv's alignment (199 at the default levels)."""
-    return NARROW_ROWS - lookback(k, dilations) - (rate - 1)
+def narrow_lead(k: int, dilations: Sequence[int], rate: int) -> int:
+    """Rows a narrow tile computes before the samples it writes: the
+    lookback rounded up to a multiple of 8 and of the rate (56 at the
+    default levels)."""
+    unit = math.lcm(8, rate)
+    return -(-lookback(k, dilations) // unit) * unit
 
 
 def takes_narrow(c: int, c_in: int, rate: int, k: int, dilations: Sequence[int]) -> bool:
     """Whether a level runs as one ``filter_narrow_kernel`` launch (else the
-    wide route): C = 8 or 16, the up conv's inputs and rate within its shared
-    memory, and tiles that write at least 32 samples."""
-    return (c in NARROW_C and c_in <= NARROW_MAX_CIN and rate <= NARROW_MAX_RATE
-            and narrow_tile(k, dilations, rate) >= 32)
+    wide route): C = 8 or 16, the up conv's inputs and rate within the
+    narrow route's limits."""
+    return c in NARROW_C and c_in <= NARROW_MAX_CIN and rate <= NARROW_MAX_RATE
+
+
+# The narrow kernel's shared memory (csrc/filter.cu:narrow_layout; the card
+# test test_narrow_layout_formula_on_card holds the two to each other)
+NARROW_UP_ROWS = 64      # input rows an up-conv chunk
+NARROW_SLAB = 32         # bytes of K a weight slab row
+NARROW_HOFF = MAX_HALO   # operand rows above a tile
+NARROW_MAX_ROWS = 2048   # rows a tile computes, at most
+NARROW_MAX_STAGES = 4    # input chunks in flight a tile
+NARROW_MIN_BLOCKS = 64   # the grid the plan narrows tiles for at few windows
+SMEM_LIMIT = 232_448     # dynamic shared memory a block may take on the H100
+H100_SMS = 132
+
+
+def _align(b: int, a: int) -> int:
+    return -(-b // a) * a
+
+
+def narrow_max_wgs(c: int, dtype: torch.dtype) -> int:
+    """Warpgroups a narrow block may hold (``csrc/filter.cu:narrow_max_wgs``):
+    4, 2 in float32 at C = 16."""
+    return 2 if dtype == torch.float32 and c == 16 else 4
+
+
+def narrow_layout(n_conv: int, k: int, cin: int, c: int, rate: int, frame_rate: int, rows: int,
+                  owners: int, stages: int, dtype: torch.dtype) -> dict:
+    """The narrow kernel's shared-memory bytes (``smem``) and weight blob
+    bytes (``blob``) for tiles of ``rows`` computed rows, ``owners`` tiles a
+    block at once and ``stages`` input chunks in flight, at ``frame_rate``
+    samples a FiLM frame: the head (mbarriers, zeros), the blob, and per
+    tile owner the input ring, the two operand buffers, the level state X,
+    each row's FiLM mix and the FiLM table."""
+    es = 2 if dtype == torch.bfloat16 else 4
+    ms = -(-rows // 64)
+    fbox = -(-(rows - 1) // frame_rate) + 2
+    rowbytes = cin * es
+    swz = rowbytes if rowbytes in (32, 64, 128) else (128 if rowbytes % 128 == 0 else 0)
+    bw = min(rowbytes, 128) if swz else rowbytes
+    stage = _align(2 * (rowbytes // bw) * NARROW_UP_ROWS * bw, 1024)
+    g = _align((NARROW_HOFF + 64 * ms) * c * es, 128)
+    x = _align(max(64 * ms * c * es, fbox * 2 * n_conv * c * es), 128)
+    rt = _align(64 * ms * 8, 128)
+    tab = _align(fbox * n_conv * c * 16, 128)
+    region = _align(stages * stage + 2 * g + x + rt + tab, 1024)
+
+    def slabs(kdim):
+        return -(-kdim * es // NARROW_SLAB)
+
+    hi = NARROW_SLAB * (rate * c * slabs(cin) + c * slabs(c) + n_conv * c * slabs(k * c))
+    blob = hi * (1 if es == 2 else 2) + (2 + n_conv) * c * 4
+    return {"smem": 2048 + _align(blob, 1024) + owners * region, "blob": blob, "subtiles": ms,
+            "frames": fbox}
+
+
+@functools.lru_cache(maxsize=256)
+def narrow_plan(n: int, length: int, cin: int, c: int, rate: int, dtype: torch.dtype,
+                frame_rate: int = 160, k: int = 5, dilations: Sequence[int] = DILATIONS,
+                sms: int = H100_SMS) -> dict:
+    """The launch plan of one ``filter_narrow_kernel`` launch over ``n``
+    windows of ``length`` output samples (``cin`` input channels, ``c``
+    output, up-conv ``rate``, ``frame_rate`` samples a FiLM frame), on a
+    card of ``sms`` SMs:
+
+    - ``lead``: the rows a tile computes before the samples it writes
+      (``narrow_lead``); ``share`` = lead / rows, the work the lookback
+      repeats;
+    - ``owners``: tiles a block works on at once, each with buffers and a
+      warpgroup of its own: 2 where two fit in shared memory with tiles
+      whose lookback is at most 10 % of their rows, else 1;
+    - ``rows``: the rows a tile computes, a multiple of 64 up to what the
+      shared memory takes, chosen among those with at most 10 % lookback
+      (or the largest that fits) to even out the last wave (the fewest
+      rows a tile owner computes); ``T`` = rows - lead;
+    - at few windows (the streaming hop), where those tiles would give
+      fewer than 64 blocks (``narrowed``): one owner a block and ``T``
+      narrowed (in steps of 8 and of the rate) until the grid covers 64
+      SMs, whatever the lookback's share;
+    - ``wpt``: warpgroups a tile, which split its 64-row subtiles: as many
+      as the block holds (4 warpgroups, 2 in float32 at C = 16: their
+      registers) over its owners, at most one a subtile, and fewer where
+      no ring (below) fits; ``wgs`` = owners x wpt warpgroups a block;
+    - ``stages``: input chunks in flight a tile, the most of 2-4 that fit
+      among the multiples of ``wpt`` (each stage belongs to one warpgroup);
+    - ``tiles``, ``blocks`` (the persistent grid, at most one a SM), and
+      ``smem``.
+
+    Raises ValueError for a level whose weights and smallest tile do not
+    fit in shared memory."""
+    lead = narrow_lead(k, dilations, rate)
+    unit = math.lcm(8, rate)
+    step = math.lcm(64, unit)
+
+    def smem(rows, owners, stages):
+        return narrow_layout(len(dilations), k, cin, c, rate, frame_rate, rows, owners, stages,
+                             dtype)["smem"]
+
+    def fit(owners, stages):
+        best = 0
+        for rows in range(step, NARROW_MAX_ROWS + 1, step):
+            if rows >= lead + unit and smem(rows, owners, stages) <= SMEM_LIMIT:
+                best = rows
+        return best
+
+    def tiles(rows):
+        return n * -(-length // (rows - lead))
+
+    good = _align(10 * lead, step)
+    owners = 2 if fit(2, 2) >= good else 1
+    top = fit(owners, 2)
+    if top == 0:
+        raise ValueError(f"filter level C={c} from {cin} channels at rate {rate} in {dtype}: the "
+                         "narrow kernel's weights and smallest tile exceed shared memory")
+    low = good if top >= good else top
+    rows = min(range(low, top + 1, step), key=lambda r: (-(-tiles(r) // (sms * owners)) * r, -r))
+    narrowed = tiles(rows) < NARROW_MIN_BLOCKS
+    if narrowed:
+        owners = 1
+        t = rows - lead
+        while t > unit and n * -(-length // t) < NARROW_MIN_BLOCKS:
+            t -= unit
+        rows = t + lead
+    # each ring stage belongs to one warpgroup (chunk c to warpgroup c % wpt):
+    # stages a multiple of wpt, the most of 2-4 that fit; fewer warpgroups
+    # where no such count fits
+    for wpt in range(max(1, min(narrow_max_wgs(c, dtype) // owners, -(-rows // 64))), 0, -1):
+        fits = [s for s in range(wpt, NARROW_MAX_STAGES + 1, wpt)
+                if s >= 2 and smem(rows, owners, s) <= SMEM_LIMIT]
+        if fits:
+            stages = max(fits)
+            break
+    count = tiles(rows)
+    return {"rows": rows, "T": rows - lead, "lead": lead, "owners": owners, "wpt": wpt,
+            "wgs": owners * wpt, "stages": stages, "tiles": count,
+            "blocks": min(-(-count // owners), sms), "smem": smem(rows, owners, stages),
+            "share": lead / rows, "narrowed": narrowed}
 
 
 def _gelu_film(x, film, i, c, length, dt):
@@ -157,9 +298,10 @@ def filter_level_tiled(x_prev, skip, up_w, up_b, in_w, in_b, conv_w, conv_b, fil
                        products: str = "exact", compute: torch.dtype = torch.float32) -> torch.Tensor:
     """The narrow kernel's tiling, replayed on the CPU (tests only).  Each
     tile of ``tile`` output samples computes the whole level over the rows
-    [b0, t0 + tile), b0 = max(0, t0 - lookback) rounded down to a multiple
-    of ``rate``: rows the lookback holds wrongly (their history is cut) feed
-    only rows that the tile does not write.  A tile whose rows start at
+    [b0, t0 + tile), b0 = max(0, t0 - lead) (``narrow_lead``: the lookback
+    rounded up to a multiple of 8 and of ``rate``): rows the lookback holds
+    wrongly (their history is cut) feed only rows that the tile does not
+    write.  A tile whose rows start at
     sample 0 reflects each conv's head in place.  ``products`` is 'exact'
     (products in ``compute``) or '3xtf32' (the float32 kernels' split);
     roundings to the storage type are those of ``filter_level_plain``."""
@@ -168,7 +310,7 @@ def filter_level_tiled(x_prev, skip, up_w, up_b, in_w, in_b, conv_w, conv_b, fil
     c = up_b.shape[0]
     length = l_in * rate
     k = conv_w[0].shape[0]
-    lb = lookback(k, dilations)
+    lead = narrow_lead(k, dilations, rate)
 
     def prod(a, b):
         if products == "3xtf32":
@@ -184,7 +326,7 @@ def filter_level_tiled(x_prev, skip, up_w, up_b, in_w, in_b, conv_w, conv_b, fil
               for i in range(len(conv_w))]
     out = torch.empty((n, length, c), dtype=dt)
     for t0 in range(0, length, tile):
-        b0 = max(0, t0 - lb) // rate * rate
+        b0 = max(0, t0 - lead)
         e = min(t0 + tile, length)
         q0, q1 = b0 // rate, -(-e // rate)
         xs = rnd(x_prev[:, q0:q1].to(compute) + skip[:, q0:q1].to(compute))
@@ -214,7 +356,6 @@ def filter_level_tiled(x_prev, skip, up_w, up_b, in_w, in_b, conv_w, conv_b, fil
 WIDE_CHUNK_BYTES = 128   # a K chunk of the wide kernel: 128 bytes of input channels
 WIDE_TN = (32, 64, 128, 256)   # its column tiles (float32 up to 128)
 WIDE_MAX_SPLIT = 4       # blocks of a cluster that share a tile's K chunks
-H100_SMS = 132
 
 
 @functools.lru_cache(maxsize=256)
@@ -376,6 +517,30 @@ def _wide_weights(mats: Sequence[torch.Tensor], dt: torch.dtype, device: torch.d
     return hi, lo, offsets
 
 
+@functools.lru_cache(maxsize=64)
+def _narrow_blob_bytes(n_conv: int, k: int, cin: int, c: int, rate: int, bf16: int) -> int:
+    """Bytes of the narrow level's weight blob (``csrc/filter.cu:narrow_layout``)."""
+    layout = _lib.function("filter", "filter_narrow_layout", "i" * 10 + "p")
+    sizes = (ctypes.c_longlong * 2)()
+    _lib.check(layout(n_conv, k, cin, c, rate, 1, 64, 1, 1, bf16, ctypes.addressof(sizes)),
+               "filter level weights' layout")
+    return sizes[1]
+
+
+def _narrow_weights(up_w, in_w, conv_w, biases, dt):
+    """The narrow level's weights as ``filter_narrow_weights_kernel`` reads
+    them (each a [in, out] or [tap, in, out] view, any strides: the device
+    pointers, their strides) and its biases' pointers, as ctypes arrays."""
+    mats = [up_w[None], in_w.to(dt)[None], *[w.to(dt) for w in conv_w]]
+    for m in mats:
+        if not m.is_cuda or m.dim() != 3:
+            raise ValueError("filter level weights must be 3-D views of CUDA tensors")
+    src = (ctypes.c_void_p * len(mats))(*[m.data_ptr() for m in mats])
+    strides = (ctypes.c_longlong * (3 * len(mats)))(*[st for m in mats for st in m.stride()])
+    bs = (ctypes.c_void_p * len(biases))(*[b.data_ptr() for b in biases])
+    return src, strides, bs
+
+
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """The kernels read 16-byte vectors: a view that starts off 16 bytes is copied."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
@@ -384,8 +549,9 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 def filter_level_cuda(x_prev, skip, up_w, up_b, in_w, in_b,
                       conv_w: Sequence[torch.Tensor], conv_b: Sequence[torch.Tensor],
                       film: torch.Tensor, rate: int, dilations: Sequence[int]) -> torch.Tensor:
-    """The kernel launches: one ``filter_narrow_kernel`` for C = 8 or 16,
-    else 8 ``filter_wide_kernel`` launches (up conv, 1x1, six causal convs)."""
+    """The kernel launches: the weights' launch and one ``filter_narrow_kernel``
+    for C = 8 or 16, else the weights' launch and 8 ``filter_wide_kernel``
+    launches (up conv, 1x1, six causal convs)."""
     _lib.refuse_grad("filter_level_cuda", x_prev, skip, up_w, up_b, in_w, in_b, *conv_w, *conv_b,
                      film)
     dt = x_prev.dtype
@@ -426,20 +592,23 @@ def filter_level_cuda(x_prev, skip, up_w, up_b, in_w, in_b,
                          f"with F dividing the level's {length} samples")
     bf16 = int(dt == torch.bfloat16)
     stream = _lib.stream_of(x_prev)
-    if takes_narrow(c, c_in, rate, k, dilations):   # [out, in, tap], the Conv1d weight level_args took its view of
-        in_w_t = prep(in_w.t(), "in_w", 2)   # [out, in], the Linear's own layout
-        conv_w = [prep(w.permute(2, 1, 0), "conv_w", 3) for w in conv_w]
-        fn = _lib.function("filter", "filter_narrow", "p" * 10 + "ii" + "p" + "i" * 7 + "p")
-        ws = (ctypes.c_void_p * n_conv)(*[w.data_ptr() for w in conv_w])
-        bs = (ctypes.c_void_p * n_conv)(*[b.data_ptr() for b in conv_b])
+    if takes_narrow(c, c_in, rate, k, dilations):
+        plan = narrow_plan(n, length, c_in, c, rate, dt, length // frames, k, tuple(dilations),
+                           _sm_count(x_prev.get_device()))
+        src, strides, bs = _narrow_weights(up_w, in_w, conv_w, [up_b, in_b, *conv_b], dt)
+        blob = torch.empty((_narrow_blob_bytes(n_conv, k, c_in, c, rate, bf16),), dtype=torch.uint8,
+                           device=x_prev.device)
+        fn = _lib.function("filter", "filter_narrow", "p" * 9 + "i" * 16 + "p")
         ds = (ctypes.c_int * n_conv)(*dilations)
         out = torch.empty((n, length, c), dtype=dt, device=x_prev.device)
-        rc = fn(x_prev.data_ptr(), skip.data_ptr(), up_w.data_ptr(), up_b.data_ptr(),
-                in_w_t.data_ptr(), in_b.data_ptr(), ctypes.addressof(ws), ctypes.addressof(bs),
-                ctypes.addressof(ds), film.data_ptr(), n_conv, k, out.data_ptr(),
-                n, l_in, c_in, c, rate, frames, bf16, stream)
+        rc = fn(x_prev.data_ptr(), skip.data_ptr(), ctypes.addressof(src), ctypes.addressof(strides),
+                ctypes.addressof(bs), blob.data_ptr(), film.data_ptr(), out.data_ptr(),
+                ctypes.addressof(ds), n_conv, k, n, l_in, c_in, c, rate, frames, plan["rows"],
+                plan["T"], plan["lead"], plan["owners"], plan["wpt"], plan["stages"], plan["blocks"],
+                bf16, stream)
         _lib.check(rc, "filter level (narrow kernel)")
         _lib.LAUNCHES["filter_level"] += 1
+        _lib.LAUNCHES["filter_narrow"] += 1
         return out
 
     # the weights K-major, [out][(tap, in)], from their [tap, in, out] views
@@ -472,6 +641,7 @@ def filter_level_cuda(x_prev, skip, up_w, up_b, in_w, in_b,
         launch(2 + i, h if second else x, None, b, x.data_ptr() if second else None,
                x if second else h, film.data_ptr(), d, 2 * i * c, "filter causal conv")
     _lib.LAUNCHES["filter_level"] += 1
+    _lib.LAUNCHES["filter_wide"] += 1
     return x
 
 

@@ -25,7 +25,8 @@ printing the final line:
      inputs read once, its output written once: the wide route's 9
      launches pass every intermediate through device memory) over the
      card's memory rate, beside ``bound_ms``, which counts the level's own
-     inputs and output only; and its launches as ``wide_plan`` plans them.
+     inputs and output only; and its launches as ``narrow_plan`` or
+     ``wide_plan`` plans them.
      Each oscillator row also records ``kernel_ms``, the device time of its
      kernels alone (torch.profiler: the Chebyshev source; the formant
      source and its phase scan), and its grid (tiles of 4 frames, resident
@@ -60,9 +61,10 @@ printing the final line:
      calls, and must see the one plain step after).
      Launch counters are zeroed just before this phase and read just after
      it: every kernel must have run.  The bench-shape step is profiled by
-     kernel group, and a device span named ``filter`` outside the
-     filter_level group, or ``osc_`` outside the oscillator group, fails
-     the run.  Then the licence's kNN flip rate (direct
+     kernel group (the filter's narrow and wide kernels apart, and their
+     sum as filter_level), and a device span named ``filter`` outside the
+     filter_narrow and filter_wide groups, or ``osc_`` outside the
+     oscillator group, fails the run.  Then the licence's kNN flip rate (direct
      kernel calls; gated on phase 3's library, and reported on four more
      library draws) and small-input checks of the card's output against the
      plain versions on the CPU (f0 given; and with WORLD's f0, which is the
@@ -86,7 +88,7 @@ printing the final line:
      of 960-sample hops, a target matrix of a 30 s voice decimated x4 plus
      512 library tokens, 887 rows).  The eager hop, counters zeroed before
      its 50 hops and read after, must launch the STFT, kNN and filter-level
-     kernels; the hop replayed as one CUDA graph must equal it (<= 1e-5 over
+     kernels (the narrow and the wide); the hop replayed as one CUDA graph must equal it (<= 1e-5 over
      50 hops); the pipelined graph (depth 1) must equal the synchronous one
      delayed by a hop, exactly; one hop on the card against the plain hop on
      the CPU (f0 given) within 5e-3 (waveform) and 0.25 rad (phi).  Then the
@@ -121,7 +123,8 @@ printing the final line:
      the Chebyshev source, the STFT) against its plain version, forward and
      the gradient of every input, with the backward's time; five
      ``gan_train_step``s at 8 x 38 400 after two warm-ups (ms/step, peak
-     memory, launches a step: filter_level 8, oscillator 2, stft 2; one step
+     memory, launches a step: filter_level 8 (filter_narrow 4, filter_wide
+     4), oscillator 2, stft 2; one step
      profiled by group, the plain backward recompute apart); every decoder
      and discriminator parameter with a finite, nonzero gradient; one GAN
      step on the card against the CPU at 1 x 9 600 (losses, per-module
@@ -214,8 +217,8 @@ SHARD_LIB_ROWS = 1_048_575   # phase 4: padded to 2 x 524 288
 SHARD_RANKS = 2
 SHARD_TIMEOUT_S = 600
 SEED = 0
-OFFLINE_KERNELS = ("stft", "knn", "oscillator", "filter_level")
-SHARDED_KERNELS = ("knn", "oscillator", "filter_level")
+OFFLINE_KERNELS = ("stft", "knn", "oscillator", "filter_level", "filter_narrow", "filter_wide")
+SHARDED_KERNELS = ("knn", "oscillator", "filter_level", "filter_narrow", "filter_wide")
 API_KERNELS = ("knn_packed", "knn_carried_packed", "oscillator_formants")
 
 
@@ -570,29 +573,32 @@ def level_products(x, s, args, rate):
     return run
 
 
-def filter_grid(n, l_in, cin, c, r, length, k, dilations, dtype):
+def filter_grid(n, l_in, cin, c, r, length, k, dilations, dtype, frames):
     """A level's launches as ``kernels/filter.py`` plans them: a narrow level
-    (C = 8, 16) one launch over 256-row tiles (a tile writes 256 - lookback
-    - (r - 1) samples; one block a tile, at most one wave of blocks walking
-    them); a wide level the weights' launch and 8 of ``filter_wide_kernel``,
-    each [tm, tn, split, blocks] by ``wide_plan`` (blocks = tiles x split,
-    which the persistent grid caps at one wave)."""
+    (C = 8, 16) the weights' launch and one of ``filter_narrow_kernel``,
+    planned by ``narrow_plan`` (the rows a tile computes, the samples it
+    writes, the lookback's share of its rows, warpgroups a block, ring
+    stages, tiles, blocks of the persistent grid); a wide level the
+    weights' launch and 8 of ``filter_wide_kernel``, each [tm, tn, split,
+    blocks] by ``wide_plan`` (blocks = tiles x split, which the persistent
+    grid caps at one wave)."""
     import torch
-    from alivevc_tpu_torch.kernels.filter import (NARROW_ROWS, lookback, takes_narrow,
-                                                  wide_launches, wide_plan)
+    from alivevc_tpu_torch.kernels.filter import narrow_plan, takes_narrow, wide_launches, wide_plan
 
-    if takes_narrow(c, cin, r, k, dilations):
-        return {"launches": 1, "tiles": n * math.ceil(length / (NARROW_ROWS - lookback(k, dilations)
-                                                                 - (r - 1)))}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if takes_narrow(c, cin, r, k, dilations):
+        p = narrow_plan(n, length, cin, c, r, dtype, length // frames, k, tuple(dilations), sms)
+        return {"launches": 2, **{key: p[key] for key in ("rows", "T", "share", "owners", "wpt", "stages",
+                                                          "tiles", "blocks")}}
     plans = [wide_plan(*spec, dtype, sms) for spec in wide_launches(n, l_in, cin, c, r, k, len(dilations))]
-    return {"launches": 8, "plans": [[p["tm"], p["tn"], p["split"], p["ctas"]] for p in plans]}
+    return {"launches": 9, "plans": [[p["tm"], p["tn"], p["split"], p["ctas"]] for p in plans]}
 
 
 def form_bytes(n, l_in, cin, c, r, n_conv, film_frames, weights, isz, wide):
     """Bytes the level's launches move, each launch's inputs read once and
-    its output written once: the narrow kernel's one launch (x_prev, skip,
-    FiLM, weights in; the level out), or the wide route's 9 (the weights
+    its output written once: the narrow route's (x_prev, skip, FiLM,
+    weights in; the level out; its weights' launch moves a few kilobytes
+    more, not counted), or the wide route's 9 (the weights
     read and written K-major, float32 as TF32 hi + lo; the up conv; the
     1x1; each causal conv reads its operand and its FiLM columns and writes
     its output, the second of a block also reads the residual)."""
@@ -662,7 +668,7 @@ def check_filter_levels(gen, dec, n=N_STEP, lw=LW, dtypes=("f32", "bf16"), tag="
                 "products_library_ms": cuda_ms(level_products(x, s, args, r)),
                 "bound_ms": b, "bound_by": by, "form_bytes_floor_ms": floor,
                 "grid": filter_grid(n, l_in, cin, c, r, lens[i], cfg.filter_kernel_size,
-                                    args["dilations"], dt),
+                                    args["dilations"], dt, args["film"].shape[1]),
             })
             del got, want
     return rows
@@ -889,8 +895,10 @@ KERNEL_GROUPS = (
     ("stft", ("stft_fft",)),
     ("knn", ("knn_tile", "knn_merge", "knn_carried")),
     ("oscillator", ("osc_scan", "osc_cheb", "osc_formant")),
-    ("filter_level", ("filter_wide_kernel", "filter_wide_weights_kernel", "filter_narrow_kernel")),
+    ("filter_narrow", ("filter_narrow_kernel", "filter_narrow_weights_kernel")),
+    ("filter_wide", ("filter_wide_kernel", "filter_wide_weights_kernel")),
 )
+FILTER_GROUPS = ("filter_narrow", "filter_wide")   # their sum is reported as filter_level
 
 
 def profile_step(step, card, label="one bench-shape bf16 step"):
@@ -915,10 +923,10 @@ def profile_step(step, card, label="one bench-shape bf16 step"):
     for start, end, name in spans:
         g = next((g for g, keys in KERNEL_GROUPS if any(k in name for k in keys)),
                  "other (cuBLAS, cuDNN, elementwise, copies)")
-        # every filter kernel of the port must count as the filter level's,
+        # every filter kernel of the port must count as a filter level's,
         # every oscillator kernel (the phase scan too) as the oscillator's
-        need("filter" not in name or g == "filter_level",
-             f"profile: device span {name!r} lands in {g!r}, not in filter_level")
+        need("filter" not in name or g in FILTER_GROUPS,
+             f"profile: device span {name!r} lands in {g!r}, not in {FILTER_GROUPS}")
         need("osc_" not in name or g == "oscillator",
              f"profile: device span {name!r} lands in {g!r}, not in oscillator")
         groups[g] += (end - start) / 1e3
@@ -936,7 +944,9 @@ def profile_step(step, card, label="one bench-shape bf16 step"):
           f"{len(spans)} device spans")
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"  {g:45s} {ms:9.3f} ms  {100 * ms / total:5.1f} %")
-    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy, "by_group_ms": groups,
+    level = sum(groups[g] for g in FILTER_GROUPS)
+    print(f"  {'filter_level (filter_narrow + filter_wide)':45s} {level:9.3f} ms  {100 * level / total:5.1f} %")
+    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy, "by_group_ms": {**groups, "filter_level": level},
             "device_spans": len(spans)}
 
 
@@ -1185,8 +1195,8 @@ HOP_WINDOW = HOP_CHUNK * HOP_PRIME
 COMPARE_HOPS = 50
 LATENCY_HOPS = 200
 PROFILE_HOPS = 20
-STREAM_KERNELS = ("stft", "knn_carried", "filter_level")   # the hop's 887 rows: the carried form
-CLI_OFFLINE_KERNELS = ("stft", "knn_carried", "oscillator", "filter_level")
+STREAM_KERNELS = ("stft", "knn_carried", "filter_level", "filter_narrow", "filter_wide")   # the carried kNN form
+CLI_OFFLINE_KERNELS = ("stft", "knn_carried", "oscillator", "filter_level", "filter_narrow", "filter_wide")
 PHASE6_LIMIT_S = 60.0
 WPE_LATENCY_HOPS = 60        # the -wpe forms' latency hops (WORLD runs on the host each hop)
 
@@ -1419,9 +1429,11 @@ def run_realtime(ce, f0m, dec, gen, card):
         prof = profile_step(lambda: [conv.process_chunk(c) for c in hops[:PROFILE_HOPS]], card,
                             f"{PROFILE_HOPS} hops, {name}, synchronous")
         if prof is not None:
+            by = {g: prof["by_group_ms"][g] / PROFILE_HOPS for g in ("knn", *FILTER_GROUPS, "filter_level")}
             print(f"realtime: {name} hop device time {prof['device_busy_ms'] / PROFILE_HOPS:.4f} ms, "
                   f"{prof['device_spans'] / PROFILE_HOPS:.1f} device spans a hop, kNN kernels "
-                  f"{prof['by_group_ms']['knn'] / PROFILE_HOPS:.4f} ms a hop")
+                  f"{by['knn']:.4f} ms a hop, filter kernels {by['filter_level']:.4f} (narrow "
+                  f"{by['filter_narrow']:.4f}, wide {by['filter_wide']:.4f})")
         profiles[name] = prof
     # 8. WORLD pitch: the same three forms with f0 from the host
     wpe_launches, wpe_report = run_realtime_world(ce, f0m, dec, tgt, prime, hops, card)
@@ -1437,6 +1449,9 @@ def run_realtime(ce, f0m, dec, gen, card):
                                 for k, v in profiles.items()},
               "hop_knn_device_ms": {k: None if v is None else v["by_group_ms"]["knn"] / PROFILE_HOPS
                                     for k, v in profiles.items()},
+              "hop_filter_device_ms": {k: None if v is None else {g: v["by_group_ms"][g] / PROFILE_HOPS
+                                                                   for g in (*FILTER_GROUPS, "filter_level")}
+                                       for k, v in profiles.items()},
               "hop_busy_share": {k: None if v is None else v["device_busy_ms"] / v["wall_ms"]
                                  for k, v in profiles.items()},
               "elapsed_s": elapsed, **wpe_report}
@@ -1642,7 +1657,8 @@ TRAIN_TIMEOUT_S = 300
 DP_GRAD_TOL = {"G": 1e-4, "D": 1e-5}
 PHASE8_LIMIT_S = 90.0
 PITCH_HZ = 120
-PER_GAN_STEP = {"filter_level": 8, "oscillator": 2, "stft": 2}   # 4 levels x 2 decoder calls
+# 4 levels x 2 decoder calls: 2 narrow (C = 16, 8) and 2 wide levels a call
+PER_GAN_STEP = {"filter_level": 8, "filter_narrow": 4, "filter_wide": 4, "oscillator": 2, "stft": 2}
 
 
 def train_models():
@@ -1788,7 +1804,8 @@ def print_train_rows(rows, card) -> None:
 
 
 TRAIN_GROUPS = (
-    ("filter kernels", ("filter_wide_kernel", "filter_wide_weights_kernel", "filter_narrow_kernel")),
+    ("filter narrow kernels", ("filter_narrow_kernel", "filter_narrow_weights_kernel")),
+    ("filter wide kernels", ("filter_wide_kernel", "filter_wide_weights_kernel")),
     ("oscillator kernel", ("osc_cheb",)),
     ("STFT kernel", ("stft_fft",)),
     ("kNN kernels", ("knn_tile", "knn_merge", "knn_carried")),
@@ -2748,7 +2765,8 @@ DETERMINISTIC_TIMEOUT_S = 300
 # 60 s before the deterministic sub-run; it takes ~30 s in a process of its own (30.5 s in its
 # first run on an H100 at 700 W, the phase 57.9 s), so the limit is raised by 30 s
 PHASE10_LIMIT_S = 90.0
-RESUME_KERNELS = ("filter_level", "oscillator", "stft", "knn_carried")   # fine-tuning's library
+RESUME_KERNELS = ("filter_level", "filter_narrow", "filter_wide", "oscillator", "stft",
+                  "knn_carried")   # fine-tuning's library
 
 
 def state_tensors(state) -> dict:
@@ -3030,7 +3048,8 @@ def run_resume(card):
 # ---------------------------------------------------------------------------
 
 PHASE11_LIMIT_S = 60.0
-CHAIN_KERNELS = ("stft", "filter_level", "oscillator", "knn_carried")   # small libraries
+CHAIN_KERNELS = ("stft", "filter_level", "filter_narrow", "filter_wide", "oscillator",
+                 "knn_carried")   # small libraries
 
 
 def state_digest(sd) -> str:
@@ -3180,6 +3199,10 @@ REPLACES = {
     "oscillator": ("alivevc_tpu_torch/csrc/oscillator.cu",
                    "alivevc_tpu/kernels/oscillator_pallas.py:229"),
     "filter_level": ("alivevc_tpu_torch/csrc/filter.cu", "alivevc_tpu/kernels/filter_pallas.py:771"),
+    "filter_narrow": ("alivevc_tpu_torch/csrc/filter.cu (filter_narrow_weights_kernel + filter_narrow_kernel)",
+                      "alivevc_tpu/kernels/filter_pallas.py:771 (fused_filter_block_up at C = 16, 8)"),
+    "filter_wide": ("alivevc_tpu_torch/csrc/filter.cu (filter_wide_weights_kernel + filter_wide_kernel)",
+                    "alivevc_tpu/kernels/filter_pallas.py:771 (fused_filter_block_up at C = 256, 64)"),
     "knn_packed": ("alivevc_tpu_torch/csrc/knn.cu",
                    "alivevc_tpu/kernels/knn_pallas.py:331 (_knn_kernel_fast, _pack_topk)"),
     "knn_carried_packed": ("alivevc_tpu_torch/csrc/knn_carried.cu",
@@ -3189,10 +3212,19 @@ REPLACES = {
 }
 
 
+FILTER_ENTRIES = ("filter_level", "filter_narrow", "filter_wide")
+
+
+def narrow_level(row) -> bool:
+    """Whether a filter_level row is a narrow level (C = 16 or 8)."""
+    return " C=16 " in row["variant"] or " C=8 " in row["variant"]
+
+
 def kernels_line(rows, launches):
     """One entry per kernel.  The numbers are those of the kernel's variant
     on the bf16 main path (kNN 'default' at the 100 352-row library; the
-    filter's four up levels in bf16, summed: one step runs all four; the
+    filter's four up levels in bf16, summed: one step runs all four, and as
+    'filter_narrow' (levels 2-3) and 'filter_wide' (levels 0-1); the
     packed kNN at the 100 352-row library; the carried kNN form at the
     streaming hop, 'high', and its packed kernel at 512 rows); every measured variant, the
     streaming hop's and the training Functions' included, is listed under 'variants'.  Launches
@@ -3209,7 +3241,9 @@ def kernels_line(rows, launches):
             main = [r for r in mine if r["variant"].endswith("high (hop)")]
         elif name == "knn_carried_packed":
             main = [r for r in mine if r["variant"].startswith(f"{N_STEP * LF} x 512 x 768")]
-        elif name == "filter_level":
+        elif name in FILTER_ENTRIES:   # the bf16 main path's levels: all four, the narrow or the wide
+            mine = [r for r in rows if r["name"] == "filter_level"
+                    and (name == "filter_level" or narrow_level(r) == (name == "filter_narrow"))]
             main = [r for r in mine if r["variant"].endswith("bf16")]
         else:     # the STFT and the oscillators: the offline row, not the hop's, training's or distillation's
             main = [r for r in mine if not r["variant"].endswith(("(hop)", "(train)", "(distill)"))]
@@ -3225,7 +3259,7 @@ def kernels_line(rows, launches):
                            else sum(r["library_ms"] for r in main)),
             **({"products_library_ms": sum(r["products_library_ms"] for r in main),
                 "form_bytes_floor_ms": sum(r["form_bytes_floor_ms"] for r in main)}
-               if name == "filter_level" else {}),
+               if name in FILTER_ENTRIES else {}),
             **({"kernel_ms": main[0]["kernel_ms"]} if "kernel_ms" in main[0] else {}),
             "variants": [{k: v for k, v in r.items() if k != "name"} for r in mine],
         }

@@ -1,11 +1,14 @@
-"""The wide filter kernel's launch plan and its K order, on the CPU.
+"""The filter kernels' launch plans and their orders, on the CPU.
 
 ``kernels/filter.py:wide_plan`` chooses each ``filter_wide_kernel``
 launch's tile (64 or 128 rows x 32-256 columns), its K split over a
 cluster and so its grid; ``filter_level_wide_replay`` replays the kernel's
 sums in their order (chunks of 128 bytes of input channels, every tap of a
-chunk before the next; a split's partial sums added in rank order).  The
-kernel itself runs only on the card (tests/test_torch_port_gpu.py).
+chunk before the next; a split's partial sums added in rank order).
+``narrow_plan`` chooses ``filter_narrow_kernel``'s tiles (the rows a tile
+computes and the samples it writes), its tile owners and warpgroups a
+block and its ring; ``filter_level_tiled`` replays its tiling.  The
+kernels themselves run only on the card (tests/test_torch_port_gpu.py).
 
 Tolerances: the replay against ``filter_level_plain`` 1e-5 (1 + scale) in
 float32 (sums of up to 1 280 products in another order), the 3xTF32 replay
@@ -20,7 +23,7 @@ import pytest
 import torch
 
 from alivevc_tpu_torch.kernels import filter as kfilter
-from test_torch_port_gpu import FILTER_EDGES, HOP_LEVELS, WIDE_ROUTES
+from test_torch_port_gpu import FILTER_EDGES, HOP_LEVELS, NARROW_LEVELS, WIDE_ROUTES
 from test_torch_port_util import max_err
 
 SMS = kfilter.H100_SMS
@@ -173,3 +176,185 @@ def test_wide_replay_bf16_storage(case):
     assert got.dtype == want.dtype == torch.bfloat16
     scale = float(want.float().abs().max())
     assert max_err(got, want) <= 4e-2 * (1.0 + scale), (case, max_err(got, want))
+
+
+# ---------------------------------------------------------------------------
+# The narrow kernel (levels 2-3: C = 16 from 64 channels, C = 8 from 16)
+# ---------------------------------------------------------------------------
+
+BENCH_NARROW = {2: (72_000, 160), 3: (144_000, 320)}   # output samples, samples a FiLM frame
+LIMIT = kfilter.SMEM_LIMIT
+
+
+def _narrow(level, n, length, fr, dtype):
+    cin, c, r = NARROW_LEVELS[level]
+    return kfilter.narrow_plan(n, length, cin, c, r, dtype, fr)
+
+
+def _check_plan(p, n, length, dtype, c):
+    """What every narrow plan holds: the layout fits; T and the lead are
+    multiples of 8 (and of the rate 2); a tile computes its lead and its T;
+    the block's warpgroups fit its registers and each has a subtile; every
+    ring stage belongs to one warpgroup (stages a multiple of the tile's
+    warpgroups); the tiles cover the windows; the grid is at most one block
+    a SM."""
+    assert p["smem"] <= LIMIT
+    assert p["T"] % 8 == 0 and p["lead"] % 8 == 0 and p["lead"] >= kfilter.lookback(5, DILATIONS)
+    assert p["rows"] == p["T"] + p["lead"]
+    assert p["owners"] in (1, 2) and p["wgs"] == p["owners"] * p["wpt"]
+    assert p["wgs"] <= kfilter.narrow_max_wgs(c, dtype) and p["wpt"] <= -(-p["rows"] // 64)
+    assert 2 <= p["stages"] <= kfilter.NARROW_MAX_STAGES and p["stages"] % p["wpt"] == 0
+    assert p["tiles"] == n * -(-length // p["T"])
+    assert p["blocks"] == min(-(-p["tiles"] // p["owners"]), SMS)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_narrow_plan_at_the_bench_shape(dtype):
+    """16 windows of 144 000 samples: whole tiles of 64-row subtiles, every
+    SM busy; bf16 takes two tile owners a block with the lookback at most
+    10 % of a tile's rows (576 and 1 536 rows); float32 fits two owners at
+    C = 8 (640 rows, 8.75 %) and one at C = 16, whose weights (TF32 hi and
+    lo) and 256-byte input rows leave room for 320 rows: 17.5 %."""
+    for level, (length, fr) in BENCH_NARROW.items():
+        c = NARROW_LEVELS[level][1]
+        p = _narrow(level, BENCH_N, length, fr, dtype)
+        _check_plan(p, BENCH_N, length, dtype, c)
+        assert not p["narrowed"] and p["rows"] % 64 == 0 and p["blocks"] == SMS
+        if dtype == torch.bfloat16 or level == 3:
+            assert p["owners"] == 2 and p["share"] <= 0.10, (level, p)
+        else:
+            assert p["owners"] == 1 and p["rows"] == 320 and p["share"] == 56 / 320, p
+    assert _narrow(2, BENCH_N, 72_000, 160, torch.bfloat16)["rows"] == 576
+    assert _narrow(3, BENCH_N, 144_000, 320, torch.bfloat16)["rows"] == 1536
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_narrow_plan_fills_the_card_at_the_hop(dtype):
+    """The streaming hop (N = 1: 3 840 and 7 680 samples): PR 4's tiles gave
+    20 and 39 blocks; the plan narrows T until at least 64 blocks work, one
+    owner a block with its warpgroups on the tile's subtiles."""
+    for level in (2, 3):
+        length = HOP_LEVELS[level]
+        c = NARROW_LEVELS[level][1]
+        p = _narrow(level, 1, length, 160 * (level - 1), dtype)
+        _check_plan(p, 1, length, dtype, c)
+        assert p["narrowed"] and p["owners"] == 1 and p["wpt"] >= 2
+        assert 64 <= p["blocks"] <= SMS and p["tiles"] == p["blocks"]
+        # the widest T that still gives 64 blocks
+        assert -(-length // (p["T"] + 8)) < 64
+    assert _narrow(2, 1, 3840, 160, dtype)["T"] == 56 and _narrow(3, 1, 7680, 320, dtype)["T"] == 120
+
+
+def test_narrow_plan_at_the_training_shape():
+    """The GAN trainer's decoder (8 windows of 38 400 samples, float32): the
+    narrow levels fit and fill the card."""
+    for level, length in ((2, 19_200), (3, 38_400)):
+        c = NARROW_LEVELS[level][1]
+        p = _narrow(level, 8, length, 160 * (level - 1), torch.float32)
+        _check_plan(p, 8, length, torch.float32, c)
+        assert p["blocks"] >= 64
+
+
+def test_narrow_plan_rules():
+    """Over a sweep of shapes and both types: the invariants of
+    ``_check_plan``; a plan that is not narrowed takes tiles of whole
+    64-row subtiles with at most 10 % lookback unless the shared memory
+    allows none such (then the largest that fits), and gives at least 64
+    tiles; a narrowed one gives at least 64 tiles unless T is already 8."""
+    for dtype in (torch.bfloat16, torch.float32):
+        for level in (2, 3):
+            cin, c, r = NARROW_LEVELS[level]
+            for n, length, fr in [(1, 960, 160), (1, 3840, 160), (2, 7680, 320), (4, 48_000, 160),
+                                  (16, 72_000, 160), (64, 144_000, 320), (3, 100_000, 400),
+                                  (1, 16, 16), (7, 1000, 8)]:
+                p = kfilter.narrow_plan(n, length, cin, c, r, dtype, fr)
+                _check_plan(p, n, length, dtype, c)
+                if p["narrowed"]:
+                    assert p["tiles"] >= 64 or p["T"] == 8, p
+                else:
+                    assert p["rows"] % 64 == 0 and p["tiles"] >= 64
+                    fits_good = kfilter.narrow_layout(6, 5, cin, c, r, fr, 576, p["owners"], 2,
+                                                      dtype)["smem"] <= LIMIT
+                    assert p["share"] <= 0.10 or not fits_good, p
+
+
+def test_narrow_card_cases_reach_every_branch():
+    """The card tests' narrow levels (FILTER_EDGES) take every branch of the
+    plan in some type: one and two tile owners, 1-4 warpgroups a tile, 2-4
+    ring stages, narrowed and full tiles, a level ending one input row
+    into a tile (L mod T = 2) and one ending on a tile's end, several
+    windows with several tiles each (their tiles at sample 0 reflect)."""
+    seen = {"owners": set(), "wpt": set(), "stages": set(), "narrowed": set()}
+    one_row, whole, multi = False, False, False
+    for level, n, l_in, frames in FILTER_EDGES:
+        if level not in NARROW_LEVELS:
+            continue
+        cin, c, r = NARROW_LEVELS[level]
+        length = l_in * r
+        for dtype in (torch.bfloat16, torch.float32):
+            p = kfilter.narrow_plan(n, length, cin, c, r, dtype, length // frames)
+            for key in seen:
+                seen[key].add(p[key])
+            one_row |= length % p["T"] == r and length > p["T"]
+            whole |= length % p["T"] == 0
+            multi |= n >= 3 and length > 2 * p["T"]
+    assert seen == {"owners": {1, 2}, "wpt": {1, 2, 3, 4}, "stages": {2, 3, 4}, "narrowed": {False, True}}
+    assert one_row and whole and multi
+
+
+def test_narrow_layout_at_the_bench_plans():
+    """The narrow kernel's weight blob (the up conv, the 1x1 and six convs
+    as 32-byte slabs, float32 with the TF32 lo half, and the biases) and
+    its shared memory at the bench plans."""
+    blob = {(2, torch.bfloat16): 20_480, (3, torch.bfloat16): 5_632,
+            (2, torch.float32): 80_384, (3, torch.float32): 18_176}
+    for (level, dtype), want in blob.items():
+        cin, c, r = NARROW_LEVELS[level]
+        length, fr = BENCH_NARROW[level]
+        p = _narrow(level, BENCH_N, length, fr, dtype)
+        lay = kfilter.narrow_layout(6, 5, cin, c, r, fr, p["rows"], p["owners"], p["stages"], dtype)
+        assert lay["blob"] == want and lay["smem"] == p["smem"] <= LIMIT
+
+
+# (level, windows, input samples, FiLM frames) for the tiling replays: the
+# plan's tiles at card-test shapes, narrowed (T = 24, 48) and full (T = 264,
+# 456), the last one input row into a tile
+TILED = [(2, 2, 480, 6), (3, 3, 530, 53), (2, 32, 133, 1), (3, 32, 229, 1)]
+
+
+def _decoder_level(level, n, l_in, frames, seed, dtype=torch.float32):
+    cin, c, r = NARROW_LEVELS[level]
+    return _level(seed, n, l_in, cin, c, r, 5, DILATIONS, frames, dtype)
+
+
+@pytest.mark.parametrize("case", range(len(TILED)))
+def test_narrow_tiled_at_the_plan_equals_plain(case):
+    """float32: the narrow kernel's tiling at the plan's T and lead
+    (recomputed lookback, the tile at sample 0 reflected) within 1e-5 (1 +
+    scale) of filter_level_plain."""
+    level, n, l_in, frames = TILED[case]
+    args = _decoder_level(level, n, l_in, frames, 80 + case)
+    cin, c, r = NARROW_LEVELS[level]
+    length = l_in * r
+    p = kfilter.narrow_plan(n, length, cin, c, r, torch.float32, length // frames)
+    assert p["lead"] == kfilter.narrow_lead(5, DILATIONS, r) == 56
+    got = kfilter.filter_level_tiled(**args, tile=p["T"])
+    want = kfilter.filter_level_plain(**args)
+    scale = float(want.abs().max())
+    assert max_err(got, want) <= 1e-5 * (1.0 + scale), (case, p["T"], max_err(got, want))
+
+
+@pytest.mark.parametrize("case", [0, 2])
+def test_narrow_tiled_3xtf32_vs_float64(case):
+    """float32 storage: the tiling at the plan's T with every product split
+    as the kernel splits it (3xTF32) within 1e-5 (1 + scale) of the level in
+    float64 (storage roundings to float32 kept)."""
+    level, n, l_in, frames = TILED[case]
+    args = _decoder_level(level, n, l_in, frames, 90 + case)
+    cin, c, r = NARROW_LEVELS[level]
+    length = l_in * r
+    tile = kfilter.narrow_plan(n, length, cin, c, r, torch.float32, length // frames)["T"]
+    got = kfilter.filter_level_tiled(**args, tile=tile, products="3xtf32")
+    want = kfilter.filter_level_tiled(**args, tile=length, compute=torch.float64)
+    scale = float(want.abs().max())
+    assert max_err(got, want) <= 1e-5 * (1.0 + scale), (case, max_err(got, want))

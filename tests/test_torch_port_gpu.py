@@ -358,9 +358,18 @@ def test_knn_carried_scratch_formula_on_card():
 # and its narrow column tiles; the last two (4 x 4 510 and 2 x 9 608
 # samples) its 128-row tiles without a split, with streamed (C = 256) and
 # resident (C = 64) weights.
+# The narrow levels' own edges (kernels/filter.py:narrow_plan's tiles): a
+# level one input row longer than a tile (C = 16 at 32 windows of 522
+# samples in bf16, of 266 in float32; C = 8 at 32 x 458), a level ending one
+# input row into a tile over several windows (22 x 1 562), the tiles at
+# sample 0 of three windows with several tiles each (3 x 14 000, 3 x 32 000),
+# and the streaming hop's N = 1 (3 840 and 7 680 samples); together they
+# take every branch of the plan (tests/test_torch_port_filter_plan.py).
 FILTER_EDGES = [(0, 2, 50, 50), (1, 2, 120, 12), (2, 2, 480, 6), (3, 1, 640, 4),
                 (0, 1, 2, 2), (1, 1, 8, 1), (2, 1, 30, 1), (3, 2, 30, 1), (3, 3, 530, 53),
-                (0, 4, 451, 41), (1, 2, 1201, 1)]
+                (0, 4, 451, 41), (1, 2, 1201, 1),
+                (2, 32, 261, 1), (2, 32, 133, 1), (3, 32, 229, 1), (2, 22, 781, 1),
+                (2, 3, 7000, 35), (3, 3, 16000, 100), (2, 1, 1920, 24), (3, 1, 3840, 24)]
 
 
 @pytest.mark.gpu
@@ -387,11 +396,14 @@ def test_filter_level_edges_on_card(dtype):
         cond = (0.5 * torch.randn(n, frames, 512, generator=g, device="cuda")).to(dt)
         with torch.no_grad():
             args = level_args(blk, up, cond)
-            before = LAUNCHES["filter_level"]
+            before = dict(LAUNCHES)
             got = kfilter.filter_level_cuda(x, s, rate=r, **args)
             want = kfilter.filter_level_plain(x, s, rate=r, **args)
         torch.cuda.synchronize()
-        assert LAUNCHES["filter_level"] == before + 1
+        narrow = kfilter.takes_narrow(c, cin, r, 5, args["dilations"])
+        assert LAUNCHES["filter_level"] == before["filter_level"] + 1
+        assert LAUNCHES["filter_narrow"] == before["filter_narrow"] + narrow
+        assert LAUNCHES["filter_wide"] == before["filter_wide"] + (not narrow)
         assert got.shape == want.shape == (n, l_in * r, c) and got.dtype == dt
         scale = float(want.float().abs().max())
         tol = (1e-3 if dt == torch.float32 else 4e-2) * (1.0 + scale)
@@ -486,6 +498,48 @@ def test_filter_level_repeatable_on_card(dtype):
             for _ in range(4):
                 assert torch.equal(kfilter.filter_level_cuda(x, s, rate=r, **args), first), level
         assert bool(torch.isfinite(first).all()), level
+
+
+# the narrow levels' (C_in, C, rate) by level
+NARROW_LEVELS = {2: (64, 16, 2), 3: (16, 8, 2)}
+
+
+def narrow_layout_cases():
+    """(n_conv, k, cin, c, rate, frame rate, rows, owners, stages, dtype) of
+    the narrow plans the card tests and the main path take: FILTER_EDGES'
+    narrow levels, the bench shape (16 windows of 144 000 samples), the
+    hop's, in both types."""
+    shapes = [(level, n, l_in * NARROW_LEVELS[level][2], l_in * NARROW_LEVELS[level][2] // frames)
+              for level, n, l_in, frames in FILTER_EDGES if level in NARROW_LEVELS]
+    shapes += [(2, 16, 72_000, 160), (3, 16, 144_000, 320), (2, 1, 3_840, 160), (3, 1, 7_680, 320)]
+    cases = []
+    for level, n, length, fr in shapes:
+        cin, c, rate = NARROW_LEVELS[level]
+        for dt in (torch.bfloat16, torch.float32):
+            p = kfilter.narrow_plan(n, length, cin, c, rate, dt, fr)
+            cases.append((6, 5, cin, c, rate, fr, p["rows"], p["owners"], p["stages"], dt))
+    return cases
+
+
+@pytest.mark.gpu
+def test_narrow_layout_formula_on_card():
+    """kernels/filter.py:narrow_layout (the plan's shared memory and the
+    weight blob) equals csrc/filter.cu's narrow_layout, which the kernel
+    lays its shared memory out by, at every narrow plan of the card tests
+    and the main path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; on the card run this file with --noconftest -m gpu")
+    import ctypes
+    from alivevc_tpu_torch.kernels import _lib
+
+    fn = _lib.function("filter", "filter_narrow_layout", "i" * 10 + "p")
+    out = (ctypes.c_longlong * 2)()
+    for n_conv, k, cin, c, rate, fr, rows, owners, stages, dt in narrow_layout_cases():
+        assert fn(n_conv, k, cin, c, rate, fr, rows, owners, stages, int(dt == torch.bfloat16),
+                  ctypes.addressof(out)) == 0
+        want = kfilter.narrow_layout(n_conv, k, cin, c, rate, fr, rows, owners, stages, dt)
+        assert (out[0], out[1]) == (want["smem"], want["blob"]), (cin, c, rows, owners, stages, dt)
+        assert out[0] <= kfilter.SMEM_LIMIT
 
 
 # (windows, frames, harmonics, samples a frame): the oscillator kernels'
@@ -725,7 +779,8 @@ def test_hop_shape_kernels_on_card(name, monkeypatch):
     their inputs at the end of their allocations and every output and
     scratch buffer (levels 0-1: the K-major weights too, read by TMA, and
     the K split's cluster reduction writing the outputs) between sentinel
-    guards that must stay untouched."""
+    guards that must stay untouched (levels 2-3: the narrow kernel's
+    weight blob too)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; on the card run this file with --noconftest -m gpu")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -755,8 +810,10 @@ def test_hop_shape_kernels_on_card(name, monkeypatch):
             want = kfilter.filter_level_plain(x, s, rate=r, **args)
         assert got.shape == (1, HOP_LEVELS[level], dec.filter.ups[level].weight.shape[1])
         # levels 0-1 (the wide kernel): its K-major weights (TF32 hi, lo) and
-        # the up, 1x1 and conv outputs; levels 2-3: the one output
-        assert len(guarded.buffers) == (5 if level < 2 else 1), (name, len(guarded.buffers))
+        # the up, 1x1 and conv outputs; levels 2-3 (the narrow kernel): its
+        # weight blob (read by one bulk copy a block) and the output (written
+        # by TMA stores)
+        assert len(guarded.buffers) == (5 if level < 2 else 2), (name, len(guarded.buffers))
         assert guarded.guards_intact(), name
         scale = float(want.abs().max())
         assert bool(torch.isfinite(got).all())

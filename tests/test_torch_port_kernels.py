@@ -575,10 +575,19 @@ def _level_inputs(i, seed):
     return x, s, cond, rates[i]
 
 
+def _plan_tile(args, r, length, cin, dtype=torch.float32):
+    """The samples a narrow-kernel tile writes at this shape (kernels/filter.py:narrow_plan)."""
+    c = args["up_b"].shape[0]
+    return kfilter.narrow_plan(1, length, cin, c, r, dtype, length // F, args["conv_w"][0].shape[0],
+                               tuple(args["dilations"]))["T"]
+
+
 @pytest.mark.parametrize("i", [0, 1, 2, 3])
 def test_filter_level_vs_fused_up_pallas(filter_models, i):
     """Level i of the up path against fused_filter_block_up in its packed
-    TPU layout ([N, B, P*C] is a reshape of channels-last [N, L, C])."""
+    TPU layout ([N, B, P*C] is a reshape of channels-last [N, L, C]); the
+    narrow levels (2-3) also through the narrow kernel's tiling at the
+    plan's tile (filter_level_tiled)."""
     from alivevc_tpu.kernels.filter_pallas import fused_filter_block_up
     from alivevc_tpu.models.filter_packed import _pfac
 
@@ -600,6 +609,11 @@ def test_filter_level_vs_fused_up_pallas(filter_models, i):
     got = kfilter.filter_level(t(x), t(s), rate=r,
                                **level_args(dec.filter.blocks[i], dec.filter.ups[i], t(cond)))
     assert max_err(got.reshape(1, -1), np.asarray(want).reshape(1, -1)) <= 5e-3
+    if i >= 2:   # the narrow kernel's tiling at the plan's tile (120 and 240 samples here)
+        args = level_args(dec.filter.blocks[i], dec.filter.ups[i], t(cond))
+        tiled = kfilter.filter_level_tiled(t(x), t(s), rate=r, tile=_plan_tile(args, r, x.shape[1] * r, cin),
+                                           **args)
+        assert max_err(tiled.reshape(1, -1), np.asarray(want).reshape(1, -1)) <= 5e-3
 
 
 @pytest.mark.parametrize("i", [0, 1, 2, 3])
@@ -640,15 +654,18 @@ def _level_args(dec, i, cond):
 def test_filter_tiling_emulation_equals_plain(filter_models, i, tile):
     """The narrow kernel's tiling replayed on the CPU (recomputed 56-sample
     lookback, in-place reflect of a tile that starts at sample 0), at the
-    kernel's own tile (199 samples), at a tile shorter than the lookback and
+    kernel's own tile (narrow_plan's at this shape: 120 and 240 samples, the
+    grid narrowed to cover 64 SMs), at a tile shorter than the lookback and
     at one that does not divide L: within 1e-5 of the plain version."""
     _, dec = filter_models
     x, s, cond, r = _level_inputs(i, 90 + i)
     args = _level_args(dec, i, cond)
+    length = x.shape[1] * r
     if tile is None:
-        tile = kfilter.narrow_tile(args["conv_w"][0].shape[0], args["dilations"], r)
-        assert tile == 199
-    assert (x.shape[1] * r) % tile
+        tile = _plan_tile(args, r, length, x.shape[2])
+        assert tile == (120 if i == 2 else 240)
+    else:
+        assert length % tile
     got = kfilter.filter_level_tiled(t(x), t(s), rate=r, tile=tile, **args)
     want = kfilter.filter_level_plain(t(x), t(s), rate=r, **args)
     assert max_err(got, want) <= 1e-5
@@ -664,7 +681,7 @@ def test_filter_3xtf32_products_vs_float64(filter_models, i):
     x, s, cond, r = _level_inputs(i, 110 + i)
     args = _level_args(dec, i, cond)
     length = x.shape[1] * r
-    tile = kfilter.narrow_tile(5, args["dilations"], r) if i >= 2 else length
+    tile = _plan_tile(args, r, length, x.shape[2]) if i >= 2 else length
     got = kfilter.filter_level_tiled(t(x), t(s), rate=r, tile=tile, products="3xtf32", **args)
     want = kfilter.filter_level_tiled(t(x), t(s), rate=r, tile=length, compute=torch.float64,
                                       **args)
