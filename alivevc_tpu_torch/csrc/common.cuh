@@ -57,6 +57,26 @@ __device__ __forceinline__ void tma_load(unsigned dst, const CUtensorMap& tm, in
       ::"r"(dst), "l"(reinterpret_cast<uint64_t>(&tm)), "r"(x), "r"(y), "r"(bar) : "memory");
 }
 
+// the box of ``tm`` at (x, y) -> shared dst of every block of the cluster
+// in ``mask`` (the same offset in each); completion on each block's bar
+// (the same offset too)
+__device__ __forceinline__ void tma_load_multicast(unsigned dst, const CUtensorMap& tm, int x, int y, unsigned bar,
+                                                   uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster"
+      " [%0], [%1, {%2, %3}], [%4], %5;\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(&tm)), "r"(x), "r"(y), "r"(bar), "h"(mask) : "memory");
+}
+// one arrival on the mbarrier at ``bar`` (a shared::cta offset) of block
+// ``rank`` of the cluster (this block too).  The default (CTA-scope)
+// release: a cluster-scope one waited for this thread's products still in
+// flight
+__device__ __forceinline__ void mbar_arrive_cluster(unsigned bar, unsigned rank) {
+  asm volatile(
+      "{\n .reg .b32 r;\n mapa.shared::cluster.u32 r, %0, %1;\n"
+      " mbarrier.arrive.shared::cluster.b64 _, [r];\n}\n" ::"r"(bar), "r"(rank) : "memory");
+}
+
 // the 3-D box of ``tm`` at (x, y, z) -> shared dst; completion on bar
 __device__ __forceinline__ void tma_load_3d(unsigned dst, const CUtensorMap& tm, int x, int y, int z, unsigned bar) {
   asm volatile(
@@ -272,6 +292,11 @@ template <> __device__ __forceinline__ void wgmma_rs_tf32<128>(float (&d)[64], c
 __device__ __forceinline__ unsigned cluster_rank() {
   unsigned r;
   asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ unsigned cluster_blocks() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
   return r;
 }
 __device__ __forceinline__ void cluster_sync() {

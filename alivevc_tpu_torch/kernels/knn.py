@@ -23,21 +23,25 @@ Precision modes (the JAX names):
     JAX's own 'high' (bf16x3, ``knn_twopass.py:246-257``).
 
 What bounds the two-pass form on an H100 is operations: the score
-products (3x them in 3xTF32).  It runs them on the tensor cores (``wgmma``,
-three warpgroups of 64 queries a block) fed by a 4-stage ring of TMA tensor
-copies with ``mbarrier``s.  It folds each 192 x 128 score tile into register
-top-k lists straight from the accumulators while the next slabs land, and
-merges the chunks' winners with a warp per query (``csrc/knn.cu``).  What
+products (3x them in 3xTF32).  A prep launch normalises both operands into
+the mode's planes (bf16, or TF32 hi and lo); the tile kernel runs the
+products on the tensor cores (``wgmma``, both operands from a TMA ring) in
+warp-specialised blocks of 128 queries (a producer warpgroup, two consumer
+warpgroups whose folds into register top-k lists overlap each other's
+products), the library slabs shared by a cluster of blocks through
+multicast copies; a merge launch takes the chunks' winners
+(``csrc/knn.cu``; ``twopass_plan`` chooses the grid).  What
 bounds the carried form at its shapes (the streaming hop's 24 queries, a
 512-token voice library) is latency: it puts the library on the wgmma's M
 side and up to 128 queries on N, and takes no host operation but its
 outputs, its scratch and one C call (``csrc/knn_carried.cu``).
 
 Normalisation is ``x * rsqrt(max(sum x^2, 1e-30))`` in float32 before the
-mode cast (``knn_twopass.py:230-234``): PyTorch operations before the
-two-pass form, the carried form's first launch (its sum of squares in
-another order: the two forms may differ in a score's last bits).  Ties go
-to the smallest library index.
+mode cast (``knn_twopass.py:230-234``): the two-pass form takes each row's
+scale from PyTorch's own sum (``row_scales``, as the plain version does)
+and its prep launch multiplies and casts; the carried form's first launch
+sums the squares in another order (the two forms may differ in a score's
+last bits).  Ties go to the smallest library index.
 
 Row exclusion, in every mode (the sharded path's shard padding):
   * ``valid_rows`` (an int, or a 0-d integer tensor on the source's device):
@@ -72,11 +76,11 @@ from alivevc_tpu_torch.kernels import _lib
 PRECISIONS = ("default", "high", "highest")
 EXTRACTIONS = ("auto", "exact", "packed")
 SENTINEL = 2**31 - 1         # index of a place no valid row filled
-_ROWS_PER_CHUNK = 64 * 128   # library rows one block scans, at most (csrc/knn.cu) ...
-_MIN_BLOCKS = 2 * 132        # ... unless fewer blocks than two waves on an H100 result
-_QUERIES_PER_BLOCK = 192     # csrc/knn.cu: QT
+_QUERIES_PER_BLOCK = 128     # csrc/knn.cu: TQ, two consumer warpgroups of 64
 _MAX_CHUNKS = 65535          # chunks ride gridDim.y
-_D_MULT = 64                 # the kernel's slab: 128 bytes of a bf16 row
+TWOPASS_CLUSTERS = (2, 1)    # blocks of a cluster along the queries (csrc/knn.cu)
+_TWOPASS_BLOCK_TILES = 1.0   # a block's set-up, ring fill and epilogue, in tiles (the plan's cost)
+TWOPASS_SLAB = 128           # csrc/knn.cu: SLAB_BYTES, bytes of a row a ring stage holds
 _SUB = 128                   # packed extraction's subtile width (7 index bits)
 FORMS = ("carried", "twopass")
 CARRIED_MAX_ROWS = 4096      # knn_pallas.py:244-259: smaller libraries take the carried kernel
@@ -91,11 +95,17 @@ _HEAD = 1024                 # csrc/knn_carried.cu: HEAD_BYTES
 _S_PAD = 4                   # csrc/knn_carried.cu: S_PAD
 
 
+def row_scales(x: torch.Tensor) -> torch.Tensor:
+    """[N, 1] float32 rsqrt(max(sum x^2, 1e-30)) of the rows of x, PyTorch's
+    own sum: the plain version's and the two-pass prep launch's scale."""
+    x = x.float()
+    return torch.rsqrt(torch.clamp((x * x).sum(dim=1, keepdim=True), min=1e-30))
+
+
 def normalize_rows(x: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """x * rsqrt(max(sum x^2, 1e-30)) per row in float32, stored as ``dtype``."""
     x = x.float()
-    scale = torch.rsqrt(torch.clamp((x * x).sum(dim=1, keepdim=True), min=1e-30))
-    return torch.mul(x, scale, out=torch.empty(x.shape, dtype=dtype, device=x.device))
+    return torch.mul(x, row_scales(x), out=torch.empty(x.shape, dtype=dtype, device=x.device))
 
 
 def prep_operands(source: torch.Tensor, library: torch.Tensor, precision: str):
@@ -200,24 +210,66 @@ def knn_topk_plain(source: torch.Tensor, library: torch.Tensor, k: int = 4,
     return torch.cat(vals), torch.cat(idxs)
 
 
-def chunking(ls: int, lr: int) -> Tuple[int, int]:
-    """(library rows a block scans, chunks): chunks of 128-row tiles, short
-    enough to give every SM work, long enough to amortise the per-block
-    start and the merge."""
-    want = -(-_MIN_BLOCKS // -(-ls // _QUERIES_PER_BLOCK))
-    rows_per_chunk = min(_ROWS_PER_CHUNK, 128 * -(-lr // (128 * want)))
-    rows_per_chunk = max(rows_per_chunk, 128 * -(-lr // (128 * _MAX_CHUNKS)))
-    return rows_per_chunk, -(-lr // rows_per_chunk)
+def prep_width(d: int, precision: str) -> int:
+    """Columns of a prepared row (``csrc/knn.cu:knn_prep``): d padded to a
+    whole number of 128-byte slabs, 64 bf16 or 32 float32 values."""
+    mult = 64 if precision == "default" else 32
+    return -(-d // mult) * mult
+
+
+def knn_prep_plain(source: torch.Tensor, library: torch.Tensor, precision: str):
+    """The prep launch's plain version: both operands normalised in float32
+    (``normalize_rows``), columns zero-padded to ``prep_width``, as bf16
+    [rows, dp] for 'default' or as TF32 planes [2, rows, dp] (hi =
+    ``tf32_round(x)``, lo = ``tf32_round(x - hi)``) for 'high'/'highest'."""
+    out = []
+    for x in prep_operands(source, library, precision):
+        x = F.pad(x.float(), (0, prep_width(x.shape[1], precision) - x.shape[1]))
+        if precision == "default":
+            out.append(x.to(torch.bfloat16))
+        else:
+            hi = tf32_round(x)
+            out.append(torch.stack([hi, tf32_round(x - hi)]))
+    return tuple(out)
+
+
+def scores_from_planes(q: torch.Tensor, lib: torch.Tensor) -> torch.Tensor:
+    """[Ls, Lr] float32 scores of prepared operands as the tile kernel forms
+    them: bf16 products summed in float32, or lo.hi + hi.lo + hi.hi of the
+    TF32 planes (``scores_3xtf32``'s order)."""
+    if q.dim() == 2:
+        return q.float() @ lib.float().t()
+    return q[1] @ lib[0].t() + q[0] @ lib[1].t() + q[0] @ lib[0].t()
+
+
+def twopass_tile(precision: str):
+    """(library rows a tile, ring stages) of the tile kernel in this mode
+    (csrc/knn.cu: Tile): bf16 256 rows (m64n256k16, 48 KB stages), 3xTF32
+    128 rows (m64n128k8 on hi and lo planes, 64 KB stages)."""
+    return (256, 4) if precision == "default" else (128, 3)
+
+
+def twopass_smem(precision: str, stages: int) -> int:
+    """csrc/knn.cu:twopass_smem: alignment slack and the mbarriers, then
+    the ring of stages (the query slab, then the library slab; TF32 hi and
+    lo planes of each)."""
+    lt, _ = twopass_tile(precision)
+    planes = 1 if precision == "default" else 2
+    return 2 * _HEAD + stages * planes * (_QUERIES_PER_BLOCK + lt) * TWOPASS_SLAB
 
 
 class KnnPlan(NamedTuple):
-    """How ``knn_topk_cuda`` runs one call.  ``form`` 'twopass':
-    ``rows_per_chunk`` library rows a block, ``chunks`` blocks a query tile
-    (``chunking``).  ``form`` 'carried': ``nq`` queries and ``64 wg``
-    library rows a block, a grid of ``q_tiles`` x ``lib_blocks`` clusters of
-    ``split`` blocks that split the depth, ``stages`` ring stages, ``smem``
-    bytes of dynamic shared memory, ``scratch`` bytes of scratch
-    (csrc/knn_carried.cu)."""
+    """How ``knn_topk_cuda`` runs one call.  ``form`` 'twopass'
+    (``twopass_plan``): ``q_tiles`` tiles of 128 queries (padded to whole
+    clusters) x ``chunks`` chunks of ``rows_per_chunk`` library rows, a
+    block each, in clusters of ``cluster`` blocks along the queries;
+    ``tile_l`` library rows a tile, ``stages`` ring stages, ``smem`` bytes
+    of dynamic shared memory;
+    ``waves`` of blocks at one a multiprocessor and the last one's ``fill``.
+    ``form`` 'carried': ``nq`` queries and ``64 wg`` library rows a block, a
+    grid of ``q_tiles`` x ``lib_blocks`` clusters of ``split`` blocks that
+    split the depth, ``stages`` ring stages, ``smem`` bytes of dynamic
+    shared memory, ``scratch`` bytes of scratch (csrc/knn_carried.cu)."""
     form: str
     rows_per_chunk: int = 0
     chunks: int = 0
@@ -229,6 +281,52 @@ class KnnPlan(NamedTuple):
     stages: int = 0
     smem: int = 0
     scratch: int = 0
+    tile_l: int = 0
+    cluster: int = 0
+    waves: int = 0
+    fill: float = 0.0
+
+
+@functools.lru_cache(maxsize=4096)
+def twopass_plan(ls: int, lr: int, precision: str = "default", k: int = 4, packed: bool = False,
+                 sms: int = H100_SMS) -> KnnPlan:
+    """The two-pass form's grid for ``ls`` queries over ``lr`` ranked rows.
+    The tile and ring are the mode's (``twopass_tile``; k and the packed
+    extraction change neither).  The cluster: 2 where there are two query
+    tiles or more (multicast halves the library's L2 reads), else 1.  Then the
+    chunk count that gives the fewest waves of blocks (one a
+    multiprocessor, whole clusters resident) times the tiles a block walks
+    plus ``_TWOPASS_BLOCK_TILES``, and of those the fewest chunks; at most
+    65 535 chunks.  A chunk is a whole number of tiles."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}")
+    lt, stages = twopass_tile(precision)
+    q_tiles = -(-ls // _QUERIES_PER_BLOCK)
+    cluster = next(c for c in TWOPASS_CLUSTERS if c <= q_tiles)
+    qp = -(-q_tiles // cluster) * cluster
+    resident = sms // cluster * cluster
+    tiles = -(-max(1, lr) // lt)
+    best, best_key = None, None
+    for want in range(1, min(tiles, _MAX_CHUNKS) + 1):
+        per = -(-tiles // want)
+        chunks = -(-tiles // per)
+        if chunks != want:
+            continue
+        waves = -(-qp * chunks // resident)
+        key = (waves * (per + _TWOPASS_BLOCK_TILES), chunks)
+        if best_key is None or key < best_key:
+            best_key, best = key, (per, chunks, waves)
+    per, chunks, waves = best
+    blocks = qp * chunks
+    return KnnPlan("twopass", rows_per_chunk=per * lt, chunks=chunks, q_tiles=qp, stages=stages,
+                   smem=twopass_smem(precision, stages), tile_l=lt, cluster=cluster, waves=waves,
+                   fill=(blocks - (waves - 1) * resident) / resident)
+
+
+def chunking(ls: int, lr: int, precision: str = "default") -> Tuple[int, int]:
+    """(library rows a block scans, chunks) of ``twopass_plan``."""
+    plan = twopass_plan(ls, lr, precision)
+    return plan.rows_per_chunk, plan.chunks
 
 
 def _mode(precision: str, packed: bool) -> int:
@@ -332,8 +430,7 @@ def knn_plan(ls: int, lr: int, precision: str = "default", k: int = 4, form: Opt
         raise ValueError(f"unknown form {form!r}")
     lv = lr if valid_rows is None else max(1, min(lr, int(valid_rows)))
     if form == "twopass":
-        rows_per_chunk, chunks = chunking(ls, lv)
-        return KnnPlan("twopass", rows_per_chunk=rows_per_chunk, chunks=chunks)
+        return twopass_plan(ls, lv, precision, k, packed, sms)
     return _carried_plan(ls, lr, lv, d, k, _mode(precision, packed), sms)
 
 
@@ -424,46 +521,69 @@ def _exclusion_args(valid_rows, penalty, device: torch.device, lr: int):
     return vr_ptr, lv, pen_ptr, keep
 
 
+def knn_prep_cuda(source: torch.Tensor, library: torch.Tensor, precision: str, rows: Optional[int] = None):
+    """The prep launch (``csrc/knn.cu:knn_prep``): ``knn_prep_plain``'s
+    planes of the source and of the library's first ``rows`` rows (all by
+    default), computed on the card.  Each row's scale is ``row_scales``'s,
+    as in the plain version; the kernel multiplies, casts or splits, and
+    pads.  One count of 'knn_prep'."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}")
+    rows = library.shape[0] if rows is None else rows
+    src = source.float().contiguous()
+    lib = library[:rows].float().contiguous()
+    _lib.require(src, "source", (torch.float32,), 2)
+    _lib.require(lib, "library", (torch.float32,), 2)
+    if lib.device != src.device or lib.shape[1] != src.shape[1]:
+        raise ValueError(f"source {tuple(src.shape)} and library {tuple(lib.shape)} must share "
+                         "one device and one width")
+    scale_q, scale_l = row_scales(source), row_scales(library)[:rows]
+    ls, lr, d = src.shape[0], lib.shape[0], src.shape[1]
+    dp = prep_width(d, precision)
+    if precision == "default":
+        q = torch.empty((ls, dp), dtype=torch.bfloat16, device=src.device)
+        lb = torch.empty((lr, dp), dtype=torch.bfloat16, device=src.device)
+    else:
+        q = torch.empty((2, ls, dp), dtype=torch.float32, device=src.device)
+        lb = torch.empty((2, lr, dp), dtype=torch.float32, device=src.device)
+    fn = _lib.function("knn", "knn_prep", "ppppppiiiiip")
+    rc = fn(src.data_ptr(), lib.data_ptr(), scale_q.data_ptr(), scale_l.data_ptr(), q.data_ptr(),
+            lb.data_ptr(), ls, lr, d, dp, _mode(precision, False), _lib.stream_of(src))
+    _lib.check(rc, "knn_prep")
+    _lib.LAUNCHES["knn_prep"] += 1
+    return q, lb
+
+
 def knn_topk_launch(source: torch.Tensor, library: torch.Tensor, k: int = 4,
                     precision: str = "default", valid_rows=None, penalty=None,
                     extraction: str = "auto"):
-    """The two-pass form's launch with the merge's inputs and outputs: (out
+    """The two-pass form's launches with the merge's inputs and outputs: (out
     values, out indices, candidate values, candidate indices), the
     candidates [Ls, chunks, kk] (each chunk's top kk, kk = 4 or 8) and the
     outputs [Ls, kk] (int32 indices), so the merge can be checked and timed
-    on its own."""
+    on its own.  Counts 'knn_prep', 'knn' (or 'knn_packed') and 'knn_merge'
+    once each."""
     _lib.refuse_grad("knn_topk_cuda", source, library, penalty)
     if not 1 <= k <= 8:
         raise ValueError(f"k={k} must be in [1, 8]")
     if library.shape[0] < k:
         raise ValueError(f"library has {library.shape[0]} rows < k={k}")
     packed = uses_packed(precision, k, valid_rows, penalty, extraction)
-    src, lib = prep_operands(source, library, precision)
-    d = src.shape[1]
-    if d % _D_MULT:  # zero columns change no dot product
-        src = F.pad(src, (0, _D_MULT - d % _D_MULT))
-        lib = F.pad(lib, (0, _D_MULT - d % _D_MULT))
-    src, lib = src.contiguous(), lib.contiguous()
-    dt = (torch.bfloat16,) if precision == "default" else (torch.float32,)
-    _lib.require(src, "source", dt, 2)
-    _lib.require(lib, "library", dt, 2)
-    if lib.device != src.device or lib.shape[1] != src.shape[1]:
-        raise ValueError(f"source {tuple(src.shape)} and library {tuple(lib.shape)} must share "
-                         "one device and one width")
-    ls = src.shape[0]
-    vr_ptr, lr, pen_ptr, _keep = _exclusion_args(valid_rows, penalty, src.device, lib.shape[0])
+    vr_ptr, lr, pen_ptr, _keep = _exclusion_args(valid_rows, penalty, source.device, library.shape[0])
+    # rows past a host count never rank: they are not prepared
+    q, lb = knn_prep_cuda(source, library, precision, rows=lr)
+    ls, dp = q.shape[-2], q.shape[-1]
     kk = 4 if k <= 4 else 8
-    rows_per_chunk, n_chunks = chunking(ls, lr)
-    dev = src.device
-    cand_v = torch.empty((ls, n_chunks, kk), dtype=torch.float32, device=dev)
-    cand_i = torch.empty((ls, n_chunks, kk), dtype=torch.int32, device=dev)
+    plan = twopass_plan(ls, lr, precision, k, packed, _sm_count(q.get_device()))
+    dev = q.device
+    cand_v = torch.empty((ls, plan.chunks, kk), dtype=torch.float32, device=dev)
+    cand_i = torch.empty((ls, plan.chunks, kk), dtype=torch.int32, device=dev)
     out_v = torch.empty((ls, kk), dtype=torch.float32, device=dev)
     out_i = torch.empty((ls, kk), dtype=torch.int32, device=dev)
-    fn = _lib.function("knn", "knn_topk", "ppppppppiiiiiiip")
-    rc = fn(src.data_ptr(), lib.data_ptr(), pen_ptr, vr_ptr, cand_v.data_ptr(),
-            cand_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(), ls, lr,
-            src.shape[1], kk, int(precision == "default"), int(packed), rows_per_chunk,
-            _lib.stream_of(src))
+    fn = _lib.function("knn", "knn_topk", "ppppppppiiiiiiiip")
+    rc = fn(q.data_ptr(), lb.data_ptr(), pen_ptr, vr_ptr, cand_v.data_ptr(), cand_i.data_ptr(),
+            out_v.data_ptr(), out_i.data_ptr(), ls, lr, dp, kk, _mode(precision, packed),
+            plan.rows_per_chunk, plan.cluster, plan.stages, _lib.stream_of(q))
     _lib.check(rc, "knn_topk")
     _lib.LAUNCHES["knn_packed" if packed else "knn"] += 1
     _lib.LAUNCHES["knn_merge"] += 1      # the same call launches the merge kernel

@@ -40,7 +40,10 @@ printing the final line:
      (torch.profiler), and ``torch.topk`` + ``torch.gather`` over the
      flattened candidates as the library call (at the hop's shape the
      two-pass form forced: there the carried form merges in its own
-     launch).  Libraries under 4 096 rows take the carried form
+     launch).  The two-pass form's prep (``knn_prep_kernel``, one launch a
+     call: both operands normalised into bf16 or TF32 hi and lo planes) has
+     rows of its own too, against ``knn_prep_plain`` at the bench shape
+     ('default' and 'high').  Libraries under 4 096 rows take the carried form
      (``csrc/knn_carried.cu``, rows 'knn_carried' and 'knn_carried_packed');
      its shapes (the hop's 24 x 887 'high' and 'default', a fine-tuning
      step's 960 x 512 'highest', 7 200 x 512 'default' and 'high') run
@@ -53,18 +56,20 @@ printing the final line:
      weights from a seed, a 100 352 x 768 library from the seed):
      ``OfflineConverter.convert_16k`` answers three requests (10 s, 30 s,
      61 s) in bf16 and in fp32, one ``convert_window`` step at the bench
-     shape (64 windows x 144 000 samples) and the bf16 licence's log-mel L1.
+     shape (64 windows x 144 000 samples) in bf16 and one in fp32 (kNN
+     'high', the exact-ranking mode), and the bf16 licence's log-mel L1.
      The 10 s request also goes through ``OfflineConverter(world_pitch=True)``
      in bf16 and fp32: WORLD labels the pitch on the host (its host time is
      printed beside the request's wall time), every offline kernel must
      launch and the F0 estimator must not run (a forward hook counts its
      calls, and must see the one plain step after).
      Launch counters are zeroed just before this phase and read just after
-     it: every kernel must have run.  The bench-shape step is profiled by
+     it: every kernel must have run.  Both bench-shape steps are profiled by
      kernel group (the filter's narrow and wide kernels apart, and their
-     sum as filter_level), and a device span named ``filter`` outside the
-     filter_narrow and filter_wide groups, or ``osc_`` outside the
-     oscillator group, fails the run.  Then the licence's kNN flip rate (direct
+     sum as filter_level; the kNN prep, tile, merge and carried kernels
+     apart, and their sum as knn), and a device span named ``filter``
+     outside the filter_narrow and filter_wide groups, ``osc_`` outside the
+     oscillator group, or ``knn`` outside the kNN groups, fails the run.  Then the licence's kNN flip rate (direct
      kernel calls; gated on phase 3's library, and reported on four more
      library draws) and small-input checks of the card's output against the
      plain versions on the CPU (f0 given; and with WORLD's f0, which is the
@@ -217,8 +222,9 @@ SHARD_LIB_ROWS = 1_048_575   # phase 4: padded to 2 x 524 288
 SHARD_RANKS = 2
 SHARD_TIMEOUT_S = 600
 SEED = 0
-OFFLINE_KERNELS = ("stft", "knn", "oscillator", "filter_level", "filter_narrow", "filter_wide")
-SHARDED_KERNELS = ("knn", "oscillator", "filter_level", "filter_narrow", "filter_wide")
+OFFLINE_KERNELS = ("stft", "knn_prep", "knn", "knn_merge", "oscillator", "filter_level", "filter_narrow",
+                   "filter_wide")
+SHARDED_KERNELS = ("knn_prep", "knn", "knn_merge", "oscillator", "filter_level", "filter_narrow", "filter_wide")
 API_KERNELS = ("knn_packed", "knn_carried_packed", "oscillator_formants")
 
 
@@ -396,16 +402,19 @@ def check_knn(gen, lib_rows, precision, valid_rows=None, penalty=False, extracti
         torch.topk(s, 4, dim=1)
 
     # the function reads float32 queries and the rows it ranks (plus the
-    # penalty), writes values + indices; products over the rows it ranks,
+    # penalty), writes values + indices (the two-pass form also writes and
+    # reads its prepared planes once); products over the rows it ranks,
     # on the tensor cores: bf16 for 'default', three TF32 products (3xTF32,
     # float32-faithful) for 'high'/'highest'
     nbytes = (ls + rows) * 768 * 4 + ls * 4 * 8 + (lib_rows * 4 if penalty else 0)
+    if plan.form == "twopass":   # the prep's planes, written once and read once
+        nbytes += 2 * (ls + rows) * 768 * (2 if precision == "default" else 8)
     flops = 2.0 * ls * rows * 768
     if precision == "default":
         b, by = bound_ms(nbytes, flops, PEAK_BF16)
     else:
         b, by = bound_ms(nbytes, 3.0 * flops, PEAK_TF32)
-    keys = ("knn_carried",) if plan.form == "carried" else ("knn_tile", "knn_merge")
+    keys = ("knn_carried",) if plan.form == "carried" else ("knn_prep", "knn_tile", "knn_merge")
     return {
         "name": name,
         "variant": f"{ls} x {lib_rows} x 768 {precision}{tag}{suffix}",
@@ -468,6 +477,45 @@ def check_knn_merge(gen, lib_rows, precision, ls=N_STEP * LF, valid_rows=None, s
         "ms": ms,
         "plain_ms": cuda_ms(lambda: merge_plain(cand_v, cand_i, kk), 2),
         "library_ms": cuda_ms(library_call),
+        "bound_ms": b, "bound_by": by,
+    }
+
+
+def check_knn_prep(gen, lib_rows, precision, ls=N_STEP * LF):
+    """The two-pass form's prep launch (``knn_prep_kernel``: both operands
+    normalised into bf16, or TF32 hi and lo planes) against its plain
+    version, ``knn_prep_plain``, plane by plane and bit for bit (tolerance
+    0): both take each row's scale from ``row_scales`` and round the
+    product once, then cast to bf16 or split; its device time alone
+    (torch.profiler).  No one PyTorch call computes it.  Bound: bytes, the
+    float32 rows read once and the planes written once."""
+    import torch
+    from alivevc_tpu_torch.kernels.knn import knn_prep_cuda, knn_prep_plain
+
+    q = torch.randn(ls, 768, generator=gen, device="cuda")
+    lib = torch.randn(lib_rows, 768, generator=gen, device="cuda")
+    got = knn_prep_cuda(q, lib, precision)
+    want = knn_prep_plain(q, lib, precision)
+    torch.cuda.synchronize()
+    err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+    differ = sum(int((g.view(torch.int16 if g.dtype == torch.bfloat16 else torch.int32)
+                      != w.view(torch.int16 if w.dtype == torch.bfloat16 else torch.int32)).sum())
+                 for g, w in zip(got, want))
+    tol = 0.0
+    need(differ == 0 and err <= tol,
+         f"knn prep[{precision},{lib_rows}]: {differ} values differ from the plain planes, max abs err {err}")
+    nbytes = (ls + lib_rows) * 768 * (4 + (2 if precision == "default" else 8))
+    b, by = bound_ms(nbytes, 0.0, PEAK_F32)
+    ms = kernel_device_ms(lambda: knn_prep_cuda(q, lib, precision), ("knn_prep",))
+    need(ms is not None, "knn prep: the profiler recorded no device time for knn_prep_kernel")
+    return {
+        "name": "knn_prep",
+        "variant": f"prep of {ls} x {lib_rows} x 768 {precision}",
+        "max_abs_err": err, "tol": tol,
+        "ms": cuda_ms(lambda: knn_prep_cuda(q, lib, precision)),
+        "kernel_ms": ms,
+        "plain_ms": cuda_ms(lambda: knn_prep_plain(q, lib, precision), 2),
+        "library_ms": None,
         "bound_ms": b, "bound_by": by,
     }
 
@@ -741,9 +789,27 @@ def run_main_path(ce, f0m, dec, lib, card):
     report["bench_bf16_audio_s_per_s"] = audio_s / dt
     report["bench_bf16_profile"] = profile_step(step, card)
 
+    # the same step in fp32, the exact-ranking mode (kNN 'high')
+    conv32 = OfflineConverter(ce, f0m, dec, lib, dtype="fp32")
+    step32 = lambda: convert_window(conv32.ce, conv32.f0, conv32.dec, x, conv32.tgt, dtype="fp32")  # noqa: E731
+    out = step32()
+    torch.cuda.synchronize()
+    need(out.shape == (64, LW) and bool(torch.isfinite(out).all()), "bench-shape fp32 step: bad output")
+    del out
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        step32()
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / reps
+    print(f"bench shape fp32 (kNN 'high'): {dt * 1e3:.2f} ms/step, {audio_s / dt:.1f} audio-s/s "
+          f"(64 windows x {LW}, library {LIB_ROWS}) [{card}]")
+    report["bench_fp32_ms_per_step"] = dt * 1e3
+    report["bench_fp32_audio_s_per_s"] = audio_s / dt
+    report["bench_fp32_profile"] = profile_step(step32, card, label="one bench-shape fp32 step (kNN 'high')")
+
     # bf16 licence, its end-to-end half: log-mel L1 vs fp32 ('highest' kNN)
     xa = x[:8]
-    conv32 = OfflineConverter(ce, f0m, dec, lib, dtype="fp32")
     out32 = convert_window(conv32.ce, conv32.f0, conv32.dec, xa, lib, dtype="fp32",
                            knn_precision="highest")
     out16 = convert_window(conv16.ce, conv16.f0, conv16.dec, xa, lib, dtype="bf16")
@@ -893,12 +959,16 @@ def knn_flip_rates_over_draws(ce, xa, draws: int = 4):
 
 KERNEL_GROUPS = (
     ("stft", ("stft_fft",)),
-    ("knn", ("knn_tile", "knn_merge", "knn_carried")),
+    ("knn_prep", ("knn_prep",)),
+    ("knn_tile", ("knn_tile",)),
+    ("knn_merge", ("knn_merge",)),
+    ("knn_carried", ("knn_carried",)),
     ("oscillator", ("osc_scan", "osc_cheb", "osc_formant")),
     ("filter_narrow", ("filter_narrow_kernel", "filter_narrow_weights_kernel")),
     ("filter_wide", ("filter_wide_kernel", "filter_wide_weights_kernel")),
 )
 FILTER_GROUPS = ("filter_narrow", "filter_wide")   # their sum is reported as filter_level
+KNN_GROUPS = ("knn_prep", "knn_tile", "knn_merge", "knn_carried")   # their sum is reported as knn
 
 
 def profile_step(step, card, label="one bench-shape bf16 step"):
@@ -929,6 +999,8 @@ def profile_step(step, card, label="one bench-shape bf16 step"):
              f"profile: device span {name!r} lands in {g!r}, not in {FILTER_GROUPS}")
         need("osc_" not in name or g == "oscillator",
              f"profile: device span {name!r} lands in {g!r}, not in oscillator")
+        need("knn" not in name or g in KNN_GROUPS,
+             f"profile: device span {name!r} lands in {g!r}, not in {KNN_GROUPS}")
         groups[g] += (end - start) / 1e3
     busy, cur_s, cur_e = 0.0, None, None
     for start, end, _ in sorted(spans):
@@ -945,9 +1017,11 @@ def profile_step(step, card, label="one bench-shape bf16 step"):
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"  {g:45s} {ms:9.3f} ms  {100 * ms / total:5.1f} %")
     level = sum(groups[g] for g in FILTER_GROUPS)
+    knn = sum(groups[g] for g in KNN_GROUPS)
     print(f"  {'filter_level (filter_narrow + filter_wide)':45s} {level:9.3f} ms  {100 * level / total:5.1f} %")
-    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy, "by_group_ms": {**groups, "filter_level": level},
-            "device_spans": len(spans)}
+    print(f"  {'knn (prep + tile + merge + carried)':45s} {knn:9.3f} ms  {100 * knn / total:5.1f} %")
+    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy,
+            "by_group_ms": {**groups, "filter_level": level, "knn": knn}, "device_spans": len(spans)}
 
 
 def reference_check(ce, f0m, dec, lib):
@@ -1808,7 +1882,7 @@ TRAIN_GROUPS = (
     ("filter wide kernels", ("filter_wide_kernel", "filter_wide_weights_kernel")),
     ("oscillator kernel", ("osc_cheb",)),
     ("STFT kernel", ("stft_fft",)),
-    ("kNN kernels", ("knn_tile", "knn_merge", "knn_carried")),
+    ("kNN kernels", ("knn_prep", "knn_tile", "knn_merge", "knn_carried")),
     ("cuDNN/cuBLAS", ("gemm", "cudnn", "cutlass", "xmma", "cublas", "implicit_convolve",
                       "fprop", "dgrad", "wgrad")),
 )
@@ -3196,6 +3270,9 @@ REPLACES = {
                     "_merge_exact at its shapes)"),
     "knn_merge": ("alivevc_tpu_torch/csrc/knn.cu (knn_merge_kernel)",
                   "alivevc_tpu/kernels/knn_twopass.py:372 (_merge_packed_kernel; + :195 _merge_exact)"),
+    "knn_prep": ("alivevc_tpu_torch/csrc/knn.cu (knn_prep_kernel)",
+                 "alivevc_tpu/kernels/knn_twopass.py:331 (+ :344, :395): its operands' normalisation and "
+                 "cast (:230-257), ahead of the tile kernel"),
     "oscillator": ("alivevc_tpu_torch/csrc/oscillator.cu",
                    "alivevc_tpu/kernels/oscillator_pallas.py:229"),
     "filter_level": ("alivevc_tpu_torch/csrc/filter.cu", "alivevc_tpu/kernels/filter_pallas.py:771"),
@@ -3233,7 +3310,7 @@ def kernels_line(rows, launches):
     out = []
     for name, (source, replaces) in REPLACES.items():
         mine = [r for r in rows if r["name"] == name]
-        if name in ("knn", "knn_merge"):
+        if name in ("knn", "knn_merge", "knn_prep"):
             main = [r for r in mine if r["variant"].endswith(f"{LIB_ROWS} x 768 default")]
         elif name == "knn_packed":
             main = [r for r in mine if f" {LIB_ROWS} x 768" in r["variant"]]
@@ -3351,6 +3428,8 @@ def main() -> int:
         rows.append(check_knn_merge(merge_gen, LIB_ROWS, precision))
     rows.append(check_knn_merge(merge_gen, 887, "high", ls=24, suffix=" (hop)"))
     rows.append(check_knn_merge(merge_gen, shard, "highest", valid_rows=shard - 1))
+    for precision in ("default", "high"):
+        rows.append(check_knn_prep(merge_gen, LIB_ROWS, precision))
     for lib_rows in (512, LIB_ROWS):
         rows.append(check_knn(gen, lib_rows, "default", extraction="packed"))
     rows.append(check_oscillator(gen))

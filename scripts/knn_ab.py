@@ -1,8 +1,26 @@
 #!/usr/bin/env python3
-"""The kNN forms side by side on the card, at the carried form's shapes.
+"""The kNN forms side by side on the card, at the carried form's shapes;
+or one checkout's two-pass rows timed into a JSON file.
 
     python3 scripts/knn_ab.py
+    python3 scripts/knn_ab.py ROOT OUT.json [--build-only]
 
+With ROOT and OUT.json: imports ``alivevc_tpu_torch`` and ``chip_smoke``
+from the checkout at ROOT (its kernels built from ROOT's sources into
+ROOT's own build directory) and runs ``chip_smoke.check_knn`` on the
+two-pass form's rows, each on its own seeded draw: 7 200 queries x 100 352
+rows x 768 in 'default', packed, 'high', 'highest' and 'high' with a 0/-4
+penalty; 7 200 x 524 288 (phase 4's shard, its last row excluded by a
+device count) in 'default' and 'highest'; and the bench step's 28 800 x
+100 352 in 'default' and 'high'.  Each row holds the wrapper's time (CUDA
+events), the kernels' device time alone, the plain version's, ``matmul``
++ ``topk`` with and without the normalisation, the bound and the plan; the
+rows, the card's name and power limit go to OUT.json.  ``--build-only``
+builds ROOT's two-pass kernels and stops.  Two trees are compared within
+one call on one card, in turns (A, B, B, A), as ``scripts/filter_ab.py``
+says.
+
+Without arguments:
 Builds ``csrc/knn.cu`` and ``csrc/knn_carried.cu`` (their ptxas lines from
 ``_build/<name>.log`` are printed), then for each shape (the streaming hop,
 24 x 887, 'high' and 'default'; a fine-tuning step, 960 x 512 'highest';
@@ -104,7 +122,53 @@ def host_split(card):
           f"{whole - alloc - c_call:.2f} + allocations {alloc:.2f} + the C call {c_call:.2f}")
 
 
+TWOPASS_ROWS = [(7200, 100_352, "default", {}), (7200, 100_352, "default", {"extraction": "packed"}),
+                (7200, 100_352, "high", {}), (7200, 100_352, "highest", {}),
+                (7200, 100_352, "high", {"penalty": True}), (7200, 524_288, "default", {"valid_rows": 524_287}),
+                (7200, 524_288, "highest", {"valid_rows": 524_287}), (28_800, 100_352, "default", {}),
+                (28_800, 100_352, "high", {})]
+
+
+def twopass_rows(root: str, out: str, build_only: bool) -> int:
+    """One checkout's two-pass rows (see the docstring) into ``out``."""
+    import json
+    import os
+    import time
+
+    root = os.path.realpath(root)
+    sys.path.insert(0, root)
+    for name in [m for m in sys.modules if m in ("chip_smoke", "alivevc_tpu_torch")
+                 or m.startswith("alivevc_tpu_torch.")]:
+        del sys.modules[name]
+    import chip_smoke
+    from alivevc_tpu_torch.kernels import _lib as root_lib
+
+    if not os.path.realpath(root_lib.PKG).startswith(root):
+        print(f"knn_ab: imported {root_lib.PKG}, not the package under {root}", file=sys.stderr)
+        return 2
+    secs = root_lib.build_all(["knn"])
+    if build_only:
+        print(f"knn_ab: built {root} in {secs:.1f} s")
+        return 0
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = chip_smoke.card_line()
+    t0 = time.perf_counter()
+    rows = []
+    for i, (ls, lr, precision, kw) in enumerate(TWOPASS_ROWS):
+        gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED + 100 + i)
+        rows.append(chip_smoke.check_knn(gen, lr, precision, ls=ls, **kw))
+    chip_smoke.print_rows(rows, card)
+    with open(out, "w") as f:
+        json.dump({"root": root, "card": card, "seconds": time.perf_counter() - t0, "rows": rows}, f, indent=1)
+    return 0
+
+
 def main() -> int:
+    if len(sys.argv) >= 3:
+        if not torch.cuda.is_available():
+            print("knn_ab: CUDA is not available", file=sys.stderr)
+            return 2
+        return twopass_rows(sys.argv[1], sys.argv[2], "--build-only" in sys.argv[3:])
     if not torch.cuda.is_available():
         print("knn_ab: CUDA is not available", file=sys.stderr)
         return 2

@@ -170,6 +170,16 @@ def test_redesigned_kernel_edges_on_card(name):
         wide = torch.randn(3000, 1024, generator=g, device="cuda")
         for kw in ({}, dict(extraction="packed"), dict(valid_rows=torch.tensor(2900, device="cuda"))):
             _knn_vs_plain(wide_q, wide, 4, "default", **kw)
+        # the two-pass tile kernel at its tile's edges (knn_twopass_cases)
+        for ls, rows, k, precision, kw, d in knn_twopass_cases():
+            q = torch.randn(ls, d, generator=g, device="cuda")
+            lib = torch.randn(rows, d, generator=g, device="cuda")
+            kw = _carried_kw(kw, rows, g)
+            got = kknn.knn_topk_cuda(q, lib, k, precision, form="twopass", **kw)
+            _knn_vs_plain(q, lib, k, precision, got=got, **kw)
+            if "valid_rows" in kw:
+                idx = got[1][got[1] != kknn.SENTINEL]
+                assert idx.numel() == 0 or int(idx.max()) < int(kw["valid_rows"]), (ls, rows, k, precision)
     else:
         q = torch.randn(300, 768, generator=g, device="cuda")
         lib = torch.randn(20_000, 768, generator=g, device="cuda")
@@ -180,6 +190,170 @@ def test_redesigned_kernel_edges_on_card(name):
         assert float(clear.float().mean()) > 0.8
         same = (torch.sort(i, 1).values == torch.sort(order[:, :4], 1).values).all(1)
         assert bool(same[clear].all())
+
+
+def _past_a_chunk(ls: int, precision: str, lo: int = 5000) -> int:
+    """The smallest library of at least ``lo`` rows whose two-pass plan cuts
+    it into chunks with one row past the last whole chunk."""
+    rows = lo
+    while True:
+        plan = kknn.twopass_plan(ls, rows, precision)
+        if plan.chunks > 1 and rows % plan.rows_per_chunk == 1:
+            return rows
+        rows += 1
+
+
+def knn_twopass_cases():
+    """(queries, library rows, k, precision, keyword arguments, width) of the
+    two-pass tile kernel's card cases, every mode: queries one past a
+    128-query tile (a cluster of 2), over three tiles padded to whole
+    clusters, and within one tile (a cluster of 1); a library one row past a
+    tile and one row past a chunk; a device valid-row count inside the first
+    tile and at a chunk's end; k = 1, 5 and 8; a penalty; widths padded to
+    whole slabs (100) and rows of fewer slabs than the ring's stages (40);
+    whole tiles only (4 096 rows); the packed extraction, also at 130 rows."""
+    cases = []
+    for precision in kknn.PRECISIONS:
+        lt = kknn.twopass_tile(precision)[0]
+        chunked = _past_a_chunk(600, precision)
+        edge = kknn.twopass_plan(600, chunked, precision).rows_per_chunk
+        cases += [(129, 5003, 4, precision, {}, 768),
+                  (300, lt + 1, 1, precision, {}, 768),
+                  (600, chunked, 5, precision, {}, 768),
+                  (600, chunked, 8, precision, {"valid_rows": f"device:{edge}"}, 768),
+                  (300, 5003, 4, precision, {"valid_rows": "device:5"}, 768),
+                  (300, 5003, 5, precision, {"penalty": "penalty"}, 768),
+                  (37, 5003, 4, precision, {}, 100),
+                  (600, 9000, 8, precision, {}, 40),
+                  (256, 4096, 4, precision, {}, 768)]
+    cases += [(300, 130, 4, "default", {"extraction": "packed"}, 768),
+              (600, 5003, 8, "default", {"extraction": "packed"}, 768),
+              (129, 5003, 1, "default", {"extraction": "packed"}, 100)]
+    return cases
+
+
+@pytest.mark.gpu
+def test_knn_twopass_guarded_on_card(monkeypatch):
+    """The two-pass form's buffers (the prepared planes, the candidates, the
+    outputs) between sentinel guards at the edge cases of every mode, the
+    inputs at the end of their allocations, and the launch counts: one
+    prep, one tile (or packed) and one merge launch a call, nothing else."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; on the card run this file with --noconftest -m gpu")
+    from alivevc_tpu_torch.kernels import LAUNCHES
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(17)
+    for ls, rows, k, precision, kw, d in knn_twopass_cases():
+        q = _at_end(torch.randn(ls, d, generator=g, device="cuda"))
+        lib = _at_end(torch.randn(rows, d, generator=g, device="cuda"))
+        kw = _carried_kw(kw, rows, g)
+        before = dict(LAUNCHES)
+        guarded = _GuardedTorch()
+        monkeypatch.setattr(kknn, "torch", guarded)
+        got = kknn.knn_topk_cuda(q, lib, k, precision, form="twopass", **kw)
+        torch.cuda.synchronize()
+        monkeypatch.undo()
+        case = (ls, rows, k, precision, sorted(kw), d)
+        assert len(guarded.buffers) == 6 and guarded.guards_intact(), case
+        packed = kknn.uses_packed(precision, k, kw.get("valid_rows"), kw.get("penalty"),
+                                  kw.get("extraction", "auto"))
+        grew = {key: LAUNCHES[key] - before[key] for key in LAUNCHES}
+        assert grew == {**{key: 0 for key in LAUNCHES}, "knn_prep": 1, "knn_merge": 1,
+                        "knn_packed" if packed else "knn": 1}, case
+        _knn_vs_plain(q, lib, k, precision, got=got, **kw)
+
+
+KNN_TWOPASS_CLUSTER_SHAPES = ((600, 9000), (129, 4500))   # queries over several tiles, and one past a tile
+
+
+@pytest.mark.gpu
+def test_knn_twopass_every_cluster_on_card():
+    """Both clusters the tile kernel takes give a query the same bits: each
+    shape's first 128 queries alone (one query tile: a cluster of 1) and
+    among all its queries (clusters of 2 sharing the library slabs by
+    multicast, query tiles padded to whole clusters), in every mode and
+    k = 4 and 8, each call against the plain version (a block's work does
+    not depend on its cluster)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; on the card run this file with --noconftest -m gpu")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(20)
+    for ls, rows in KNN_TWOPASS_CLUSTER_SHAPES:
+        q = torch.randn(ls, 768, generator=g, device="cuda")
+        lib = torch.randn(rows, 768, generator=g, device="cuda")
+        for precision in kknn.PRECISIONS:
+            for k in (4, 8):
+                alone = kknn.knn_topk_cuda(q[:128], lib, k, precision, form="twopass")
+                among = kknn.knn_topk_cuda(q, lib, k, precision, form="twopass")
+                _knn_vs_plain(q[:128], lib, k, precision, got=alone)
+                _knn_vs_plain(q, lib, k, precision, got=among)
+                case = (ls, precision, k)
+                assert torch.equal(alone[0], among[0][:128]) and torch.equal(alone[1], among[1][:128]), case
+
+
+@pytest.mark.gpu
+def test_knn_twopass_ties_on_card():
+    """Exact ties go to the smallest index, as the plain version's top-k:
+    a library of 600 rows repeated ten times (bit-equal scores for each
+    copy, in every chunk and tile), queried with its own rows, and a zero
+    query (every score 0), in every mode and k = 4 and 8; indices and
+    values equal the plain version's exactly where the plain k scores tie."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; on the card run this file with --noconftest -m gpu")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(21)
+    base = torch.randn(600, 768, generator=g, device="cuda")
+    lib = base.repeat(10, 1)
+    q = torch.cat([base[:300], torch.zeros(1, 768, device="cuda")])
+    for precision in kknn.PRECISIONS:
+        for k in (4, 8):
+            v, i = kknn.knn_topk_cuda(q, lib, k, precision, form="twopass")
+            pv, pi = kknn.knn_topk_plain(q, lib, k, precision)
+            want = torch.cat([torch.arange(300, device="cuda")[:, None] + 600 * torch.arange(k, device="cuda"),
+                              torch.arange(k, device="cuda")[None, :]])
+            assert torch.equal(pi, want), precision
+            assert torch.equal(i, want), (precision, k)
+            assert max_err(v, pv) <= 1e-4, (precision, k)
+
+
+@pytest.mark.gpu
+def test_knn_twopass_repeatable_on_card():
+    """Five calls at the conversion path's 7 200 x 100 352 give the same
+    bits, in every mode and with the packed extraction."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; on the card run this file with --noconftest -m gpu")
+    g = torch.Generator(device="cuda").manual_seed(18)
+    q = torch.randn(7200, 768, generator=g, device="cuda")
+    lib = torch.randn(100_352, 768, generator=g, device="cuda")
+    for precision, kw in [(p, {}) for p in kknn.PRECISIONS] + [("default", {"extraction": "packed"})]:
+        first = kknn.knn_topk_cuda(q, lib, 4, precision, **kw)
+        for _ in range(4):
+            again = kknn.knn_topk_cuda(q, lib, 4, precision, **kw)
+            assert torch.equal(again[0], first[0]) and torch.equal(again[1], first[1]), precision
+
+
+@pytest.mark.gpu
+def test_knn_twopass_shard_scores_equal_one_rank_on_card():
+    """A row scores the same bits wherever it falls: a 12 000-row library
+    whole, and its second half as a shard (its last 40 rows excluded by a
+    device count, routed by the whole library's rows), give bit-equal
+    values for the winners inside the shard, in every mode, although the two
+    calls plan other chunks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; on the card run this file with --noconftest -m gpu")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(19)
+    lib = torch.randn(12_000, 768, generator=g, device="cuda")
+    q = lib[7000:7300] + 0.01 * torch.randn(300, 768, generator=g, device="cuda")
+    for precision in kknn.PRECISIONS:
+        whole, shard = kknn.twopass_plan(300, 12_000, precision), kknn.twopass_plan(300, 5960, precision)
+        assert (whole.rows_per_chunk, whole.chunks) != (shard.rows_per_chunk, shard.chunks)
+        fv, fi = kknn.knn_topk(q, lib, 4, precision)
+        sv, si = kknn.knn_topk(q, lib[6000:], 4, precision, valid_rows=torch.tensor(5960, device="cuda"),
+                               route_rows=12_000)
+        assert torch.equal(fi[:, 0], torch.arange(7000, 7300, device="cuda")), precision
+        assert torch.equal(si[:, 0] + 6000, fi[:, 0]) and torch.equal(sv[:, 0], fv[:, 0]), precision
 
 
 # The carried form's card cases (csrc/knn_carried.cu): queries around its

@@ -41,7 +41,7 @@ def test_plan_sends_small_libraries_to_the_carried_form(ls, lr, precision, kw):
     assert plan.q_tiles * plan.lib_blocks <= 2 * SMS * max(1, kknn.SMEM_PER_SM // (plan.smem + 1024))
     big = kknn.knn_plan(ls, 100_352, precision, **kw)
     ranked = min(100_352, kw.get("valid_rows", 100_352))
-    assert big.form == "twopass" and (big.rows_per_chunk, big.chunks) == kknn.chunking(ls, ranked)
+    assert big.form == "twopass" and (big.rows_per_chunk, big.chunks) == kknn.chunking(ls, ranked, precision)
 
 
 def test_plan_routes_by_the_whole_library():
