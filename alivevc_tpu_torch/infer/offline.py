@@ -38,6 +38,7 @@ from alivevc_tpu_torch.ops.pitch import apply_intonation
 from alivevc_tpu_torch.ops.resample import resample
 from alivevc_tpu_torch.ops.stft import spectrogram
 from alivevc_tpu_torch.ops.world import compute_f0
+from alivevc_tpu_torch.utils.profiling import span
 
 DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
 
@@ -84,33 +85,36 @@ def convert_window(
     cast; the F0 estimator keeps float32 parameters and sees the float32
     upcast of the bf16 spectrogram.  The last STFT frame is dropped.
     """
-    dev = resolve_device(device)
-    if dtype not in DTYPES:
-        raise ValueError(f"unknown dtype {dtype!r}")
-    for m, name in ((ce, "ce"), (f0_est, "f0_est"), (dec, "dec")):
-        _on(m, dev, name)
-    dec_cfg = dec.cfg if dec_cfg is None else dec_cfg
-    window = torch.as_tensor(window, dtype=torch.float32).to(dev)
-    tgt = torch.as_tensor(tgt).to(dev)
-    act = DTYPES[dtype]
-    if dtype == "bf16":
-        ce, dec = cast_params(ce, act), cast_params(dec, act)
-    window = window.to(act)
-    ctx = float32_math() if dtype == "fp32" else contextlib.nullcontext()
-    with ctx:
-        spec = stft_magnitude(window)[:, :-1, :].to(act)
-        if f0_override is not None:
-            f0 = torch.as_tensor(f0_override, dtype=torch.float32).to(dev)
-        else:
-            f0 = f0_estimate(f0_est, spec.float())                       # [N, T, 1]
-        # per-window intonation scaling about the voiced mean
-        f0 = torch.stack([apply_intonation(f, intonation, pitch_shift) for f in f0])
-        feat = content_encoder(ce, spec)
-        if knn_precision is None:
-            knn_precision = "default" if dtype == "bf16" else "high"
-        feat = match_features_kernel(feat, tgt, k=k, alpha=alpha, precision=knn_precision)
-        wave, _ = decoder(dec, feat.to(act), f0 * f0_rate, cfg=dec_cfg)
-    return wave.float()
+    with span("offline.step"):
+        dev = resolve_device(device)
+        if dtype not in DTYPES:
+            raise ValueError(f"unknown dtype {dtype!r}")
+        for m, name in ((ce, "ce"), (f0_est, "f0_est"), (dec, "dec")):
+            _on(m, dev, name)
+        dec_cfg = dec.cfg if dec_cfg is None else dec_cfg
+        window = torch.as_tensor(window, dtype=torch.float32).to(dev)
+        tgt = torch.as_tensor(tgt).to(dev)
+        act = DTYPES[dtype]
+        if dtype == "bf16":
+            ce, dec = cast_params(ce, act), cast_params(dec, act)
+        window = window.to(act)
+        ctx = float32_math() if dtype == "fp32" else contextlib.nullcontext()
+        with ctx:
+            spec = stft_magnitude(window)[:, :-1, :].to(act)
+            with span("step.f0"):
+                if f0_override is not None:
+                    f0 = torch.as_tensor(f0_override, dtype=torch.float32).to(dev)
+                else:
+                    f0 = f0_estimate(f0_est, spec.float())                   # [N, T, 1]
+                # per-window intonation scaling about the voiced mean
+                f0 = torch.stack([apply_intonation(f, intonation, pitch_shift) for f in f0])
+            with span("step.content_encoder"):
+                feat = content_encoder(ce, spec)
+            if knn_precision is None:
+                knn_precision = "default" if dtype == "bf16" else "high"
+            feat = match_features_kernel(feat, tgt, k=k, alpha=alpha, precision=knn_precision)
+            wave, _ = decoder(dec, feat.to(act), f0 * f0_rate, cfg=dec_cfg)
+        return wave.float()
 
 
 @torch.no_grad()
@@ -173,6 +177,10 @@ class OfflineConverter:
 
     def convert_16k(self, wave: np.ndarray) -> np.ndarray:
         """wave [L] mono at 16 kHz -> converted [L] (peak-normalised input)."""
+        with span("offline.convert"):
+            return self._convert_16k(wave)
+
+    def _convert_16k(self, wave: np.ndarray) -> np.ndarray:
         cfg = self.cfg
         c = cfg.chunk
         wave = np.asarray(wave, np.float32)
@@ -216,12 +224,13 @@ class OfflineConverter:
         """Any rate in and out: mono-mix, resample to 16 kHz, convert, and
         resample back to ``sr`` (``ops/resample.py`` on the converter's
         device; the output has ceil-rounded length at each step, as JAX's)."""
-        wave = np.asarray(wave, np.float32)
-        if wave.ndim == 2:  # [C, L] or [L, C] -> mono (channel axis = shorter)
-            wave = wave.mean(axis=0 if wave.shape[0] <= wave.shape[1] else 1)
-        if sr == self.sample_rate:
-            return self.convert_16k(wave)
-        x = torch.from_numpy(np.ascontiguousarray(wave))[None].to(self.device)
-        wave16 = resample(x, sr, self.sample_rate)[0].cpu().numpy()
-        out16 = torch.from_numpy(self.convert_16k(wave16))[None].to(self.device)
-        return resample(out16, self.sample_rate, sr)[0].cpu().numpy()
+        with span("offline.convert"):
+            wave = np.asarray(wave, np.float32)
+            if wave.ndim == 2:  # [C, L] or [L, C] -> mono (channel axis = shorter)
+                wave = wave.mean(axis=0 if wave.shape[0] <= wave.shape[1] else 1)
+            if sr == self.sample_rate:
+                return self._convert_16k(wave)
+            x = torch.from_numpy(np.ascontiguousarray(wave))[None].to(self.device)
+            wave16 = resample(x, sr, self.sample_rate)[0].cpu().numpy()
+            out16 = torch.from_numpy(self._convert_16k(wave16))[None].to(self.device)
+            return resample(out16, self.sample_rate, sr)[0].cpu().numpy()

@@ -46,6 +46,7 @@ from alivevc_tpu_torch.models.f0_estimator import f0_estimate
 from alivevc_tpu_torch.ops.knn import match_features_kernel
 from alivevc_tpu_torch.ops.pitch import shift_pitch
 from alivevc_tpu_torch.ops.world import compute_f0
+from alivevc_tpu_torch.utils.profiling import span
 
 WARMUP_HOPS = 2   # eager hops on a side stream before the capture
 
@@ -246,7 +247,8 @@ class StreamingConverter:
                 self._capture()
             s = self._slot
             self._slot = (s + 1) % len(self._events)
-            self._events[s].synchronize()     # the slot's last copies are done
+            with span("stream.wait"):
+                self._events[s].synchronize()     # the slot's last copies are done
             self._stage[s].numpy()[:] = chunk
             self._chunk_dev.copy_(self._stage[s], non_blocking=True)
             if f0 is not None:
@@ -254,7 +256,8 @@ class StreamingConverter:
                 self._f0_dev.view(-1).copy_(self._f0_stage[s], non_blocking=True)
                 f0 = self._f0_dev
             if self._graph is not None:
-                self._graph.replay()
+                with span("stream.replay"):
+                    self._graph.replay()
                 out = self._out_dev
             else:
                 out = self._hop(self._chunk_dev, f0)
@@ -268,7 +271,8 @@ class StreamingConverter:
     def _take(self, item) -> np.ndarray:
         if self.device.type != "cuda":
             return item
-        self._events[item].synchronize()
+        with span("stream.wait"):
+            self._events[item].synchronize()
         return self._host_out[item].numpy().copy()
 
     def flush(self) -> list:

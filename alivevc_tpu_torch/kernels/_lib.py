@@ -37,6 +37,8 @@ from typing import Callable, Dict, Iterable, List, Optional, Sequence
 
 import torch
 
+from alivevc_tpu_torch.utils.profiling import PREFIX, span
+
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 NATIVE = PKG / "native"
@@ -57,7 +59,7 @@ LAUNCHES: Dict[str, int] = {"stft": 0, "knn": 0, "oscillator": 0, "filter_level"
 
 # the profiler span each kernel ``Function``'s backward recomputes its
 # plain version in (``plain_vjp``; chip_smoke.py reads the device time under it)
-RECOMPUTE_SPAN = "alivevc_tpu_torch::plain_recompute"
+RECOMPUTE_SPAN = PREFIX + "train.plain_recompute"
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FNS: Dict[tuple, object] = {}
@@ -219,7 +221,7 @@ def plain_vjp(plain: Callable[..., torch.Tensor], saved: Sequence[torch.Tensor],
     with autograd on detached copies of the saved inputs, under
     ``RECOMPUTE_SPAN``; the gradient of each input, None where ``needs``
     is false."""
-    with torch.enable_grad(), torch.profiler.record_function(RECOMPUTE_SPAN):
+    with torch.enable_grad(), span("train.plain_recompute"):
         inputs = [t.detach().requires_grad_(need) for t, need in zip(saved, needs)]
         out = plain(*inputs)
         wanted = [t for t, need in zip(inputs, needs) if need]

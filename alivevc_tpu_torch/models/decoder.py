@@ -38,6 +38,7 @@ from alivevc_tpu_torch.nn.layers import (
     linear,
 )
 from alivevc_tpu_torch.ops.interp import linear_interpolate
+from alivevc_tpu_torch.utils.profiling import span
 
 # ---------------------------------------------------------------------------
 # FeatureExtractor (module/decoder.py:13-48)
@@ -277,15 +278,16 @@ def decoder(m: Decoder, content: torch.Tensor, f0: torch.Tensor, phi=0.0,
     or None).  The offline call (phi the number 0, crop = (0, -1)) runs the
     Chebyshev source kernel and returns phi as None."""
     cfg = m.cfg if cfg is None else cfg
-    feats = feature_extractor(m.feature_extractor, content, f0)
-    offline = crop == (0, -1) and not torch.is_tensor(phi) and phi == 0
-    if offline:
-        amps = torch.exp(m.harmonic_oscillator.to_amps(feats))
-        source = harmonic_source(f0, amps, cfg.sample_rate, cfg.segment_size)
-        phi_out = None
-    else:
-        source, phi_out = harmonic_oscillator(
-            m.harmonic_oscillator, feats, f0, phi=phi, crop=crop, segment_size=cfg.segment_size,
-            sample_rate=cfg.sample_rate, num_harmonics=cfg.num_harmonics)
+    with span("decoder.source"):
+        feats = feature_extractor(m.feature_extractor, content, f0)
+        offline = crop == (0, -1) and not torch.is_tensor(phi) and phi == 0
+        if offline:
+            amps = torch.exp(m.harmonic_oscillator.to_amps(feats))
+            source = harmonic_source(f0, amps, cfg.sample_rate, cfg.segment_size)
+            phi_out = None
+        else:
+            source, phi_out = harmonic_oscillator(
+                m.harmonic_oscillator, feats, f0, phi=phi, crop=crop, segment_size=cfg.segment_size,
+                sample_rate=cfg.sample_rate, num_harmonics=cfg.num_harmonics)
     out = filter_unet(m.filter, source.to(feats.dtype), feats, cfg)
     return out[..., 0], phi_out

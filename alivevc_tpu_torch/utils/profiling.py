@@ -1,29 +1,44 @@
-"""Profiling helpers: ``torch.profiler`` traces and device timing.
+"""Profiling helpers: the program's spans and ``torch.profiler`` traces.
 
-PyTorch returns from a call on the card before the card has finished, so
-``device_time`` times a run of calls between two CUDA events and waits for
-the second; on the CPU, which computes as it is called, it reads the host
-clock.  Both run on the card unless the caller names the CPU.
+``span(name)`` marks a stage of the program as ``vc::<name>`` in whatever
+``torch.profiler`` trace is being recorded, on the profiler's clock beside
+the device's events; with no profiler running it costs one check and
+returns a shared no-op context.  A span's parent is the span that encloses
+it on the thread: each converter runs one request at a time, so the enclosing
+``offline.convert`` (or, in a stream, the caller's span around
+``process_chunk``) names the request.  PERF.md lists the spans and what
+reads each.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
-from typing import Callable
 
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 from alivevc_tpu_torch.device import DeviceLike, resolve_device
+
+PREFIX = "vc::"
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """The context of the span ``vc::<name>``: recorded while a profiler
+    runs, the shared no-op otherwise."""
+    if torch.autograd._profiler_enabled():
+        return record_function(PREFIX + name)
+    return _OFF
 
 
 @contextlib.contextmanager
 def profile_trace(logdir: str, device: DeviceLike = None):
-    """Profile the block (host and, on the card, device activity) and write
-    a Chrome trace to ``logdir/trace.json``; yields the profiler, whose
-    ``key_averages()`` sums the time by operation."""
+    """Profile the block (host and, on the card, device activity, with the
+    program's spans) and write a Chrome trace to ``logdir/trace.json``;
+    yields the profiler, whose ``key_averages()`` sums the time by
+    operation."""
     dev = resolve_device(device)
     activities = [ProfilerActivity.CPU]
     if dev.type == "cuda":
@@ -34,27 +49,3 @@ def profile_trace(logdir: str, device: DeviceLike = None):
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
-
-
-def device_time(fn: Callable, *args, reps: int = 4, warmup: int = 1,
-                device: DeviceLike = None) -> float:
-    """Mean seconds per call of ``fn(*args)`` over ``reps`` calls after
-    ``warmup`` untimed ones: CUDA events on the card, the host clock on the
-    CPU."""
-    dev = resolve_device(device)
-    for _ in range(warmup):
-        fn(*args)
-    if dev.type != "cuda":
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn(*args)
-        return (time.perf_counter() - t0) / reps
-    with torch.cuda.device(dev):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn(*args)
-        end.record()
-        end.synchronize()
-    return start.elapsed_time(end) / 1e3 / reps

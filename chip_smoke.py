@@ -983,8 +983,11 @@ def profile_step(step, card, label="one bench-shape bf16 step"):
         step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    # the device-side copies of profiler annotations (the program's vc::
+    # spans) are ranges over kernels, not work, and are left out
     spans = [(e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", False)]
     if not spans:
         print("profile: the profiler recorded no device time (not measured)")
         return None

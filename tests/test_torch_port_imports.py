@@ -40,7 +40,7 @@ def test_importing_the_port_loads_no_jax():
     for mod in ("parallel.mesh", "parallel.sharded_knn", "parallel.distributed_vc",
                 "infer.streaming", "ops.resample", "io.audio", "io.checkpoint",
                 "models.voice_library", "cli.common", "cli.inference", "cli.realtime_inference",
-                "native_bindings", "ops.world", "parallel.halo", "utils.metrics", "utils.plotting",
+                "native_bindings", "ops.world", "parallel.halo", "utils.plotting",
                 "utils.profiling", "cli.audio_device_list", "models.discriminator", "train.losses",
                 "train.optim", "train.gan", "train.fine_tune", "train.f0", "train.library_gen",
                 "train.dp", "train.state", "io.dataset", "cli.train_decoder", "cli.fine_tune",
