@@ -1,7 +1,9 @@
-// Two DDSP harmonic sources, both with the offline semantics: phi = 0,
-// crop = (0, -1) (the phase is re-zeroed at the first sample).  osc_cheb
+// Three DDSP harmonic sources.  The first two have the offline semantics: phi
+// = 0, crop = (0, -1) (the phase is re-zeroed at the first sample).  osc_cheb
 // launches one kernel on the caller's stream; osc_formant two, the phase
-// scan and then the source.
+// scan and then the source.  The third, osc_stream, has the streaming
+// semantics (a carried phase phi, the phase re-zeroed at any sample): two
+// launches, the phase chain and then the source (section 3 below).
 //
 // 1. osc_cheb, the decoder's source, by the Chebyshev recurrence: x``seg``
 // linear upsampling of the frame-rate f0 and amplitudes, closed-form phase
@@ -68,10 +70,52 @@
 // = the frame's mixed phase + offset: a sincospif of the wrapped phase would
 // be closer to float64 by the plain version's own rounding of 2 pi x (a few
 // 1e-6 rad at 50 rad), and the recurrence carries that to ~1e-4 at k = 64.
+//
+// 3. osc_stream, the streaming source (module/decoder.py:80-95), which the
+// streaming hop runs: per harmonic h the float32 running sum dt of its
+// frequency f0 * h / sample rate, upsampled x``seg``, re-zeroed at sample
+// crop0, then theta = 2 pi dt + phi[h]; wave = the mean over h of sin(theta)
+// times the upsampled amplitude, and phi_out = asin(sin theta) at every
+// sample and harmonic.  Replaces no Pallas kernel: the JAX package's
+// streaming source is plain jnp.cumsum (alivevc_tpu/models/decoder.py:139).
+//
+// The order of the sum is the contract.  Harmonic 64's phase reaches 1e4 to
+// 1e5 cycles, where one float32 ulp is 1/1024 to 1/64 of a cycle: a sum in
+// blocks (a parallel scan) or in float64 moves the source by 10 % of its
+// peak at 150 Hz and by more than its peak at 2 kHz.  So the kernel forms
+// the plain version's own float32 values on the card, every product and sum
+// rounded on its own as its separate tensor operations round them
+// (__fmul_rn / __fadd_rn / __fsub_rn: nothing contracted into an FMA), the
+// running sum in time order from 0 as ATen's tensor_kernel_scan_outer_dim
+// takes it, accurate sinf and asinf; only the mean over the harmonics is
+// summed in another order.  An increment mixes two frames: the third
+// weight of the x``seg`` upsampling is exactly 0 in each half-frame, and a
+// zero product added to the sum leaves it as it is (a zero increment's sign
+// never reaches the running sum, which starts at +0).
+//
+// What bounds it on an H100: the chain, Lw dependent float32 adds a
+// harmonic (7 680 at the hop, about 16 us at 4 cycles an add); the sines
+// and stores are about 1 us of the card.  ATen's scan spent 1.3 ms there:
+// one thread a column, each step a dependent load from L2.  Here
+// osc_stream_chain_kernel runs one block a row and one thread a harmonic;
+// the running sum lives in a register, and each thread forms its own
+// increments from its frames' f0 * h (registers) and the sample's two
+// weights (shared memory, two samples a 16-byte load), so no step of the
+// chain waits on a load: by hand-made software pipelining a batch of 8 adds
+// and their coalesced row stores of dt (256 bytes a step at 64 harmonics)
+// run beside the next batch's increments, whose weights were loaded a batch
+// before.  Each warp then runs ~10 instructions a step (4 products and
+// sums of the increment, the add, the store and its address), so the
+// instruction rate, not the adds' latency, sets the pace: 65 us at the hop
+// on the H100 (PERF.md).  Then osc_stream_kernel, a warp a sample over the whole
+// card, reads dt back from L2, forms theta, its sine and asin, and sums the
+// harmonics' products by warp shuffles (6 us).
 
 #include "common.cuh"
 
 #include <limits.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -389,6 +433,130 @@ osc_formant_kernel(const float* __restrict__ fin, const AT* __restrict__ amps,
   }
 }
 
+constexpr int CHAIN_BATCH = 8;   // samples whose increments the chain computes ahead
+
+// Samples [0, len) of a half-frame whose two mixed frames hold lo and hi (f0
+// * h): inc = (lo w_lo + hi w_hi) / sample rate, dt = dt + inc, each dt
+// stored to out[r * nh]; returns the running sum.  w holds the samples'
+// weights as (w_lo, w_hi) pairs, two samples a float4.  Software-pipelined
+// by hand, in registers the loop carries: a batch's adds and stores run
+// beside the next batch's increments, whose weights were loaded a batch
+// before.  (Compiled step by step, each step's shared load, products, sum
+// and add waited on one another: ~25 cycles a step.)
+__device__ __forceinline__ float chain_half(float acc, float* __restrict__ out,
+                                            const float4* __restrict__ w, int len, float lo,
+                                            float hi, int nh, float inv_sr) {
+  constexpr int P = CHAIN_BATCH / 2;
+  const int batches = len / CHAIN_BATCH;
+  float4 wb[P];
+  float inc[CHAIN_BATCH];
+  auto increment = [&](int j) {
+    const float wl = j & 1 ? wb[j / 2].z : wb[j / 2].x, wh = j & 1 ? wb[j / 2].w : wb[j / 2].y;
+    return __fmul_rn(__fadd_rn(__fmul_rn(lo, wl), __fmul_rn(hi, wh)), inv_sr);
+  };
+#pragma unroll
+  for (int j = 0; j < P; ++j) wb[j] = w[j];
+#pragma unroll
+  for (int j = 0; j < CHAIN_BATCH; ++j) inc[j] = increment(j);
+#pragma unroll
+  for (int j = 0; j < P; ++j) wb[j] = w[P + j];
+  for (int b = 0; b < batches; ++b) {
+    float* o = out + (size_t)b * CHAIN_BATCH * nh;
+#pragma unroll
+    for (int j = 0; j < CHAIN_BATCH; ++j) {
+      acc = __fadd_rn(acc, inc[j]);
+      o[j * nh] = acc;
+      inc[j] = increment(j);    // the next batch's (past the half-frame's end: unused)
+    }
+#pragma unroll
+    for (int j = 0; j < P; ++j) wb[j] = w[(b + 2) * P + j];
+  }
+  const float2* w2 = reinterpret_cast<const float2*>(w);
+  for (int r = batches * CHAIN_BATCH; r < len; ++r) {
+    const float2 x = w2[r];
+    acc = __fadd_rn(acc, __fmul_rn(__fadd_rn(__fmul_rn(lo, x.x), __fmul_rn(hi, x.y)), inv_sr));
+    out[(size_t)r * nh] = acc;
+  }
+  return acc;
+}
+
+// f0 [N, Lf] Hz, tab as above -> dt [N, Lf * seg, NH]: per (row, harmonic)
+// the float32 running sum of the sample's frequency in cycles, in time
+// order.  One block a row, thread k the harmonic k + 1.  w_s holds each
+// sample's (lower, upper) frame weights, the second half-frame from an even
+// pair so that both halves start on a float4, and two batches of padding
+// that the last prefetches read.  The next frame's f0 is loaded a frame ahead.
+__global__ void __launch_bounds__(NH_MAX)
+osc_stream_chain_kernel(const float* __restrict__ f0, const float* __restrict__ tab,
+                        float* __restrict__ dt, int lf, int nh, int seg, float inv_sr) {
+  __shared__ float4 w_s[SEG_MAX / 2 + 1 + CHAIN_BATCH];
+  float2* w2 = reinterpret_cast<float2*>(w_s);
+  const int h1 = seg / 2, second = h1 + (h1 & 1);
+  for (int i = threadIdx.x; i < 2 * (SEG_MAX / 2 + 1 + CHAIN_BATCH); i += blockDim.x) {
+    const int r = i < second ? i : i - second + h1;
+    w2[i] = i < h1 ? make_float2(tab[r], tab[seg + r])
+            : i >= second && r < seg ? make_float2(tab[seg + r], tab[2 * seg + r])
+                                     : make_float2(0.0f, 0.0f);
+  }
+  __syncthreads();
+  const int k = threadIdx.x;
+  if (k >= nh) return;
+  const float mul = (float)(k + 1);
+  const float* fr = f0 + (size_t)blockIdx.x * lf;
+  float* out = dt + (size_t)blockIdx.x * lf * seg * nh + k;
+  float acc = 0.0f, xm = __fmul_rn(fr[0], mul), xq = xm, fnext = fr[min(1, lf - 1)];
+  for (int q = 0; q < lf; ++q, out += (size_t)seg * nh) {
+    const float xp = __fmul_rn(fnext, mul);
+    fnext = fr[min(q + 2, lf - 1)];
+    acc = chain_half(acc, out, w_s, h1, xm, xq, nh, inv_sr);
+    acc = chain_half(acc, out + (size_t)h1 * nh, w_s + second / 2, seg - h1, xq, xp, nh, inv_sr);
+    xm = xq;
+    xq = xp;
+  }
+}
+
+// dt [N, Lw, NH] from the chain, amps [N, Lf, NH] (float or bf16), phi: the
+// NH values of row b at phi + b * phi_stride, or the number phi_c where phi
+// is null; tab as above -> wave [N, Lw], phi_out [N, Lw, NH].  A warp a
+// sample, lane l the harmonics l, l + 32, ...
+template <typename AT>
+__global__ void __launch_bounds__(THREADS)
+osc_stream_kernel(const float* __restrict__ dt, const AT* __restrict__ amps,
+                  const float* __restrict__ phi, int phi_stride, float phi_c,
+                  const float* __restrict__ tab, float* __restrict__ wave,
+                  float* __restrict__ phi_out, int n, int lf, int nh, int seg, int crop0) {
+  const int lane = threadIdx.x & 31;
+  const int lw = lf * seg;
+  const float inv_nh = 1.0f / (float)nh;
+  const long long total = (long long)n * lw;
+  for (long long s = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5); s < total;
+       s += (long long)gridDim.x * WARPS) {
+    const int b = (int)(s / lw), t = (int)(s - (long long)b * lw);
+    const int q = t / seg, r = t - q * seg;
+    const bool first = r < seg / 2;
+    const int qa = first ? max(q - 1, 0) : q, qb = first ? q : min(q + 1, lf - 1);
+    const float wa = tab[(first ? 0 : seg) + r], wb = tab[(first ? seg : 2 * seg) + r];
+    const size_t row = (size_t)b * lw;
+    const float* d = dt + (row + t) * nh;
+    const float* dc = dt + (row + crop0) * nh;
+    const AT* al = amps + ((size_t)b * lf + qa) * nh;
+    const AT* ah = amps + ((size_t)b * lf + qb) * nh;
+    const float* ph = phi == nullptr ? nullptr : phi + (size_t)b * phi_stride;
+    float* po = phi_out + (row + t) * nh;
+    float sum = 0.0f;
+    for (int h = lane; h < nh; h += 32) {
+      const float x = __fadd_rn(__fmul_rn(TWO_PI, __fsub_rn(d[h], dc[h])), ph == nullptr ? phi_c : ph[h]);
+      const float sn = sinf(x);
+      po[h] = asinf(sn);
+      const float a = __fadd_rn(__fmul_rn(to_f32(al[h]), wa), __fmul_rn(to_f32(ah[h]), wb));
+      sum = __fadd_rn(sum, __fmul_rn(sn, a));
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    if (lane == 0) wave[row + t] = sum * inv_nh;
+  }
+}
+
 size_t cheb_smem(int nh) { return (size_t)(FB + 2) * ((nh + 3) & ~3) * sizeof(float); }
 size_t formant_smem(int nh) { return (size_t)(4 * FB + 4) * ((nh + 3) & ~3) * sizeof(float); }
 
@@ -459,6 +627,38 @@ extern "C" int osc_formant(const void* formants, const void* amps, int amps_bf16
   else
     osc_formant_kernel<<<source_blocks(n, lf), THREADS, formant_smem(nh), st>>>(
         fin, static_cast<const float*>(amps), o, t, dst, lf, nh, seg, inv_sr);
+  RETURN_LAUNCH_STATUS();
+}
+
+// f0 [n, lf] float32 Hz; amps [n, lf, nh] float32 or bf16; phi: float32, nh
+// values a row, row b at phi + b * phi_stride (phi_stride 0: one row for
+// all), or null for the number phi_c; tab, inv_sr as above; crop0 in [0,
+// lf * seg); dt [n, lf * seg, nh] float32 scratch; wave [n, lf * seg];
+// phi_out [n, lf * seg, nh].  Two launches: the chain, then the source.
+extern "C" int osc_stream(const void* f0, const void* amps, int amps_bf16, const void* phi,
+                          int phi_stride, float phi_c, const void* tab, void* dt, void* wave,
+                          void* phi_out, int n, int lf, int nh, int seg, int crop0, float inv_sr,
+                          void* stream) {
+  if (bad_shape(n, lf, nh, seg) || (long long)lf * seg > INT_MAX || crop0 < 0 || crop0 >= lf * seg)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* t = static_cast<const float*>(tab);
+  float* d = static_cast<float*>(dt);
+  osc_stream_chain_kernel<<<n, (nh + 31) & ~31, 0, st>>>(static_cast<const float*>(f0), t, d, lf, nh,
+                                                          seg, inv_sr);
+  const cudaError_t chain_status = cudaGetLastError();
+  if (chain_status != cudaSuccess) return static_cast<int>(chain_status);
+  const long long samples = (long long)n * lf * seg;
+  const int blocks = (int)std::min<long long>((samples + WARPS - 1) / WARPS, 1 << 16);
+  const float* p = static_cast<const float*>(phi);
+  float* w = static_cast<float*>(wave);
+  float* po = static_cast<float*>(phi_out);
+  if (amps_bf16)
+    osc_stream_kernel<<<blocks, THREADS, 0, st>>>(d, static_cast<const __nv_bfloat16*>(amps), p,
+                                                   phi_stride, phi_c, t, w, po, n, lf, nh, seg, crop0);
+  else
+    osc_stream_kernel<<<blocks, THREADS, 0, st>>>(d, static_cast<const float*>(amps), p, phi_stride,
+                                                   phi_c, t, w, po, n, lf, nh, seg, crop0);
   RETURN_LAUNCH_STATUS();
 }
 

@@ -12,8 +12,9 @@ at the end of the output chunk (module/decoder.py:91-95,
 realtime_inference.py:166-167).  This is the JAX package's
 ``infer/streaming.py``.  The hop runs the STFT kernel, the content encoder
 and F0 estimator, the kNN kernel in 'high' (float32 scores: JAX streaming is
-float32 only) and the decoder with phi and crop, which takes the plain
-oscillator and the filter-level kernels; all in float32 with TF32 off.
+float32 only) and the decoder with phi and crop, which takes the streaming
+source kernel (``kernels/oscillator.py:harmonic_source_stream``) and the
+filter-level kernels; all in float32 with TF32 off.
 
 Where JAX compiles the hop into one program, ``StreamingConverter`` on the
 card captures it once as a CUDA graph over static tensors (the input chunk,

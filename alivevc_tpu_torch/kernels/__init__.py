@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels for Hopper (``csrc/``), each beside its plain
 PyTorch version: STFT magnitude, cosine top-k (with row exclusion and the
-packed extraction), the Chebyshev and full-formant harmonic sources, and one
-filter U-Net up level.  ``LAUNCHES`` counts the launches on the card.
+packed extraction), the Chebyshev, full-formant and streaming harmonic
+sources, and one filter U-Net up level.  ``LAUNCHES`` counts the launches on the card.
 
 The kernel API mirrors ``alivevc_tpu/kernels/__init__.py``: ``knn_topk``,
 ``match_features``, ``stft_magnitude`` and ``harmonic_source_formants``.

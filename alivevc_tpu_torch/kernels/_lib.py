@@ -55,7 +55,8 @@ CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-shared")   # nativ
 LAUNCHES: Dict[str, int] = {"stft": 0, "knn": 0, "oscillator": 0, "filter_level": 0,
                             "filter_narrow": 0, "filter_wide": 0,
                             "knn_packed": 0, "oscillator_formants": 0, "knn_merge": 0,
-                            "knn_carried": 0, "knn_carried_packed": 0, "knn_prep": 0}
+                            "knn_carried": 0, "knn_carried_packed": 0, "knn_prep": 0,
+                            "oscillator_stream": 0}
 
 # the profiler span each kernel ``Function``'s backward recomputes its
 # plain version in (``plain_vjp``; chip_smoke.py reads the device time under it)

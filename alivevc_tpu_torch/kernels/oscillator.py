@@ -26,11 +26,22 @@ copies nothing between host and device and never waits on the stream.
 ``harmonic_source_replay`` and ``harmonic_source_formants_replay`` repeat
 the kernels' arithmetic in PyTorch, for the tests.
 
+``harmonic_source_stream`` is the streaming source (a carried phase phi,
+the phase re-zeroed at sample ``crop0``), which the streaming hop runs
+through the decoder: per harmonic the float32 running sum of its
+frequency in time order, as ``torch.cumsum`` takes it on the card (the
+plain version, ``harmonic_source_stream_plain``, is module/decoder.py's
+oscillator).  It replaces no Pallas kernel: the JAX package's streaming
+source is plain ``jnp.cumsum`` (alivevc_tpu/models/decoder.py:139).  Its
+call launches the chain and then the source; ``harmonic_source_stream_replay``
+repeats its arithmetic with the chain as an explicit float32 sequential sum
+(``torch.cumsum`` on the CPU sums float32 in float64).
+
 Gradients (training): ``harmonic_source`` on the card runs through
 ``HarmonicSourceFunction``: the forward is the Chebyshev kernel, the
 backward differentiates ``harmonic_source_plain`` recomputed on the saved
-f0 and amplitudes.  The formant source has no backward, and its launch
-raises on an input that requires grad in grad mode.
+f0 and amplitudes.  The formant and streaming sources have no backward,
+and their launches raise on an input that requires grad in grad mode.
 """
 
 from __future__ import annotations
@@ -44,7 +55,7 @@ import torch
 
 from alivevc_tpu_torch.device import cached
 from alivevc_tpu_torch.kernels import _lib
-from alivevc_tpu_torch.ops.interp import upsample_weights_np
+from alivevc_tpu_torch.ops.interp import linear_interpolate, upsample_weights_np
 
 NH_MAX = 256      # harmonics the kernels hold in shared memory
 SEG_MAX = 1024    # samples a frame
@@ -235,6 +246,72 @@ def harmonic_source_formants(formants: torch.Tensor, amps: torch.Tensor,
     return harmonic_source_formants_plain(formants, amps, sample_rate, seg)
 
 
+def harmonic_source_stream_plain(f0: torch.Tensor, amps: torch.Tensor, phi=0.0, crop0: int = 0,
+                                 sample_rate: int = 16_000, seg: int = 320):
+    """The streaming source in PyTorch operations (module/decoder.py:80-95):
+    f0 [N, Lf, 1] Hz, amps [N, Lf, NH], phi the number or [N or 1, 1, NH],
+    the phase re-zeroed at sample ``crop0`` -> (wave [N, Lw, 1], phi_out
+    [N, Lw, NH])."""
+    nh = amps.shape[-1]
+    lw = f0.shape[1] * seg
+    mul = torch.arange(1, nh + 1, dtype=torch.float32, device=f0.device)
+    formants = linear_interpolate(f0.float() * mul, lw, axis=1)
+    amps = linear_interpolate(amps.float(), lw, axis=1)
+    dt = torch.cumsum(formants / sample_rate, dim=1)      # float32 phase
+    dt = dt - dt[:, crop0][:, None, :]
+    harmonics = torch.sin(2.0 * math.pi * dt + phi)
+    phi_out = torch.asin(harmonics)
+    wave = torch.mean(harmonics * amps, dim=2, keepdim=True)
+    return wave, phi_out
+
+
+def harmonic_source_stream_cuda(f0: torch.Tensor, amps: torch.Tensor, phi=0.0, crop0: int = 0,
+                                sample_rate: int = 16_000, seg: int = 320):
+    """The kernel launch: f0 [N, Lf] or [N, Lf, 1] Hz and amps [N, Lf, NH]
+    (float32 or bf16, read as they are) on the card; phi the number or a
+    float32 [N or 1, 1, NH] tensor there; ``crop0`` a sample index (negative
+    counts from the end).  Two launches: ``osc_stream_chain_kernel`` (the
+    running sums into an [N, Lw, NH] scratch), then ``osc_stream_kernel``.
+    Returns (wave [N, Lw, 1], phi_out [N, Lw, NH])."""
+    _lib.refuse_grad("harmonic_source_stream_cuda", f0, amps, phi)
+    if f0.dim() not in (2, 3) or f0.dim() == 3 and f0.shape[2] != 1:
+        raise ValueError(f"f0 must be [N, Lf] or [N, Lf, 1], got {tuple(f0.shape)}")
+    f, a = _operands(f0, amps, 1, seg)
+    n, lf, nh = a.shape
+    lw = lf * seg
+    crop = crop0 + lw if crop0 < 0 else crop0
+    if not 0 <= crop < lw:
+        raise IndexError(f"crop0={crop0} is outside the {lw} samples")
+    if torch.is_tensor(phi):
+        if not phi.is_contiguous():
+            phi = phi.contiguous()
+        _lib.require(phi, "phi", (torch.float32,), 3)
+        if phi.shape not in ((1, 1, nh), (n, 1, nh)):
+            raise ValueError(f"phi must be [{n} or 1, 1, {nh}], got {tuple(phi.shape)}")
+        phi_ptr, phi_stride, phi_c = phi.data_ptr(), nh if phi.shape[0] > 1 else 0, 0.0
+    else:
+        phi_ptr, phi_stride, phi_c = None, 0, float(phi)
+    dt = torch.empty((n, lw, nh), dtype=torch.float32, device=f.device)
+    wave = torch.empty((n, lw, 1), dtype=torch.float32, device=f.device)
+    phi_out = torch.empty((n, lw, nh), dtype=torch.float32, device=f.device)
+    rc = _lib.function("oscillator", "osc_stream", "ppipifppppiiiiifp")(
+        f.data_ptr(), a.data_ptr(), a.dtype == torch.bfloat16, phi_ptr, phi_stride, phi_c,
+        _device_table(seg, f).data_ptr(), dt.data_ptr(), wave.data_ptr(), phi_out.data_ptr(), n, lf,
+        nh, seg, crop, inv_rate(sample_rate), _lib.stream_of(f))
+    _lib.check(rc, "osc_stream")
+    _lib.LAUNCHES["oscillator_stream"] += 1
+    return wave, phi_out
+
+
+def harmonic_source_stream(f0: torch.Tensor, amps: torch.Tensor, phi=0.0, crop0: int = 0,
+                           sample_rate: int = 16_000, seg: int = 320):
+    """Streaming harmonic source: the kernel on CUDA tensors, the plain
+    version on CPU tensors."""
+    if _lib.route(f0) == "cuda":
+        return harmonic_source_stream_cuda(f0, amps, phi, crop0, sample_rate, seg)
+    return harmonic_source_stream_plain(f0, amps, phi, crop0, sample_rate, seg)
+
+
 # ---------------------------------------------------------------------------
 # The kernels' arithmetic, replayed in PyTorch (tests only)
 # ---------------------------------------------------------------------------
@@ -345,3 +422,31 @@ def harmonic_source_formants_replay(formants: torch.Tensor, amps: torch.Tensor,
         acc_hi = _fma(s[..., h], a_hi[..., h], acc_hi)
     out = _fma(w_lo, acc_lo, w_hi * acc_hi) * (1.0 / nh)
     return out.reshape(n, lf * seg, 1)
+
+
+def harmonic_source_stream_replay(f0: torch.Tensor, amps: torch.Tensor, phi=0.0, crop0: int = 0,
+                                  sample_rate: int = 16_000, seg: int = 320):
+    """``harmonic_source_stream`` as ``osc_stream_chain_kernel`` and
+    ``osc_stream_kernel`` compute it, on the CPU: each increment
+    ((lo w_lo + hi w_hi) * ``inv_rate``, the two frames of the two-frame
+    split, every product and sum rounded to float32), the chain as an
+    explicit float32 sum in time order (``numpy.add.accumulate``), the
+    phase argument (2 pi) * (dt - dt[crop0]) + phi, its sine and asin, and
+    the amplitude-weighted mean.  Returns (wave [N, Lw, 1], phi_out, dt,
+    theta), the last three [N, Lw, NH]."""
+    if f0.dim() == 3:
+        f0 = f0[..., 0]
+    n, lf = f0.shape
+    nh = amps.shape[-1]
+    lw = lf * seg
+    _, w_lo, w_hi, _, _ = (torch.from_numpy(t) for t in two_frame_split(seg))
+    x = f0.float().cpu()[..., None] * torch.arange(1, nh + 1, dtype=torch.float32)   # [N, Lf, NH]
+    x_lo, x_hi = _two_frames(x, seg)                                     # [N, Lf, seg, NH]
+    inc = (x_lo * w_lo[:, None] + x_hi * w_hi[:, None]) * inv_rate(sample_rate)
+    dt = torch.from_numpy(np.add.accumulate(inc.reshape(n, lw, nh).numpy(), axis=1, dtype=np.float32))
+    theta = (2.0 * math.pi) * (dt - dt[:, crop0][:, None, :]) + (
+        phi.float().cpu() if torch.is_tensor(phi) else phi)
+    s = torch.sin(theta)
+    a_lo, a_hi = _two_frames(amps.float().cpu(), seg)
+    a = (a_lo * w_lo[:, None] + a_hi * w_hi[:, None]).reshape(n, lw, nh)
+    return (s * a).mean(dim=2, keepdim=True), torch.asin(s), dt, theta

@@ -3,11 +3,12 @@
 
 Every up level of the U-Net runs through ``kernels/filter.py``, where the
 JAX package runs ``fused_filter_block_up`` (filter_packed.py:418-440).  The
-offline call (phi = 0, crop = (0, -1)) runs the harmonic source through
-``kernels/oscillator.py``, where the JAX package runs
-``harmonic_source_cheb_pallas`` (decoder.py:402-412); any other phi or crop
-(the streaming semantics) takes the plain oscillator, which also returns the
-per-harmonic phase.
+harmonic source runs through ``kernels/oscillator.py``: the offline call
+(phi = 0, crop = (0, -1)) through ``harmonic_source``, where the JAX package
+runs ``harmonic_source_cheb_pallas`` (decoder.py:402-412); any other phi or
+crop (the streaming semantics) through ``harmonic_source_stream``, which
+also returns the per-harmonic phase: on the card its kernel, on the CPU the
+plain oscillator (the JAX package runs the plain one, decoder.py:139).
 
 Rate convs: the down conv (kernel = stride = r) is a reshape + product, the
 up conv (transposed, kernel = stride = r) a product + reshape, with the
@@ -17,7 +18,6 @@ JAX package's layouts (decoder.py:16-20, 280-293).
 
 from __future__ import annotations
 
-import math
 from typing import List, Optional, Tuple
 
 import torch
@@ -25,7 +25,11 @@ from torch import nn
 
 from alivevc_tpu_torch.config import DecoderConfig
 from alivevc_tpu_torch.kernels.filter import filter_level
-from alivevc_tpu_torch.kernels.oscillator import harmonic_source
+from alivevc_tpu_torch.kernels.oscillator import (
+    harmonic_source,
+    harmonic_source_stream,
+    harmonic_source_stream_plain,
+)
 from alivevc_tpu_torch.nn.layers import (
     AdaptiveConvNeXt1d,
     CausalConv1d,
@@ -100,18 +104,13 @@ def harmonic_oscillator(m: HarmonicOscillator, features: torch.Tensor, f0: torch
                         phi=0.0, crop: Tuple[int, int] = (0, -1), segment_size: int = 320,
                         sample_rate: int = 16_000, num_harmonics: int = 64):
     """Plain DDSP source with streaming phi/crop semantics:
-    features [N, Lf, C], f0 [N, Lf, 1] -> (wave [N, Lw, 1], phi [N, Lw, Nh])."""
-    lw = features.shape[1] * segment_size
+    features [N, Lf, C], f0 [N, Lf, 1] -> (wave [N, Lw, 1], phi [N, Lw, Nh]).
+    ``num_harmonics`` (the JAX package's argument) must be ``m.to_amps``'s
+    width."""
     amps = torch.exp(m.to_amps(features))
-    mul = torch.arange(1, num_harmonics + 1, dtype=torch.float32, device=f0.device)
-    formants = linear_interpolate(f0.float() * mul, lw, axis=1)
-    amps = linear_interpolate(amps.float(), lw, axis=1)
-    dt = torch.cumsum(formants / sample_rate, dim=1)      # float32 phase
-    dt = dt - dt[:, crop[0]][:, None, :]
-    harmonics = torch.sin(2.0 * math.pi * dt + phi)
-    phi_out = torch.asin(harmonics)
-    wave = torch.mean(harmonics * amps, dim=2, keepdim=True)
-    return wave, phi_out
+    if amps.shape[-1] != num_harmonics:
+        raise ValueError(f"num_harmonics={num_harmonics}, but to_amps gives {amps.shape[-1]}")
+    return harmonic_source_stream_plain(f0, amps, phi, crop[0], sample_rate, segment_size)
 
 
 # ---------------------------------------------------------------------------
@@ -276,18 +275,17 @@ def decoder(m: Decoder, content: torch.Tensor, f0: torch.Tensor, phi=0.0,
             crop: Tuple[int, int] = (0, -1), cfg: Optional[DecoderConfig] = None):
     """content [N, Lf, 768], f0 [N, Lf, 1] -> (wave [N, Lw], phi [N, Lw, Nh]
     or None).  The offline call (phi the number 0, crop = (0, -1)) runs the
-    Chebyshev source kernel and returns phi as None."""
+    Chebyshev source and returns phi as None; any other runs the streaming
+    source."""
     cfg = m.cfg if cfg is None else cfg
     with span("decoder.source"):
         feats = feature_extractor(m.feature_extractor, content, f0)
-        offline = crop == (0, -1) and not torch.is_tensor(phi) and phi == 0
-        if offline:
-            amps = torch.exp(m.harmonic_oscillator.to_amps(feats))
+        amps = torch.exp(m.harmonic_oscillator.to_amps(feats))
+        if crop == (0, -1) and not torch.is_tensor(phi) and phi == 0:
             source = harmonic_source(f0, amps, cfg.sample_rate, cfg.segment_size)
             phi_out = None
         else:
-            source, phi_out = harmonic_oscillator(
-                m.harmonic_oscillator, feats, f0, phi=phi, crop=crop, segment_size=cfg.segment_size,
-                sample_rate=cfg.sample_rate, num_harmonics=cfg.num_harmonics)
+            source, phi_out = harmonic_source_stream(f0, amps, phi, crop[0], cfg.sample_rate,
+                                                     cfg.segment_size)
     out = filter_unet(m.filter, source.to(feats.dtype), feats, cfg)
     return out[..., 0], phi_out

@@ -92,13 +92,15 @@ printing the final line:
   6. the realtime path at full width: ``StreamingConverter`` (8-chunk window
      of 960-sample hops, a target matrix of a 30 s voice decimated x4 plus
      512 library tokens, 887 rows).  The eager hop, counters zeroed before
-     its 50 hops and read after, must launch the STFT, kNN and filter-level
-     kernels (the narrow and the wide); the hop replayed as one CUDA graph must equal it (<= 1e-5 over
+     its 50 hops and read after, must launch the STFT, kNN, streaming source
+     and filter-level kernels (the narrow and the wide); the hop replayed as one CUDA graph must equal it (<= 1e-5 over
      50 hops); the pipelined graph (depth 1) must equal the synchronous one
      delayed by a hop, exactly; one hop on the card against the plain hop on
      the CPU (f0 given) within 5e-3 (waveform) and 0.25 rad (phi).  Then the
      kernels at the hop's shapes against their plain versions (each filter
-     level with its grid), the per-hop latency (median, p90, p99 over 200
+     level with its grid; the streaming source with its phase bit-equal, its
+     device time alone, the chain's bound and ``torch.cumsum`` alone on the
+     same increments as the library call), the per-hop latency (median, p90, p99 over 200
      hops) of the eager, graph and pipelined graph forms and the real-time
      factor, a profile of 20 hops of each form by kernel group.  Then the
      same three forms with ``world_pitch=True`` (f0 from WORLD on the host,
@@ -963,7 +965,7 @@ KERNEL_GROUPS = (
     ("knn_tile", ("knn_tile",)),
     ("knn_merge", ("knn_merge",)),
     ("knn_carried", ("knn_carried",)),
-    ("oscillator", ("osc_scan", "osc_cheb", "osc_formant")),
+    ("oscillator", ("osc_scan", "osc_cheb", "osc_formant", "osc_stream")),
     ("filter_narrow", ("filter_narrow_kernel", "filter_narrow_weights_kernel")),
     ("filter_wide", ("filter_wide_kernel", "filter_wide_weights_kernel")),
 )
@@ -1272,7 +1274,8 @@ HOP_WINDOW = HOP_CHUNK * HOP_PRIME
 COMPARE_HOPS = 50
 LATENCY_HOPS = 200
 PROFILE_HOPS = 20
-STREAM_KERNELS = ("stft", "knn_carried", "filter_level", "filter_narrow", "filter_wide")   # the carried kNN form
+STREAM_KERNELS = ("stft", "knn_carried", "oscillator_stream", "filter_level", "filter_narrow",
+                  "filter_wide")   # the carried kNN form
 CLI_OFFLINE_KERNELS = ("stft", "knn_carried", "oscillator", "filter_level", "filter_narrow", "filter_wide")
 PHASE6_LIMIT_S = 60.0
 WPE_LATENCY_HOPS = 60        # the -wpe forms' latency hops (WORLD runs on the host each hop)
@@ -1291,6 +1294,57 @@ def hop_latency_ms(conv, chunks, warmup: int = 3):
     conv.flush()
     q = statistics.quantiles(times, n=100, method="inclusive")
     return {"median": statistics.median(times), "p90": q[89], "p99": q[98], "hops": len(times)}
+
+
+def sm_clock_mhz():
+    """The card's SM clock now and its maximum (nvidia-smi), MHz."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    now, top = (float(v) for v in out.stdout.strip().splitlines()[0].split(","))
+    return now, top
+
+
+def check_oscillator_stream(gen):
+    """The streaming source at the hop's shape (the decoder's call in
+    ``streaming_step``: f0 [1, 24], amps [1, 24, 64], a carried phi, the
+    phase re-zeroed at the output chunk's first sample, 3 360): phi_out
+    bit-equal to the plain version on the card and the waveform within 1e-6
+    of its peak.  The bound is the chain: Lw dependent float32 adds a
+    harmonic at 4 cycles each, at the SM clock read after the timed runs;
+    the library call is ``torch.cumsum`` alone on the plain version's
+    increments, the one operation of it that the port no longer calls."""
+    import torch
+    from alivevc_tpu_torch.kernels.oscillator import (
+        harmonic_source_stream_cuda,
+        harmonic_source_stream_plain,
+        inv_rate,
+    )
+    from alivevc_tpu_torch.ops.interp import linear_interpolate
+
+    lf, nh, crop0 = HOP_WINDOW // 320, 64, HOP_WINDOW // 2 - HOP_CHUNK // 2
+    f0 = 80.0 + 320.0 * torch.rand(1, lf, 1, generator=gen, device="cuda")
+    amps = torch.exp(0.3 * torch.randn(1, lf, nh, generator=gen, device="cuda"))
+    phi = 3.0 * torch.rand(1, 1, nh, generator=gen, device="cuda") - 1.5
+    wave, phi_out = harmonic_source_stream_cuda(f0, amps, phi, crop0)
+    want_wave, want_phi = harmonic_source_stream_plain(f0, amps, phi, crop0)
+    torch.cuda.synchronize()
+    need(torch.equal(phi_out, want_phi), "oscillator_stream: phi_out differs from the plain version's")
+    err = float((wave - want_wave).abs().max())
+    tol = 1e-6 * float(want_wave.abs().max())
+    need(err <= tol, f"oscillator_stream: max abs err {err} > {tol}")
+    inc = linear_interpolate(f0 * torch.arange(1, nh + 1, device="cuda"), HOP_WINDOW, axis=1) * inv_rate(16_000)
+    ms = cuda_ms(lambda: harmonic_source_stream_cuda(f0, amps, phi, crop0))
+    clock, clock_max = sm_clock_mhz()
+    return {
+        "name": "oscillator_stream", "variant": f"f0 [1, {lf}], amps [1, {lf}, {nh}], crop {crop0} (hop)",
+        "max_abs_err": err, "tol": tol, "ms": ms,
+        "kernel_ms": kernel_device_ms(lambda: harmonic_source_stream_cuda(f0, amps, phi, crop0),
+                                      ("osc_stream",)),
+        "plain_ms": cuda_ms(lambda: harmonic_source_stream_plain(f0, amps, phi, crop0), 2),
+        "library_ms": cuda_ms(lambda: torch.cumsum(inc, dim=1)),
+        "bound_ms": HOP_WINDOW * 4 / (clock * 1e3), "bound_by": f"chain at {clock:.0f} MHz",
+        "sm_clock_mhz": clock, "sm_clock_max_mhz": clock_max,
+    }
 
 
 def hop_card_vs_cpu(ce, f0m, dec, tgt, state, chunk, rng):
@@ -1490,6 +1544,7 @@ def run_realtime(ce, f0m, dec, gen, card):
     rows = [check_stft(gen, 1, HOP_WINDOW, " (hop)"),
             check_knn(gen, tgt.shape[0], "high", ls=HOP_WINDOW // 320, suffix=" (hop)")]
     rows += check_filter_levels(gen, dec, n=1, lw=HOP_WINDOW, dtypes=("f32",), tag=" (hop)")
+    rows.append(check_oscillator_stream(gen))
     # 6. per-hop latency of each form, and the real-time factor
     latency = {}
     for name, conv in (("eager, synchronous", eager), ("graph, synchronous", graph),
@@ -3289,6 +3344,9 @@ REPLACES = {
                            "alivevc_tpu/kernels/knn_pallas.py:331 (_knn_kernel_fast, _pack_topk)"),
     "oscillator_formants": ("alivevc_tpu_torch/csrc/oscillator.cu",
                             "alivevc_tpu/kernels/oscillator_pallas.py:281"),
+    "oscillator_stream": ("alivevc_tpu_torch/csrc/oscillator.cu (osc_stream_chain_kernel + osc_stream_kernel)",
+                          "none: the JAX package's streaming source is plain jnp.cumsum "
+                          "(alivevc_tpu/models/decoder.py:139)"),
 }
 
 
@@ -3321,6 +3379,8 @@ def kernels_line(rows, launches):
             main = [r for r in mine if r["variant"].endswith("high (hop)")]
         elif name == "knn_carried_packed":
             main = [r for r in mine if r["variant"].startswith(f"{N_STEP * LF} x 512 x 768")]
+        elif name == "oscillator_stream":   # the streaming hop's call, its only caller
+            main = mine
         elif name in FILTER_ENTRIES:   # the bf16 main path's levels: all four, the narrow or the wide
             mine = [r for r in rows if r["name"] == "filter_level"
                     and (name == "filter_level" or narrow_level(r) == (name == "filter_narrow"))]

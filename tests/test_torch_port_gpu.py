@@ -14,6 +14,10 @@ step moves its key by 3.1e-5); oscillator 5e-3 abs (sinf/cosf rounding
 grown by the Chebyshev recurrence), the same for the full-formant source
 (float32 phase of up to ~500 cycles a frame), and at their edges against
 the replay of their own arithmetic 1e-3 (Chebyshev) and 1e-4 (formants);
+the streaming source: its phase (asin) bit-equal to the plain version's on
+the card, its waveform within 1e-6 of the peak (the mean over the harmonics
+summed in another order), and a stream's hops through it within 1e-6 of
+the peak of the hops through the plain version;
 filter level 1e-3 abs in
 float32, and at its edges (all four level shapes, batch 1, lengths that no
 tile divides, a narrow level just over its 56-sample lookback, one FiLM
@@ -802,6 +806,82 @@ def test_oscillator_repeatable_without_host_sync_on_card():
     torch.cuda.synchronize()
 
 
+# (windows, frames, harmonics, samples a frame): the streaming source at the
+# hop's shape and its edges (one frame; an odd seg; NH = 1, 3 and 256; an
+# offline window's 450 frames, a chain of 144 000 adds)
+STREAM_EDGES = [(1, 24, 64, 320), (3, 1, 64, 7), (3, 5, 64, 7), (2, 9, 256, 161), (2, 7, 1, 320),
+                (1, 450, 3, 320)]
+
+
+def _stream_case(g, n, lf, nh, shifted):
+    """f0 0-4 095 Hz with a fifth of the frames at 0 (or those shifted up 7
+    semitones by ``shift_pitch``, as the hop shifts them), amplitudes exp(0.3
+    N(0, 1)), and three (phi, crop0) pairs: per-row phi at the first
+    sample, one phi row at the middle, a number at the last."""
+    from alivevc_tpu_torch.ops.pitch import shift_pitch
+
+    f0 = 4095.0 * torch.rand(n, lf, 1, generator=g, device="cuda")
+    f0 = torch.where(torch.rand(n, lf, 1, generator=g, device="cuda") < 0.2, 0.0, f0)
+    if shifted:
+        f0 = shift_pitch(f0, 7.0)
+    amps = torch.exp(0.3 * torch.randn(n, lf, nh, generator=g, device="cuda"))
+    phis = [3.0 * torch.rand(n, 1, nh, generator=g, device="cuda") - 1.5,
+            3.0 * torch.rand(1, 1, nh, generator=g, device="cuda") - 1.5, 0.3]
+    return f0, amps, phis
+
+
+@pytest.mark.gpu
+def test_oscillator_stream_on_card():
+    """The streaming source kernel at the hop's shape and at its edges
+    (STREAM_EDGES), f0 across 0-4 095 Hz and shifted, the phase re-zeroed at
+    the first, the middle and the last sample: phi_out bit-equal to the
+    plain version on the card (the same float32 operations in the same
+    order: the chain is ATen's scan order), the waveform within 1e-6 of its
+    peak; bf16 amplitudes read as they are; the same bits in three calls,
+    none of which copies between host and device or waits on the stream;
+    the shapes and arguments it refuses."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; on the card run this file with --noconftest -m gpu")
+    g = torch.Generator(device="cuda").manual_seed(9)
+    errs = {}
+    for n, lf, nh, seg in STREAM_EDGES:
+        lw = lf * seg
+        for shifted in (False, True):
+            f0, amps, phis = _stream_case(g, n, lf, nh, shifted)
+            for phi, crop0 in zip(phis, (0, lw // 2, lw - 1)):
+                wave, phi_out = kosc.harmonic_source_stream_cuda(f0, amps, phi, crop0, seg=seg)
+                want_wave, want_phi = kosc.harmonic_source_stream_plain(f0, amps, phi, crop0, seg=seg)
+                key = (n, lf, nh, seg, shifted, crop0)
+                assert wave.shape == (n, lw, 1) and phi_out.shape == (n, lw, nh), key
+                assert torch.equal(phi_out, want_phi), (key, max_err(phi_out, want_phi))
+                peak = float(want_wave.abs().max())
+                errs[key] = max_err(wave, want_wave) / peak
+                assert errs[key] <= 1e-6, (key, errs[key])
+                ab = amps.bfloat16()
+                got = kosc.harmonic_source_stream_cuda(f0, ab, phi, crop0, seg=seg)
+                want = kosc.harmonic_source_stream_cuda(f0, ab.float(), phi, crop0, seg=seg)
+                assert all(torch.equal(a, b) for a, b in zip(got, want)), key
+    print(f"oscillator_stream: max err vs plain over the peak {errs}")
+    f0, amps, phis = _stream_case(g, 1, 24, 64, False)
+    first = kosc.harmonic_source_stream_cuda(f0, amps, phis[0], 3360)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = [kosc.harmonic_source_stream_cuda(f0, amps, phis[0], 3360) for _ in range(3)]
+        kosc.harmonic_source_stream_cuda(f0[:, :9], amps[:, :9], 0.5, -1, seg=317)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(torch.equal(a, b) for out in again for a, b in zip(out, first))
+    for args, err in (((f0, amps[..., :0], 0.0, 0), ValueError),
+                      ((f0, torch.ones(1, 24, 257, device="cuda"), 0.0, 0), ValueError),
+                      ((f0, amps[:, :3], 0.0, 0), ValueError),
+                      ((f0, amps, phis[0][..., :8], 0), ValueError),
+                      ((f0, amps, phis[0].double(), 0), TypeError),
+                      ((f0, amps, 0.0, 24 * 320), IndexError)):
+        with pytest.raises(err):
+            kosc.harmonic_source_stream_cuda(*args)
+
+
 def _sharded_run(world: int) -> dict:
     """The sharded path on a ('data', 1) x ('library', world) mesh at a small
     size: default model widths, 2 windows of 9 600 samples, 4 001 rows."""
@@ -1001,6 +1081,7 @@ def _graph_cases(g):
     f0 = 80.0 + 300.0 * torch.rand(1, 24, 1, generator=g, device="cuda")
     amps = torch.exp(0.3 * torch.randn(1, 24, 64, generator=g, device="cuda"))
     formants = f0 * torch.arange(1, 65, device="cuda")
+    phi = 3.0 * torch.rand(1, 1, 64, generator=g, device="cuda") - 1.5
     q = torch.randn(24, 768, generator=g, device="cuda")
     lib = torch.randn(887, 768, generator=g, device="cuda")
     many = torch.randn(960, 768, generator=g, device="cuda")    # several query tiles
@@ -1016,6 +1097,8 @@ def _graph_cases(g):
         ("oscillator", lambda: kosc.harmonic_source_cuda(f0, amps), [f0, amps]),
         ("oscillator_formants", lambda: kosc.harmonic_source_formants_cuda(formants, amps),
          [formants, amps]),
+        ("oscillator_stream", lambda: torch.cat([x.flatten() for x in kosc.harmonic_source_stream_cuda(
+            f0, amps, phi, 3360)]), [f0, amps, phi]),
         ("filter_level_wide", lambda: kfilter.filter_level_cuda(wide[0], wide[1], rate=wide[2],
                                                                 **wide[3]), [wide[0], wide[1]]),
         ("filter_level_narrow", lambda: kfilter.filter_level_cuda(
@@ -1098,6 +1181,52 @@ def test_streaming_graph_equals_eager_on_card():
     assert np.array_equal(outs["piped"][0], np.zeros(960, np.float32))
     for a, b in zip(outs["graph"], outs["piped"][1:]):
         assert np.array_equal(a, b)
+
+
+@pytest.mark.gpu
+def test_streaming_hops_through_the_source_kernel_equal_the_plain_source_on_card(monkeypatch):
+    """StreamingConverter at full width, 20 hops of carried phase as one
+    CUDA graph: the hops whose decoder runs the streaming source kernel
+    against the same hops forced through the plain version on the card
+    (``harmonic_source_stream_plain`` in the decoder's place): within 1e-6
+    of the stream's peak, and the carried phase bit-equal after every hop.
+    The kernel launches at the two warm-up hops and at the capture only."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; on the card run this file with --noconftest -m gpu")
+    from alivevc_tpu_torch.config import ContentEncoderConfig, F0EstimatorConfig
+    from alivevc_tpu_torch.infer.streaming import WARMUP_HOPS, StreamingConverter
+    from alivevc_tpu_torch.kernels import LAUNCHES, reset_launches
+    from alivevc_tpu_torch.models import decoder as mdec
+    from alivevc_tpu_torch.models.content_encoder import ContentEncoder
+    from alivevc_tpu_torch.models.f0_estimator import F0Estimator
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(0)
+    ce = ContentEncoder(ContentEncoderConfig(), generator=gen).cuda()
+    f0m = F0Estimator(F0EstimatorConfig(), generator=gen).cuda()
+    dec = Decoder(DecoderConfig(), generator=gen).cuda()
+    tgt = torch.randn(900, 768, generator=torch.Generator(device="cuda").manual_seed(7), device="cuda")
+    tt = np.arange(960 * 28) / 16000.0
+    wave = (0.4 * np.sin(2 * np.pi * (150 + 40 * np.sin(2 * np.pi * tt)) * tt)).astype(np.float32)
+    chunks = [wave[i * 960:(i + 1) * 960] for i in range(8, 28)]
+    outs, phis = {}, {}
+    for name in ("kernel", "plain"):
+        if name == "plain":
+            monkeypatch.setattr(mdec, "harmonic_source_stream", kosc.harmonic_source_stream_plain)
+        conv = StreamingConverter(ce, f0m, dec, tgt)
+        conv.prime(wave[:960 * 8])
+        reset_launches()
+        outs[name], phis[name] = [], []
+        for c in chunks:
+            outs[name].append(conv.process_chunk(c))
+            phis[name].append(conv.state.phi.clone())
+        assert LAUNCHES["oscillator_stream"] == (WARMUP_HOPS + 1 if name == "kernel" else 0), name
+    peak = max(float(np.abs(o).max()) for o in outs["plain"])
+    err = max(float(np.abs(a - b).max()) for a, b in zip(outs["kernel"], outs["plain"]))
+    assert err <= 1e-6 * peak, (err, peak)
+    assert all(torch.equal(a, b) for a, b in zip(phis["kernel"], phis["plain"]))
+    assert any(bool(p.any()) for p in phis["kernel"])
 
 
 # ---------------------------------------------------------------------------
@@ -1254,7 +1383,7 @@ SMALL_DISC = dict(periods=(2, 3), period_channels=8, period_max_channels=32, res
 
 @pytest.mark.gpu
 def test_wrappers_without_backward_refuse_grad_inputs_on_card():
-    """The kNN and formant-oscillator launches have no backward: a CUDA
+    """The kNN, formant and streaming oscillator launches have no backward: a CUDA
     input that requires grad raises in grad mode (the public ``knn_topk``
     included) and runs under no_grad; the three wrappers with a Function
     return outputs with a grad_fn."""
@@ -1271,6 +1400,7 @@ def test_wrappers_without_backward_refuse_grad_inputs_on_card():
                  lambda: kknn.knn_topk_cuda(q.detach(), lib.requires_grad_(True), 4, "default"),
                  lambda: kosc.harmonic_source_formants_cuda(formants, amps),
                  lambda: kosc.harmonic_source_cuda(f0, amps),
+                 lambda: kosc.harmonic_source_stream_cuda(f0, amps, 0.1, 3),
                  lambda: kstft.stft_magnitude_cuda(0.1 * q.reshape(1, -1))):
         with pytest.raises(RuntimeError, match="requires grad"):
             call()

@@ -43,10 +43,16 @@ Tolerances, with their reasons:
     version (the same float32 values rounded in another order, FMAs where
     the plain version rounds twice), 1e-3 against float64; the split
     reproduces the 3-tap weights exactly;
+  * the streaming source's CUDA arithmetic replayed on the CPU: its running
+    sums, phase argument and asin bit-equal to the plain oscillator taken as
+    the card takes it (the float32 reciprocal of the sample rate, the
+    running sum in float32 in time order), its waveform within 1e-6 of its
+    peak (the mean over the harmonics summed in another order);
   * filter level: 5e-3 abs (PARITY.md's filter tolerance).
 """
 
 import importlib
+import math
 
 import numpy as np
 import pytest
@@ -70,6 +76,7 @@ from alivevc_tpu_torch.kernels import knn as kknn
 from alivevc_tpu_torch.kernels import oscillator as kosc
 from alivevc_tpu_torch.kernels import stft as kstft
 from alivevc_tpu_torch.models.decoder import Decoder, level_args
+from alivevc_tpu_torch.ops.interp import linear_interpolate
 
 from test_torch_port_util import max_err, n, t
 
@@ -537,6 +544,53 @@ def test_phase_offsets(h):
     assert np.minimum(d, 1.0 - d).max() <= 1e-6
 
 
+def _stream_sequential(f0, amps, phi, crop0, seg, sr=16_000):
+    """``harmonic_source_stream_plain`` as the card computes it: the division
+    by the sample rate as a product by its float32 reciprocal, the running
+    sum in float32 in time order (``torch.cumsum`` on the CPU sums in
+    float64).  Returns (wave, phi_out, dt, theta)."""
+    nh, lw = amps.shape[-1], f0.shape[1] * seg
+    formants = linear_interpolate(f0 * torch.arange(1, nh + 1, dtype=torch.float32), lw, axis=1)
+    inc = (formants * kosc.inv_rate(sr)).numpy()
+    dt = torch.from_numpy(np.add.accumulate(inc, axis=1, dtype=np.float32))
+    theta = 2.0 * math.pi * (dt - dt[:, crop0][:, None, :]) + phi
+    harmonics = torch.sin(theta)
+    a = linear_interpolate(amps, lw, axis=1)
+    return torch.mean(harmonics * a, dim=2, keepdim=True), torch.asin(harmonics), dt, theta
+
+
+# (windows, frames, harmonics, samples a frame): the hop's shape and two
+# small odd ones
+STREAM_CASES = [(1, 24, 64, 320), (3, 1, 3, 7), (3, 5, 37, 7)]
+
+
+@pytest.mark.parametrize("n_,lf,nh,seg", STREAM_CASES)
+def test_oscillator_stream_replay(n_, lf, nh, seg):
+    """The streaming kernel's arithmetic (two-frame increments, the chain
+    as a float32 sum in time order), replayed on the CPU, equals the plain
+    oscillator taken as the card takes it: running sums, phase argument
+    and asin bit for bit, the waveform within 1e-6 of its peak; f0 0-4 095
+    Hz (some frames at 0), phi a tensor of either row count or a number,
+    the phase re-zeroed at the first sample, the middle and the last."""
+    rng = np.random.default_rng(13 + lf)
+    f0 = rng.random((n_, lf, 1)) * 4095.0
+    f0[rng.random((n_, lf, 1)) < 0.2] = 0.0
+    f0 = t(f0.astype(np.float32))
+    amps = t(np.exp(0.3 * rng.standard_normal((n_, lf, nh))).astype(np.float32))
+    lw = lf * seg
+    phis = [t((rng.random((n_, 1, nh)) * 3.0 - 1.5).astype(np.float32)),
+            t((rng.random((1, 1, nh)) * 3.0 - 1.5).astype(np.float32)), 0.3]
+    for phi, crop0 in zip(phis, (0, lw // 2, lw - 1)):
+        wave, phi_out, dt, theta = kosc.harmonic_source_stream_replay(f0, amps, phi, crop0, seg=seg)
+        w_want, p_want, dt_want, th_want = _stream_sequential(f0, amps, phi, crop0, seg)
+        assert wave.shape == (n_, lw, 1) and phi_out.shape == dt.shape == theta.shape == (n_, lw, nh)
+        assert torch.equal(dt, dt_want) and torch.equal(theta, th_want) and torch.equal(phi_out, p_want)
+        assert max_err(wave, w_want) <= 1e-6 * float(w_want.abs().max())
+        # the plain version (the CPU route) takes the same arguments
+        plain_wave, plain_phi = kosc.harmonic_source_stream_plain(f0, amps, phi, crop0, seg=seg)
+        assert plain_wave.shape == wave.shape and plain_phi.shape == phi_out.shape
+
+
 def test_oscillator_wrappers_need_cuda():
     """The kernel wrappers take only CUDA tensors; the replays launch
     nothing."""
@@ -545,9 +599,14 @@ def test_oscillator_wrappers_need_cuda():
     f0, amps = _osc_inputs(4)
     with pytest.raises(ValueError):
         kosc.harmonic_source_cuda(t(f0), t(amps))
+    phi = torch.zeros(2, 1, 64)
+    for grad in (False, True):
+        with pytest.raises(ValueError):
+            kosc.harmonic_source_stream_cuda(t(f0).requires_grad_(grad), t(amps), phi, 100)
     reset_launches()
     kosc.harmonic_source_replay(t(f0), t(amps))
     kosc.harmonic_source_formants_replay(t(f0 * np.arange(1, 65, dtype=np.float32)), t(amps))
+    kosc.harmonic_source_stream_replay(t(f0), t(amps), phi, 100)
     assert all(v == 0 for v in LAUNCHES.values())
 
 
@@ -733,6 +792,7 @@ def test_cpu_route_and_launch_counts():
     kstft.stft_magnitude(torch.zeros(1, 3200))
     kosc.harmonic_source(torch.full((1, 4, 1), 100.0), torch.ones(1, 4, 8))
     kosc.harmonic_source_formants(torch.full((1, 4, 8), 100.0), torch.ones(1, 4, 8))
+    kosc.harmonic_source_stream(torch.full((1, 4, 1), 100.0), torch.ones(1, 4, 8), 0.1, 5)
     kknn.knn_topk(torch.randn(4, 32), torch.randn(8, 32), extraction="packed")
     assert all(v == 0 for v in LAUNCHES.values())
     with pytest.raises(ValueError):

@@ -152,8 +152,9 @@ def test_decoder_phi_crop_matches_xla(models):
 
 
 def test_kernel_oscillator_is_offline_only(models):
-    """Only phi = 0 with crop = (0, -1) takes the Chebyshev kernel (no phase
-    out); any other crop takes the plain oscillator."""
+    """Only phi = 0 with crop = (0, -1) takes the Chebyshev source (no phase
+    out); any other crop takes the streaming source, which returns the
+    phase (on the CPU its plain version, the plain oscillator)."""
     _, cfgs, (_, _, dec) = models
     content, f0 = torch.zeros(1, 10, 64), torch.full((1, 10, 1), 100.0)
     assert tdec.decoder(dec, content, f0)[1] is None
