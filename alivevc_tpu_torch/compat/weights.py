@@ -519,13 +519,15 @@ def wavlm_state(params) -> StateDict:
     return sd
 
 
-def wavlm_config(sd: Mapping[str, np.ndarray]):
+def wavlm_config(sd: Mapping[str, np.ndarray], stable_layer_norm: bool = False):
     """The widths of a Hugging Face WavLM state dict (either weight-norm
     form): layers by count, hidden width from the feature projection, heads
     from ``gru_rel_pos_const``, the conv encoder's widths and taps, the
-    positional conv's taps and groups from its v, the bucket count.  The
+    positional conv's taps and groups from its v, the bucket count, and the
+    conv norms' form ("layer" where the second conv has a norm too).  The
     strides, the bucket distance and the norms' eps are not in the weights
-    and keep their defaults."""
+    and keep their defaults; pre-LN and post-LN layers hold the same keys,
+    so ``stable_layer_norm`` is given."""
     from alivevc_tpu_torch.models.wavlm import WavLMConfig
 
     n_conv = _count(sd, "feature_extractor.conv_layers.{}.")
@@ -547,4 +549,6 @@ def wavlm_config(sd: Mapping[str, np.ndarray]):
         num_conv_pos_embeddings=v.shape[2],
         num_conv_pos_embedding_groups=hidden // v.shape[1],
         num_buckets=sd["encoder.layers.0.attention.rel_attn_embed.weight"].shape[0],
+        feat_extract_norm="layer" if "feature_extractor.conv_layers.1.layer_norm.weight" in sd else "group",
+        do_stable_layer_norm=stable_layer_norm,
     )

@@ -10,6 +10,7 @@ own copy so that it imports nothing of the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Tuple
 
 
@@ -87,6 +88,27 @@ class DecoderConfig:
     filter_channels: Tuple[int, ...] = (8, 16, 64, 256)
     filter_kernel_size: int = 5
     filter_dilations: int = 3
+
+
+@dataclasses.dataclass(frozen=True)
+class HiFiGANConfig:
+    """kNN-VC's prematched HiFi-GAN V1 generator (github.com/bshall/knn-vc
+    hifigan/models.py; Kong et al. 2020 config_v1.json) at 16 kHz: a linear
+    map of the 1 024-wide WavLM features, then x320 upsampling in four
+    transposed convs, each followed by the mean of three ResBlock1 stacks."""
+
+    input_channels: int = 1024            # hubert_dim
+    hidden_channels: int = 512            # hifi_dim
+    upsample_initial_channel: int = 512
+    upsample_rates: Tuple[int, ...] = (10, 8, 2, 2)
+    upsample_kernel_sizes: Tuple[int, ...] = (20, 16, 4, 4)
+    resblock_kernel_sizes: Tuple[int, ...] = (3, 7, 11)
+    resblock_dilation_sizes: Tuple[Tuple[int, ...], ...] = ((1, 3, 5), (1, 3, 5), (1, 3, 5))
+    lrelu_slope: float = 0.1
+
+    @property
+    def hop_length(self) -> int:
+        return math.prod(self.upsample_rates)     # output samples a frame: 320
 
 
 @dataclasses.dataclass(frozen=True)

@@ -15,13 +15,21 @@ points run on CUDA unless the caller passes ``device="cpu"``, where the
 kernels' plain PyTorch versions run.  With ``world_pitch`` the F0 estimator
 is bypassed: WORLD's DIO + StoneMask (``ops/world.py``, on the host) labels
 every window's pitch before the first batch goes to the card.
+
+``KnnVCConverter`` is the same driver over the kNN-VC family (Baas et al.,
+Interspeech 2023; github.com/bshall/knn-vc): the file-level code (mono mix,
+resampling, spans) is ``OfflineConverter``'s, and the per-file step converts
+the whole utterance at once, as kNN-VC's WavLM attends over all of it:
+
+    wave -> WavLM-Large to layer 6 -> kNN kernel vs the matching set (cosine
+    top-k, mean) -> prematched HiFi-GAN -> wave
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
-from typing import Optional
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -33,6 +41,8 @@ from alivevc_tpu_torch.kernels.stft import stft_magnitude
 from alivevc_tpu_torch.models.content_encoder import content_encoder
 from alivevc_tpu_torch.models.decoder import decoder
 from alivevc_tpu_torch.models.f0_estimator import f0_estimate
+from alivevc_tpu_torch.models.hifigan import HiFiGAN, hifigan
+from alivevc_tpu_torch.models.wavlm import WavLM, wavlm_hidden_states
 from alivevc_tpu_torch.ops.knn import match_features_kernel
 from alivevc_tpu_torch.ops.pitch import apply_intonation
 from alivevc_tpu_torch.ops.resample import resample
@@ -234,3 +244,87 @@ class OfflineConverter:
             wave16 = resample(x, sr, self.sample_rate)[0].cpu().numpy()
             out16 = torch.from_numpy(self._convert_16k(wave16))[None].to(self.device)
             return resample(out16, self.sample_rate, sr)[0].cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# kNN-VC
+# ---------------------------------------------------------------------------
+
+
+class KnnVC(NamedTuple):
+    """kNN-VC's networks: WavLM (Large), read at the output of ``layer``
+    (``hidden_states[layer]``; the layers past it never run), and the
+    prematched vocoder."""
+
+    wavlm: WavLM
+    vocoder: HiFiGAN
+    layer: int = 6
+
+
+def knnvc_features(model: KnnVC, wave: torch.Tensor) -> torch.Tensor:
+    """wave [L] at 16 kHz on the model's device -> features [T, D] (kNN-VC's
+    ``get_features``: the samples as they are, not normalised), in float32
+    with TF32 off."""
+    with float32_math():
+        return wavlm_hidden_states(model.wavlm, wave[None], upto=model.layer)[model.layer][0]
+
+
+@torch.no_grad()
+def build_matching_set(model: KnnVC, waves: Sequence[np.ndarray], device: DeviceLike = None) -> torch.Tensor:
+    """The matching set [R, D]: the features of each target utterance (16
+    kHz), one utterance at a time as kNN-VC's ``get_matching_set``,
+    concatenated."""
+    dev = resolve_device(device)
+    _on(model.wavlm, dev, "wavlm")
+    if not waves:
+        raise ValueError("need at least one target utterance")
+    return torch.cat([knnvc_features(model, torch.as_tensor(np.asarray(w, np.float32)).to(dev))
+                      for w in waves])
+
+
+@torch.no_grad()
+def convert_knnvc(model: KnnVC, wave, matching_set: torch.Tensor, k: int = 4,
+                  precision: str = "high") -> torch.Tensor:
+    """One utterance [L] at 16 kHz -> converted [L] float32 on the
+    matching set's device: features, the mean of the k nearest matching-set
+    rows (no blend with the source), the vocoder, the frames' ``T *
+    hop_length`` samples zero-padded or cut to L."""
+    with span("offline.step"):
+        dev = matching_set.device
+        wave = torch.as_tensor(wave, dtype=torch.float32).to(dev)
+        with span("knnvc.content"):
+            feat = knnvc_features(model, wave)
+        with span("knnvc.match"):
+            feat = match_features_kernel(feat[None], matching_set, k=k, alpha=0.0, precision=precision)
+        with span("knnvc.vocoder"), float32_math():
+            out = hifigan(model.vocoder, feat)[0]
+        n = wave.shape[0]
+        return out[:n] if out.shape[0] >= n else torch.cat([out, out.new_zeros(n - out.shape[0])])
+
+
+class KnnVCConverter(OfflineConverter):
+    """``OfflineConverter``'s file-level driver (``convert``, ``convert_16k``)
+    over a kNN-VC model and its matching set: each file converted whole in
+    one step, with 'high' (float32-exact) scores by default."""
+
+    def __init__(self, model: KnnVC, matching_set, k: int = 4, precision: str = "high",
+                 device: DeviceLike = None):
+        self.device = resolve_device(device)
+        self.model = KnnVC(model.wavlm.to(self.device).eval(), model.vocoder.to(self.device).eval(),
+                           model.layer)
+        self.matching_set = torch.as_tensor(matching_set, dtype=torch.float32).to(self.device)
+        self.k = k
+        self.precision = precision
+        self.sample_rate = 16_000
+        cfg = model.wavlm.cfg
+        # the conv front end's receptive field: the fewest samples that make a frame
+        self.min_samples = 1
+        for kk, st in zip(reversed(cfg.conv_kernel), reversed(cfg.conv_stride)):
+            self.min_samples = (self.min_samples - 1) * st + kk
+
+    def _convert_16k(self, wave: np.ndarray) -> np.ndarray:
+        wave = np.asarray(wave, np.float32)
+        if wave.shape[0] < self.min_samples:
+            raise ValueError(f"{wave.shape[0]} samples at 16 kHz: kNN-VC needs at least "
+                             f"{self.min_samples}, one WavLM frame")
+        return convert_knnvc(self.model, wave, self.matching_set, self.k, self.precision).cpu().numpy()

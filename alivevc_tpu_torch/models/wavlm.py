@@ -1,12 +1,21 @@
-"""WavLM, the content encoder's distillation teacher (``microsoft/wavlm-base-plus``,
-module/hubert.py:6-22; ``alivevc_tpu/models/wavlm.py``).
+"""WavLM: the content encoder's distillation teacher (``microsoft/wavlm-base-plus``,
+module/hubert.py:6-22; ``alivevc_tpu/models/wavlm.py``), and kNN-VC's
+content model (``microsoft/wavlm-large``, ``WAVLM_LARGE``).
 
-A 7-layer conv feature encoder (the first layer followed by a per-channel
-norm over time), the feature projection, a weight-normed grouped conv
-positional embedding, and post-LN transformer layers with WavLM's gated
+A 7-layer conv feature encoder, the feature projection, a weight-normed
+grouped conv positional embedding, and transformer layers with WavLM's gated
 relative position bias: T5-style log buckets, one bias table (layer 0's
 ``rel_attn_embed``) shared by every layer, gated per query and head by a
-sigmoid of a projection of the head's slice of the hidden state.
+sigmoid of a projection of the head's slice of the layer's input.
+
+Two variants, as Hugging Face's config names them.  Base+
+(``feat_extract_norm="group"``, ``do_stable_layer_norm=False``): a
+per-channel norm over time after the first conv only, convs without bias,
+the encoder's LayerNorm before the first layer and post-LN layers.  Large
+(``"layer"``, ``True``): a LayerNorm over channels after every conv, conv
+biases, pre-LN layers (``WavLMEncoderLayerStableLayerNorm``) and the
+encoder's LayerNorm after the last layer, which no returned hidden state
+carries: ``hidden_states[i]`` is layer i's output as it leaves the layer.
 
 The module's ``state_dict()`` has Hugging Face ``WavLMModel``'s key names,
 with the positional conv in ``torch.nn.utils.parametrizations.weight_norm``
@@ -34,6 +43,7 @@ from torch import nn
 
 from alivevc_tpu_torch.nn.layers import gelu
 from alivevc_tpu_torch.ops.interp import linear_interpolate
+from alivevc_tpu_torch.utils.profiling import span
 
 # keys of a Hugging Face state dict that the forward pass does not read
 UNUSED_KEYS = ("masked_spec_embed",)
@@ -54,6 +64,14 @@ class WavLMConfig:
     num_buckets: int = 320
     max_distance: int = 800
     layer_norm_eps: float = 1e-5
+    feat_extract_norm: str = "group"      # "group" | "layer"
+    do_stable_layer_norm: bool = False    # pre-LN layers
+
+
+# microsoft/wavlm-large config.json; conv_bias as recalled, not read from the file
+# (import_wavlm takes it from a checkpoint's keys)
+WAVLM_LARGE = WavLMConfig(hidden_size=1024, num_layers=24, num_heads=16, intermediate_size=4096,
+                          conv_bias=True, feat_extract_norm="layer", do_stable_layer_norm=True)
 
 
 # ---------------------------------------------------------------------------
@@ -62,19 +80,25 @@ class WavLMConfig:
 
 
 class _ConvLayer(nn.Module):
-    def __init__(self, cin: int, cout: int, k: int, bias: bool, norm: bool):
+    def __init__(self, cin: int, cout: int, k: int, bias: bool, norm: Optional[str]):
         super().__init__()
         self.conv = nn.Conv1d(cin, cout, k, bias=bias)
-        if norm:   # GroupNorm(C groups over C channels): a per-channel norm over time
+        if norm == "group":   # GroupNorm(C groups over C channels): a per-channel norm over time
             self.layer_norm = nn.GroupNorm(cout, cout, eps=1e-5)
+        elif norm == "layer":
+            self.layer_norm = nn.LayerNorm(cout, eps=1e-5)
 
 
 class _FeatureExtractor(nn.Module):
     def __init__(self, cfg: WavLMConfig):
         super().__init__()
+        if cfg.feat_extract_norm not in ("group", "layer"):
+            raise ValueError(f"unknown feat_extract_norm {cfg.feat_extract_norm!r}")
+        layer = cfg.feat_extract_norm == "layer"
         cins = (1,) + tuple(cfg.conv_dim[:-1])
         self.conv_layers = nn.ModuleList([
-            _ConvLayer(ci, co, k, cfg.conv_bias, i == 0)
+            _ConvLayer(ci, co, k, cfg.conv_bias,
+                       "layer" if layer else ("group" if i == 0 else None))
             for i, (ci, co, k) in enumerate(zip(cins, cfg.conv_dim, cfg.conv_kernel))])
 
 
@@ -173,7 +197,9 @@ def _feature_encoder(m: _FeatureExtractor, wave: torch.Tensor, cfg: WavLMConfig)
     x = wave[:, None, :]                                     # [N, 1, L]
     for i, layer in enumerate(m.conv_layers):
         x = F.conv1d(x, layer.conv.weight, layer.conv.bias, stride=cfg.conv_stride[i])
-        if i == 0:
+        if cfg.feat_extract_norm == "layer":
+            x = layer.layer_norm(x.transpose(1, 2)).transpose(1, 2)
+        elif i == 0:
             x = F.group_norm(x, x.shape[1], layer.layer_norm.weight, layer.layer_norm.bias, 1e-5)
         x = gelu(x)
     return x.transpose(1, 2)
@@ -202,17 +228,22 @@ def _attention(m: _Attention, x: torch.Tensor, position_bias: torch.Tensor,
     gate_a, gate_b = torch.sigmoid(proj).chunk(2, dim=-1)                  # [N, H, T, 1]
     gate = gate_a * (gate_b * m.gru_rel_pos_const - 1.0) + 2.0
     q, k, v = heads(m.q_proj(x)), heads(m.k_proj(x)), heads(m.v_proj(x))
-    scores = q @ k.transpose(-1, -2) / math.sqrt(hd) + gate * position_bias[None]
-    out = torch.softmax(scores, dim=-1) @ v
+    with span("wavlm.attention"):
+        scores = q @ k.transpose(-1, -2) / math.sqrt(hd) + gate * position_bias[None]
+        out = torch.softmax(scores, dim=-1) @ v
     return m.out_proj(out.transpose(1, 2).reshape(n, t, d))
 
 
 def _encoder_layer(m: _EncoderLayer, x: torch.Tensor, position_bias: torch.Tensor,
                    cfg: WavLMConfig) -> torch.Tensor:
-    """Post-LN layer (do_stable_layer_norm=False for base-plus)."""
+    """A post-LN layer (Base+), or with ``do_stable_layer_norm`` a pre-LN one
+    (Large), whose gate reads the normed input."""
+    ffn = lambda y: m.feed_forward.output_dense(gelu(m.feed_forward.intermediate_dense(y)))  # noqa: E731
+    if cfg.do_stable_layer_norm:
+        x = x + _attention(m.attention, m.layer_norm(x), position_bias, cfg)
+        return x + ffn(m.final_layer_norm(x))
     x = m.layer_norm(x + _attention(m.attention, x, position_bias, cfg))
-    ff = m.feed_forward.output_dense(gelu(m.feed_forward.intermediate_dense(x)))
-    return m.final_layer_norm(x + ff)
+    return m.final_layer_norm(x + ffn(x))
 
 
 def wavlm_hidden_states(m: WavLM, wave: torch.Tensor,
@@ -220,11 +251,15 @@ def wavlm_hidden_states(m: WavLM, wave: torch.Tensor,
     """wave [N, L] -> the hidden states [N, T', hidden]: the encoder's input
     and each layer's output (``WavLMModel(..., output_hidden_states=True)
     .hidden_states``, 13 for the default config), or the first ``upto + 1``
-    of them."""
+    of them; layers past ``upto`` do not run.  In the stable (Large) form
+    none is normed by the encoder's final LayerNorm, which Hugging Face
+    applies to the last state of a full run alone."""
     cfg = m.cfg
     x = _feature_encoder(m.feature_extractor, wave, cfg)
     x = m.feature_projection.projection(m.feature_projection.layer_norm(x))
-    x = m.encoder.layer_norm(x + _pos_conv(m.encoder.pos_conv_embed, x, cfg))
+    x = x + _pos_conv(m.encoder.pos_conv_embed, x, cfg)
+    if not cfg.do_stable_layer_norm:
+        x = m.encoder.layer_norm(x)
     t = x.shape[1]
     buckets = torch.from_numpy(rel_buckets_np(t, t, cfg.num_buckets, cfg.max_distance)).to(x.device)
     position_bias = m.encoder.layers[0].attention.rel_attn_embed(buckets).permute(2, 0, 1)
@@ -261,16 +296,18 @@ def hf_state(sd: Mapping[str, object]) -> dict:
     return {rename.get(k, k): v for k, v in sd.items() if k not in UNUSED_KEYS}
 
 
-def import_wavlm(sd: Mapping[str, object]) -> WavLM:
+def import_wavlm(sd: Mapping[str, object], stable_layer_norm: bool = False) -> WavLM:
     """A ``WavLM`` on the CPU in eval mode with no gradient, from a Hugging
     Face state dict in either weight-norm form, loaded with strict key
     matching, at the widths the state dict holds (``compat/weights.py:
-    wavlm_config``)."""
+    wavlm_config``).  Pre-LN and post-LN layers hold the same keys, so
+    ``stable_layer_norm`` (the config's ``do_stable_layer_norm``: True for
+    Large) is given, not read."""
     from alivevc_tpu_torch.compat.weights import wavlm_config   # it imports this module
 
     sd = hf_state(sd)
     with torch.device("meta"):      # no random initialisation: every tensor is assigned
-        m = WavLM(wavlm_config(sd))
+        m = WavLM(wavlm_config(sd, stable_layer_norm))
     m.load_state_dict({k: v if torch.is_tensor(v) else torch.from_numpy(np.array(v))
                        for k, v in sd.items()}, strict=True, assign=True)
     return m.eval().requires_grad_(False)

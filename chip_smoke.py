@@ -47,7 +47,10 @@ printing the final line:
      (``csrc/knn_carried.cu``, rows 'knn_carried' and 'knn_carried_packed');
      its shapes (the hop's 24 x 887 'high' and 'default', a fine-tuning
      step's 960 x 512 'highest', 7 200 x 512 'default' and 'high') run
-     through both forms on one draw ("A/B" rows).  Every kNN row also
+     through both forms on one draw ("A/B" rows).  The kNN-VC cell's
+     retrieval has rows of its own, "(kNN-VC)": 1 024 features, 370 and
+     1 240 queries against 23 947 rows, 'high', and the merge and prep at
+     370 queries, each held to its plain version.  Every kNN row also
      records ``kernel_ms``, its form's kernels alone (torch.profiler),
      ``library_norm_ms``, ``matmul`` + ``topk`` with the normalisation of
      both operands (the function's whole work; ``library_ms`` starts from
@@ -224,6 +227,8 @@ SHARD_LIB_ROWS = 1_048_575   # phase 4: padded to 2 x 524 288
 SHARD_RANKS = 2
 SHARD_TIMEOUT_S = 600
 SEED = 0
+KNNVC_ROWS = 23_947             # offline-knnvc-libri's matching set: 480 s of speech, WavLM's frames
+KNNVC_QUERIES = (370, 1_240)    # the frames of its mean (7.4 s) and longest (~25 s) files
 OFFLINE_KERNELS = ("stft", "knn_prep", "knn", "knn_merge", "oscillator", "filter_level", "filter_narrow",
                    "filter_wide")
 SHARDED_KERNELS = ("knn_prep", "knn", "knn_merge", "oscillator", "filter_level", "filter_narrow", "filter_wide")
@@ -341,10 +346,11 @@ def check_stft(gen, n=N_STEP, length=LW, tag=""):
 
 
 def check_knn(gen, lib_rows, precision, valid_rows=None, penalty=False, extraction="auto",
-              ls=N_STEP * LF, suffix="", form=None):
+              ls=N_STEP * LF, suffix="", form=None, dim=768):
     """One kNN variant: ``valid_rows`` (a device scalar, as the sharded path
     passes it), a 0/-4 ``penalty`` column, or the packed extraction; ``ls``
-    queries (the streaming hop's 24); the form ``knn_plan`` routes the
+    queries (the streaming hop's 24) of ``dim`` features (kNN-VC's 1 024
+    beside ALiVE-VC's 768); the form ``knn_plan`` routes the
     library to, or ``form`` forced.  The row's name is its form's kernel
     ('knn' / 'knn_packed': the two-pass form; 'knn_carried' /
     'knn_carried_packed': the carried form).  Beside the wrapper's time, the
@@ -360,8 +366,8 @@ def check_knn(gen, lib_rows, precision, valid_rows=None, penalty=False, extracti
         prep_operands,
     )
 
-    q = torch.randn(ls, 768, generator=gen, device="cuda")
-    lib = torch.randn(lib_rows, 768, generator=gen, device="cuda")
+    q = torch.randn(ls, dim, generator=gen, device="cuda")
+    lib = torch.randn(lib_rows, dim, generator=gen, device="cuda")
     kw, tag, rows = {"extraction": extraction}, "", lib_rows
     if valid_rows is not None:
         kw["valid_rows"] = torch.tensor(valid_rows, device="cuda")
@@ -408,10 +414,10 @@ def check_knn(gen, lib_rows, precision, valid_rows=None, penalty=False, extracti
     # reads its prepared planes once); products over the rows it ranks,
     # on the tensor cores: bf16 for 'default', three TF32 products (3xTF32,
     # float32-faithful) for 'high'/'highest'
-    nbytes = (ls + rows) * 768 * 4 + ls * 4 * 8 + (lib_rows * 4 if penalty else 0)
+    nbytes = (ls + rows) * dim * 4 + ls * 4 * 8 + (lib_rows * 4 if penalty else 0)
     if plan.form == "twopass":   # the prep's planes, written once and read once
-        nbytes += 2 * (ls + rows) * 768 * (2 if precision == "default" else 8)
-    flops = 2.0 * ls * rows * 768
+        nbytes += 2 * (ls + rows) * dim * (2 if precision == "default" else 8)
+    flops = 2.0 * ls * rows * dim
     if precision == "default":
         b, by = bound_ms(nbytes, flops, PEAK_BF16)
     else:
@@ -419,7 +425,7 @@ def check_knn(gen, lib_rows, precision, valid_rows=None, penalty=False, extracti
     keys = ("knn_carried",) if plan.form == "carried" else ("knn_prep", "knn_tile", "knn_merge")
     return {
         "name": name,
-        "variant": f"{ls} x {lib_rows} x 768 {precision}{tag}{suffix}",
+        "variant": f"{ls} x {lib_rows} x {dim} {precision}{tag}{suffix}",
         "max_abs_err": err, "tol": tol, "index_sets_differing": bad,
         "ms": cuda_ms(lambda: knn_topk_cuda(q, lib, 4, precision, **kw)),
         "kernel_ms": kernel_device_ms(lambda: knn_topk_cuda(q, lib, 4, precision, **kw), keys),
@@ -431,7 +437,7 @@ def check_knn(gen, lib_rows, precision, valid_rows=None, penalty=False, extracti
     }
 
 
-def check_knn_merge(gen, lib_rows, precision, ls=N_STEP * LF, valid_rows=None, suffix=""):
+def check_knn_merge(gen, lib_rows, precision, ls=N_STEP * LF, valid_rows=None, suffix="", dim=768):
     """The kNN merge (``knn_merge_kernel``, pass B of ``csrc/knn.cu``) on its
     own, on the candidates a two-pass kNN call at this shape gives it (the
     two-pass form forced where the library is small enough for the carried
@@ -446,8 +452,8 @@ def check_knn_merge(gen, lib_rows, precision, ls=N_STEP * LF, valid_rows=None, s
     import torch
     from alivevc_tpu_torch.kernels.knn import knn_topk_cuda, knn_topk_launch, merge_plain
 
-    q = torch.randn(ls, 768, generator=gen, device="cuda")
-    lib = torch.randn(lib_rows, 768, generator=gen, device="cuda")
+    q = torch.randn(ls, dim, generator=gen, device="cuda")
+    lib = torch.randn(lib_rows, dim, generator=gen, device="cuda")
     kw, tag = {}, ""
     if valid_rows is not None:
         kw["valid_rows"] = torch.tensor(valid_rows, device="cuda")
@@ -473,7 +479,7 @@ def check_knn_merge(gen, lib_rows, precision, ls=N_STEP * LF, valid_rows=None, s
     need(ms is not None, "knn merge: the profiler recorded no device time for knn_merge_kernel")
     return {
         "name": "knn_merge",
-        "variant": f"merge of {ls} x {lib_rows} x 768 {precision}{tag}{suffix}",
+        "variant": f"merge of {ls} x {lib_rows} x {dim} {precision}{tag}{suffix}",
         "max_abs_err": err, "tol": 0.0, "index_lists_differing": bad,
         "candidates": [ls, n_chunks, kk],
         "ms": ms,
@@ -483,7 +489,7 @@ def check_knn_merge(gen, lib_rows, precision, ls=N_STEP * LF, valid_rows=None, s
     }
 
 
-def check_knn_prep(gen, lib_rows, precision, ls=N_STEP * LF):
+def check_knn_prep(gen, lib_rows, precision, ls=N_STEP * LF, dim=768, suffix=""):
     """The two-pass form's prep launch (``knn_prep_kernel``: both operands
     normalised into bf16, or TF32 hi and lo planes) against its plain
     version, ``knn_prep_plain``, plane by plane and bit for bit (tolerance
@@ -494,8 +500,8 @@ def check_knn_prep(gen, lib_rows, precision, ls=N_STEP * LF):
     import torch
     from alivevc_tpu_torch.kernels.knn import knn_prep_cuda, knn_prep_plain
 
-    q = torch.randn(ls, 768, generator=gen, device="cuda")
-    lib = torch.randn(lib_rows, 768, generator=gen, device="cuda")
+    q = torch.randn(ls, dim, generator=gen, device="cuda")
+    lib = torch.randn(lib_rows, dim, generator=gen, device="cuda")
     got = knn_prep_cuda(q, lib, precision)
     want = knn_prep_plain(q, lib, precision)
     torch.cuda.synchronize()
@@ -506,13 +512,13 @@ def check_knn_prep(gen, lib_rows, precision, ls=N_STEP * LF):
     tol = 0.0
     need(differ == 0 and err <= tol,
          f"knn prep[{precision},{lib_rows}]: {differ} values differ from the plain planes, max abs err {err}")
-    nbytes = (ls + lib_rows) * 768 * (4 + (2 if precision == "default" else 8))
+    nbytes = (ls + lib_rows) * dim * (4 + (2 if precision == "default" else 8))
     b, by = bound_ms(nbytes, 0.0, PEAK_F32)
     ms = kernel_device_ms(lambda: knn_prep_cuda(q, lib, precision), ("knn_prep",))
     need(ms is not None, "knn prep: the profiler recorded no device time for knn_prep_kernel")
     return {
         "name": "knn_prep",
-        "variant": f"prep of {ls} x {lib_rows} x 768 {precision}",
+        "variant": f"prep of {ls} x {lib_rows} x {dim} {precision}{suffix}",
         "max_abs_err": err, "tol": tol,
         "ms": cuda_ms(lambda: knn_prep_cuda(q, lib, precision)),
         "kernel_ms": ms,
@@ -520,6 +526,21 @@ def check_knn_prep(gen, lib_rows, precision, ls=N_STEP * LF):
         "library_ms": None,
         "bound_ms": b, "bound_by": by,
     }
+
+
+def check_knn_wide():
+    """The kNN-VC cell's retrieval: ``KNNVC_QUERIES`` queries (its mean and
+    longest files' frames) of 1 024 features against a matching set of
+    ``KNNVC_ROWS`` rows, 'high', through the two-pass tile, its merge and its
+    prep, each held to its plain version as the 768-wide rows are.  A
+    generator of their own, so that the other rows draw as before."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    rows = [check_knn(gen, KNNVC_ROWS, "high", ls=ls, dim=1024, suffix=" (kNN-VC)") for ls in KNNVC_QUERIES]
+    rows.append(check_knn_merge(gen, KNNVC_ROWS, "high", ls=KNNVC_QUERIES[0], dim=1024, suffix=" (kNN-VC)"))
+    rows.append(check_knn_prep(gen, KNNVC_ROWS, "high", ls=KNNVC_QUERIES[0], dim=1024, suffix=" (kNN-VC)"))
+    return rows
 
 
 def check_oscillator(gen):
@@ -3495,6 +3516,7 @@ def main() -> int:
         rows.append(check_knn_prep(merge_gen, LIB_ROWS, precision))
     for lib_rows in (512, LIB_ROWS):
         rows.append(check_knn(gen, lib_rows, "default", extraction="packed"))
+    rows.extend(check_knn_wide())
     rows.append(check_oscillator(gen))
     rows.append(check_formants(gen))
     rows.extend(check_filter_levels(gen, dec))

@@ -93,7 +93,11 @@ def test_wavlm_config_reads_the_widths(narrow):
     legacy = twavlm.hf_state(twavlm.seeded_state(twavlm.WavLMConfig(**NARROW), 0, True))
     assert weights.wavlm_config(legacy) == twavlm.WavLMConfig(**NARROW)
     assert twavlm.WavLMConfig() == twavlm.WavLMConfig(**{
-        f: getattr(jwavlm.WavLMConfig(), f) for f in twavlm.WavLMConfig.__dataclass_fields__})
+        f: getattr(jwavlm.WavLMConfig(), f) for f in jwavlm.WavLMConfig.__dataclass_fields__})
+    # the fields the JAX package lacks select the Large form; their defaults are Base+'s
+    assert set(twavlm.WavLMConfig.__dataclass_fields__) - set(jwavlm.WavLMConfig.__dataclass_fields__) == {
+        "feat_extract_norm", "do_stable_layer_norm"}
+    assert (twavlm.WavLMConfig().feat_extract_norm, twavlm.WavLMConfig().do_stable_layer_norm) == ("group", False)
 
 
 def test_matches_transformers_wavlm():
