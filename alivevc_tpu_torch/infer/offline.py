@@ -16,10 +16,18 @@ kernels' plain PyTorch versions run.  With ``world_pitch`` the F0 estimator
 is bypassed: WORLD's DIO + StoneMask (``ops/world.py``, on the host) labels
 every window's pitch before the first batch goes to the card.
 
+A file crosses between host and card once each way (``CROSSINGS``): the
+driver uploads it, resamples, normalises, cuts its windows, assembles the
+steps' centre chunks and resamples back on the card, and downloads the
+result.  Nothing in between waits on the card (``world_pitch`` aside, whose
+labeler reads the 16 kHz wave on the host), so the host launches a step
+while the card still runs the one before.
+
 ``KnnVCConverter`` is the same driver over the kNN-VC family (Baas et al.,
 Interspeech 2023; github.com/bshall/knn-vc): the file-level code (mono mix,
-resampling, spans) is ``OfflineConverter``'s, and the per-file step converts
-the whole utterance at once, as kNN-VC's WavLM attends over all of it:
+resampling, the two crossings, spans) is ``OfflineConverter``'s, and the
+per-file step converts the whole utterance at once, as kNN-VC's WavLM
+attends over all of it:
 
     wave -> WavLM-Large to layer 6 -> kNN kernel vs the matching set (cosine
     top-k, mean) -> prematched HiFi-GAN -> wave
@@ -29,10 +37,11 @@ from __future__ import annotations
 
 import contextlib
 import copy
-from typing import NamedTuple, Optional, Sequence
+from typing import Dict, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from alivevc_tpu_torch.config import DecoderConfig, InferenceConfig
@@ -51,6 +60,26 @@ from alivevc_tpu_torch.ops.world import compute_f0
 from alivevc_tpu_torch.utils.profiling import span
 
 DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
+
+# the file-level driver's explicit copies between host and device: one
+# upload and one download a file (``world_pitch`` adds the labeler's 16 kHz
+# wave down and its labels up); tests and chip_smoke.py read it
+CROSSINGS: Dict[str, int] = {"to_card": 0, "to_host": 0}
+
+
+def reset_crossings() -> None:
+    for key in CROSSINGS:
+        CROSSINGS[key] = 0
+
+
+def _to_card(x: np.ndarray, dev: torch.device) -> torch.Tensor:
+    CROSSINGS["to_card"] += 1
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
+
+
+def _to_host(x: torch.Tensor) -> np.ndarray:
+    CROSSINGS["to_host"] += 1
+    return x.cpu().numpy()
 
 
 def cast_params(module: nn.Module, dtype: torch.dtype) -> nn.Module:
@@ -188,62 +217,68 @@ class OfflineConverter:
     def convert_16k(self, wave: np.ndarray) -> np.ndarray:
         """wave [L] mono at 16 kHz -> converted [L] (peak-normalised input)."""
         with span("offline.convert"):
-            return self._convert_16k(wave)
+            return _to_host(self._convert_16k(_to_card(wave, self.device)))
 
-    def _convert_16k(self, wave: np.ndarray) -> np.ndarray:
+    def _convert_16k(self, wave: torch.Tensor) -> torch.Tensor:
+        """wave [L] at 16 kHz on the converter's device -> converted [L]
+        there, with no host wait: the card values are never branched on."""
         cfg = self.cfg
         c = cfg.chunk
-        wave = np.asarray(wave, np.float32)
         total = wave.shape[0]
-        peak = np.abs(wave).max() if total else 0.0
-        if peak > 0:
-            wave = wave / peak
+        if total:
+            peak = wave.abs().max()
+            wave = torch.where(peak > 0, wave / peak, wave)
         # pad + unfold into [M, 3c] windows, stride c (inference.py:96-101)
-        padded = np.concatenate([np.zeros(c, np.float32), wave, np.zeros(4 * c, np.float32)])
-        m = (padded.shape[0] - 3 * c) // c + 1
-        windows = np.stack([padded[i * c: i * c + 3 * c] for i in range(m)])
-        f0 = compute_f0(windows, self.sample_rate)[..., None] if self.world_pitch else None
-
+        padded = F.pad(wave, (c, 4 * c))
+        windows = padded.unfold(0, 3 * c, c)
+        m = windows.shape[0]
         # fixed-size window batches bound device memory on long files; the
         # last batch (and its f0) is zero-padded to the same shape
         bsz = max(1, cfg.max_windows_per_step)
-        outs = []
+        f0 = self._world_f0(padded, m, bsz) if self.world_pitch else None
+        out = wave.new_empty(m, c)
         for i in range(0, m, bsz):
             batch = windows[i: i + bsz]
-            f0_b = None if f0 is None else f0[i: i + bsz]
             n_real = batch.shape[0]
             pad = bsz - n_real if m > bsz else 0
-            if pad:
-                batch = np.concatenate([batch, np.zeros((pad,) + batch.shape[1:], batch.dtype)])
-                if f0_b is not None:
-                    f0_b = np.concatenate([f0_b, np.zeros((pad,) + f0_b.shape[1:], f0_b.dtype)])
+            batch = torch.cat([batch, batch.new_zeros(pad, 3 * c)]) if pad else batch.contiguous()
             got = convert_window(
-                self.ce, self.f0, self.dec, torch.from_numpy(batch), self.tgt,
+                self.ce, self.f0, self.dec, batch, self.tgt,
                 cfg.f0_rate, cfg.pitch_shift, cfg.intonation, cfg.k, cfg.alpha,
-                self.dec_cfg, None if f0_b is None else torch.from_numpy(f0_b), self.dtype,
+                self.dec_cfg, None if f0 is None else f0[i: i + bsz], self.dtype,
                 self.knn_precision, self.device,
             )
-            outs.append(got[:n_real].cpu().numpy())
-        out = np.concatenate(outs)[:, c:-c].reshape(-1)[:total]
-        out = out * (10.0 ** (cfg.gain_db / 20.0))
-        if cfg.normalize and np.abs(out).max() > 0:
-            out = out / np.abs(out).max()
+            out[i: i + n_real] = got[:n_real, c:2 * c]
+        out = out.reshape(-1)[:total] * (10.0 ** (cfg.gain_db / 20.0))
+        if cfg.normalize and total:
+            peak = out.abs().max()
+            out = torch.where(peak > 0, out / peak, out)
         return out
+
+    def _world_f0(self, padded: torch.Tensor, m: int, bsz: int) -> torch.Tensor:
+        """WORLD's labels [rows, T, 1] of the m windows of ``padded`` (on the
+        host, from one copy of the wave), zero rows past m up to whole
+        batches, uploaded once."""
+        c = self.cfg.chunk
+        windows = np.lib.stride_tricks.sliding_window_view(_to_host(padded), 3 * c)[::c]
+        f0 = compute_f0(windows, self.sample_rate)[..., None]
+        rows = -(-m // bsz) * bsz if m > bsz else m
+        return _to_card(np.concatenate([f0, np.zeros((rows - m,) + f0.shape[1:], f0.dtype)]), self.device)
 
     def convert(self, wave: np.ndarray, sr: int) -> np.ndarray:
         """Any rate in and out: mono-mix, resample to 16 kHz, convert, and
         resample back to ``sr`` (``ops/resample.py`` on the converter's
-        device; the output has ceil-rounded length at each step, as JAX's)."""
+        device; the output has ceil-rounded length at each step, as JAX's).
+        The file goes to the device once and comes back once."""
         with span("offline.convert"):
             wave = np.asarray(wave, np.float32)
             if wave.ndim == 2:  # [C, L] or [L, C] -> mono (channel axis = shorter)
                 wave = wave.mean(axis=0 if wave.shape[0] <= wave.shape[1] else 1)
+            x = _to_card(wave, self.device)
             if sr == self.sample_rate:
-                return self._convert_16k(wave)
-            x = torch.from_numpy(np.ascontiguousarray(wave))[None].to(self.device)
-            wave16 = resample(x, sr, self.sample_rate)[0].cpu().numpy()
-            out16 = torch.from_numpy(self._convert_16k(wave16))[None].to(self.device)
-            return resample(out16, self.sample_rate, sr)[0].cpu().numpy()
+                return _to_host(self._convert_16k(x))
+            out16 = self._convert_16k(resample(x[None], sr, self.sample_rate)[0])
+            return _to_host(resample(out16[None], self.sample_rate, sr)[0])
 
 
 # ---------------------------------------------------------------------------
@@ -322,9 +357,8 @@ class KnnVCConverter(OfflineConverter):
         for kk, st in zip(reversed(cfg.conv_kernel), reversed(cfg.conv_stride)):
             self.min_samples = (self.min_samples - 1) * st + kk
 
-    def _convert_16k(self, wave: np.ndarray) -> np.ndarray:
-        wave = np.asarray(wave, np.float32)
+    def _convert_16k(self, wave: torch.Tensor) -> torch.Tensor:
         if wave.shape[0] < self.min_samples:
             raise ValueError(f"{wave.shape[0]} samples at 16 kHz: kNN-VC needs at least "
                              f"{self.min_samples}, one WavLM frame")
-        return convert_knnvc(self.model, wave, self.matching_set, self.k, self.precision).cpu().numpy()
+        return convert_knnvc(self.model, wave, self.matching_set, self.k, self.precision)

@@ -21,7 +21,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from alivevc_tpu_torch.device import float32_math
+from alivevc_tpu_torch.device import cached, float32_math
+
+# the filter banks on each device, uploaded at first use: a later call makes
+# no host copy, so it neither waits on the device nor breaks a graph capture
+_BANKS: dict = {}
 
 
 @functools.lru_cache(maxsize=None)
@@ -60,7 +64,8 @@ def resample(x: torch.Tensor, orig_freq: int, new_freq: int, lowpass_filter_widt
     # pad so that every block has its whole filter support
     pad_right = width + of + max(0, (num_blocks - 1) * of + kw - (length + 2 * width + of))
     xp = F.pad(xf, (width, pad_right))
-    weight = torch.from_numpy(kernels).to(x.device)[:, None, :]      # [nf, 1, kw]
+    weight = cached(_BANKS, (of, nf, lowpass_filter_width, rolloff, x.device),
+                    lambda: torch.from_numpy(kernels).to(x.device)[:, None, :])   # [nf, 1, kw]
     with float32_math():
         out = F.conv1d(xp, weight, stride=of)[:, :, :num_blocks]      # [B, nf, blocks]
     out = out.transpose(1, 2).reshape(xf.shape[0], num_blocks * nf)[:, :target_length]

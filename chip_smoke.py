@@ -58,7 +58,8 @@ printing the final line:
   3. the main path end to end at full model width (default configs, random
      weights from a seed, a 100 352 x 768 library from the seed):
      ``OfflineConverter.convert_16k`` answers three requests (10 s, 30 s,
-     61 s) in bf16 and in fp32, one ``convert_window`` step at the bench
+     61 s) in bf16 and in fp32, each crossing between host and card once
+     each way (``CROSSINGS``), one ``convert_window`` step at the bench
      shape (64 windows x 144 000 samples) in bf16 and one in fp32 (kNN
      'high', the exact-ranking mode), and the bf16 licence's log-mel L1.
      The 10 s request also goes through ``OfflineConverter(world_pitch=True)``
@@ -763,7 +764,7 @@ def request_wave(seconds: float, rng, sr: int = 16_000):
 def run_main_path(ce, f0m, dec, lib, card):
     import numpy as np
     import torch
-    from alivevc_tpu_torch.infer.offline import OfflineConverter, convert_window
+    from alivevc_tpu_torch.infer.offline import CROSSINGS, OfflineConverter, convert_window, reset_crossings
     from alivevc_tpu_torch.kernels import LAUNCHES
     from alivevc_tpu_torch.ops.stft import log_mel_spectrogram
 
@@ -774,6 +775,7 @@ def run_main_path(ce, f0m, dec, lib, card):
         conv = OfflineConverter(ce, f0m, dec, lib, dtype=dtype)
         for wave in requests:
             before = dict(LAUNCHES)
+            reset_crossings()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = conv.convert_16k(wave)
@@ -783,9 +785,10 @@ def run_main_path(ce, f0m, dec, lib, card):
             need(bool(np.isfinite(out).all()), f"{dtype}: non-finite output")
             grew = {k: LAUNCHES[k] - before[k] for k in OFFLINE_KERNELS}
             need(all(v > 0 for v in grew.values()), f"{dtype}: a kernel did not launch: {grew}")
+            need(CROSSINGS == {"to_card": 1, "to_host": 1}, f"{dtype}: host-device copies {CROSSINGS}")
             secs = len(wave) / 16_000.0
             print(f"request {dtype} {secs:.0f} s audio: {dt:.3f} s wall, "
-                  f"{secs / dt:.1f} audio-s/s, launches {grew} [{card}]")
+                  f"{secs / dt:.1f} audio-s/s, launches {grew}, crossings {CROSSINGS} [{card}]")
             report[f"request_{dtype}_{secs:.0f}s_wall_s"] = dt
     report.update(world_requests(ce, f0m, dec, lib, requests[0], card))
 

@@ -28,7 +28,9 @@ resident query tile) are held to the same tolerances, and 'highest' index sets e
 float64 ranking wherever its 4th and 5th scores differ by more than 1e-5.
 The sharded path: 2 gloo ranks on one card against 1 rank,
 identical 'highest' index sets and the waveform within 1e-4 (float32 sums
-of the k rows split over the shards, in another order).
+of the k rows split over the shards, in another order).  The offline driver:
+bit-equal to the frozen NumPy driver it replaced (the same batches and
+element-wise float32 operations).
 """
 
 import multiprocessing
@@ -1755,3 +1757,51 @@ def test_ckpt_written_on_card_reads_on_cpu_on_card(tmp_path):
     with np.load(card) as a, np.load(again) as b:
         assert set(a.files) == set(b.files)
         assert all(a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]) for k in a.files)
+
+
+@pytest.mark.gpu
+def test_offline_driver_keeps_the_file_on_the_card_on_card():
+    """``OfflineConverter.convert(wave, 44_100)`` at full width in fp32 (two
+    steps, the second zero-padded; 4 096 library rows, the two-pass kNN)
+    equals the frozen NumPy driver (``tests/torch_port_frozen_driver.py``)
+    bit for bit, or, were two runs of the frozen driver to differ, within
+    their own gap.  The file crosses once each way (``CROSSINGS``), and under
+    ``set_sync_debug_mode('warn')`` a call waits on the card at those two
+    copies alone."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; on the card run this file with --noconftest -m gpu")
+    import warnings
+
+    from alivevc_tpu_torch.config import ContentEncoderConfig, F0EstimatorConfig
+    from alivevc_tpu_torch.infer import offline
+    from alivevc_tpu_torch.models.content_encoder import ContentEncoder
+    from alivevc_tpu_torch.models.f0_estimator import F0Estimator
+    from torch_port_frozen_driver import frozen_convert
+
+    gen = torch.Generator().manual_seed(0)
+    ce = ContentEncoder(ContentEncoderConfig(), generator=gen).cuda()
+    f0m = F0Estimator(F0EstimatorConfig(), generator=gen).cuda()
+    dec = Decoder(DecoderConfig(), generator=gen).cuda()
+    tgt = torch.randn(4096, 768, generator=torch.Generator(device="cuda").manual_seed(3), device="cuda")
+    conv = offline.OfflineConverter(ce, f0m, dec, tgt, dtype="fp32")
+    sr = 44_100
+    t = np.arange(50 * sr) / sr                       # 19 windows at 16 kHz: 16 + 3 of 16
+    wave = (0.4 * np.sin(2 * np.pi * (150 + 40 * np.sin(2 * np.pi * 0.5 * t)) * t)).astype(np.float32)
+    want = frozen_convert(conv, wave, sr)
+    gap = float(np.abs(frozen_convert(conv, wave, sr) - want).max())
+    offline.reset_crossings()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            got = conv.convert(wave, sr)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    waits = [str(w.message) for w in caught if "synchroniz" in str(w.message)]
+    assert offline.CROSSINGS == {"to_card": 1, "to_host": 1}
+    assert len(waits) == 2, waits
+    assert got.shape == want.shape and np.isfinite(got).all()
+    err = float(np.abs(got - want).max())
+    print(f"driver against the frozen driver: max gap {err}, the frozen driver's own {gap}")
+    assert err <= gap, (err, gap)
