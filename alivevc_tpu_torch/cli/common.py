@@ -2,7 +2,7 @@
 load_params_or_init``: ``.pt`` / ``.npz`` / ``.ckpt`` detection and the
 reference's resume-by-existence convention, train_decoder.py:57-64), the
 target matrix both conversion CLIs build, and the training CLIs' files,
-process group and epoch length.
+process group and epoch loop.
 
 A model file is a reference-format ``.pt`` state dict (the reference's key
 names, loaded with ``torch.load(weights_only=True)``), a training state
@@ -31,6 +31,7 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from alivevc_tpu_torch.compat import jax_train_state, weights
@@ -130,15 +131,14 @@ def save_model(path: str, module: nn.Module, kind: str) -> None:
         save_reference_state(path, module)
 
 
-def init_dp(dp: bool, device: str):
-    """(device, rank, world).  With ``dp`` the process joins the default
-    group from the environment torchrun sets (RANK, WORLD_SIZE, LOCAL_RANK,
-    MASTER_ADDR, MASTER_PORT): NCCL with one rank a card (cuda:LOCAL_RANK),
-    gloo on the CPU."""
+def init_dp(dp: bool, device: str, batch_size: int):
+    """(device, group).  Without ``dp`` the process trains alone and the
+    group is None.  With ``dp`` it joins the default group from the
+    environment torchrun sets (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR,
+    MASTER_PORT): NCCL with one rank a card (cuda:LOCAL_RANK), gloo on the
+    CPU; a batch size the ranks do not divide is refused."""
     if not dp:
-        return resolve_device(device), 0, 1
-    import torch.distributed as dist
-
+        return resolve_device(device), None
     rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
     dev = torch.device(device)
     if dev.type == "cuda":
@@ -148,19 +148,57 @@ def init_dp(dp: bool, device: str):
         torch.cuda.set_device(dev)
     dist.init_process_group("nccl" if dev.type == "cuda" else "gloo", init_method="env://",
                             world_size=world, rank=rank)
-    return dev, rank, world
+    if batch_size % world:
+        raise SystemExit(f"--dp needs a batch size divisible by the {world} ranks")
+    return dev, dist.group.WORLD
 
 
-def steps_per_epoch(n_chunks: int, local_batch: int, world: int, device: torch.device) -> int:
-    """Full batches of this rank's chunks, and under data parallelism the
-    minimum over the ranks, so that every rank runs the same number of
-    steps (each rank loads its own files, and a rank that ran more steps
-    would wait on a collective forever)."""
-    n = n_chunks // local_batch
-    if world > 1:
-        import torch.distributed as dist
+def host_shard(group):
+    """(rank, world) of this process in ``group``, the dataset's
+    ``host_shard``; None alone."""
+    return None if group is None else (dist.get_rank(group), dist.get_world_size(group))
 
-        t = torch.tensor([n], device=device)
-        dist.all_reduce(t, op=dist.ReduceOp.MIN)
-        n = int(t.item())
-    return n
+
+def train_epochs(state, n_chunks: int, args, device: torch.device, group, step, line, save,
+                 max_step: int = -1) -> None:
+    """The training CLIs' loop: ``args.epoch`` epochs over this rank's
+    ``n_chunks`` chunks, each epoch a permutation from
+    ``np.random.default_rng(0)`` cut into batches of ``args.batch_size``
+    / world.  ``step(sel)`` trains on the chunks ``sel`` (this rank's
+    slice of the batch) and returns the metrics; rank 0 prints
+    ``line(epoch, state.step, metrics)`` and calls ``save()`` every
+    ``args.save_every`` steps and at the end.  The loop stops early at
+    ``max_step`` (-1: no limit).  Under ``group`` every rank runs the
+    minimum over the ranks of their full batches (each rank loads its own
+    files, and a rank that ran more steps would wait on a collective
+    forever), and the group ends with the loop."""
+    rank, world = host_shard(group) or (0, 1)
+    local = args.batch_size // world
+    n_steps = n_chunks // local
+    if group is not None:
+        t = torch.tensor([n_steps], device=device)
+        dist.all_reduce(t, op=dist.ReduceOp.MIN, group=group)
+        n_steps = int(t.item())
+    if n_steps == 0:
+        raise SystemExit("no full batch of audio chunks: check the dataset path, length and batch")
+
+    def batches():
+        rng = np.random.default_rng(0)
+        for epoch in range(args.epoch):
+            order = rng.permutation(n_chunks)
+            for s in range(n_steps):
+                yield epoch, order[s * local:(s + 1) * local]
+
+    for epoch, sel in batches():
+        metrics = step(sel)
+        if rank == 0:
+            print(line(epoch, state.step, metrics))
+            if state.step % args.save_every == 0:
+                save()
+        if max_step != -1 and state.step >= max_step:
+            break
+    if rank == 0:
+        save()
+    if group is not None:
+        dist.destroy_process_group()
+    print("Training Complete!")

@@ -30,27 +30,23 @@ from __future__ import annotations
 import argparse
 import os
 
-import numpy as np
 import torch
 
 from alivevc_tpu_torch.cli.common import (
+    host_shard,
     init_dp,
     load_params_or_init,
     require_format,
     resume_or_start,
     save_model,
-    steps_per_epoch,
+    train_epochs,
     write_state,
 )
-from alivevc_tpu_torch.cli.train_decoder import train_config
+from alivevc_tpu_torch.cli.train_decoder import gan_line, train_config
 from alivevc_tpu_torch.compat.torch_import import holds_train_state
 from alivevc_tpu_torch.io.dataset import WaveChunkDataset
-from alivevc_tpu_torch.train.fine_tune import (
-    amp_draws,
-    dp_fine_tune_step,
-    fine_tune_step,
-    init_fine_tune,
-)
+from alivevc_tpu_torch.train.dp import my_rows
+from alivevc_tpu_torch.train.fine_tune import amp_draws, fine_tune_step, init_fine_tune
 
 
 def build_parser():
@@ -97,9 +93,7 @@ def main(argv=None):
     use_library = args.voice_library_path != "NONE"
     require_format(args.state_path, args.decoder_path, args.voice_library_path)
     dec_out = decoder_output(args.decoder_path)
-    dev, rank, world = init_dp(args.dp, args.device)
-    if args.batch_size % world:
-        raise SystemExit(f"--dp needs a batch size divisible by the {world} ranks")
+    dev, group = init_dp(args.dp, args.device, args.batch_size)
     ce = load_params_or_init(args.content_encoder_path, "content_encoder", dev)
     pe = load_params_or_init(args.f0_estimator_path, "f0_estimator", dev)
     cfg = train_config(args)
@@ -116,48 +110,23 @@ def main(argv=None):
                          f"library, but -lib is {args.voice_library_path}")
 
     def save_all():
-        if rank == 0:
-            write_state(args.state_path, state)
-            save_model(dec_out, state.dec, "decoder")
-            if use_library:
-                save_model(args.voice_library_path, state.vl, "voice_library")
+        write_state(args.state_path, state)
+        save_model(dec_out, state.dec, "decoder")
+        if use_library:
+            save_model(args.voice_library_path, state.vl, "voice_library")
 
     ds = WaveChunkDataset([args.dataset], length=args.length, max_files=args.max_data,
-                          host_shard=(rank, world) if world > 1 else None)
+                          host_shard=host_shard(group))
     print(f"Loaded {len(ds)} chunks")
-    local = args.batch_size // world
-    n_steps = steps_per_epoch(len(ds), local, world, dev)
-    if n_steps == 0:
-        raise SystemExit("no full batch of audio chunks: check the dataset path, length and batch")
-    rng_np = np.random.default_rng(0)
     gen = torch.Generator().manual_seed(2)
-    done = False
-    for _ in range(args.epoch):
-        order = rng_np.permutation(len(ds))
-        for s in range(n_steps):
-            wave = torch.from_numpy(ds.chunks[order[s * local:(s + 1) * local]]).to(dev)
-            amp = amp_draws(args.batch_size, gen, dev)
-            kw = dict(use_library=use_library, freeze_discriminator=args.freeze_discriminator,
-                      cfg=cfg)
-            if world > 1:
-                m = dp_fine_tune_step(state, ce, pe, wave, amp[rank * local:(rank + 1) * local], **kw)
-            else:
-                m = fine_tune_step(state, ce, pe, wave, amp, **kw)
-            if rank == 0:
-                print(f"Step {state.step}, D: {float(m['loss_d']):.4f}, Adv.: {float(m['adv']):.4f}, "
-                      f"Mel.: {float(m['mel']):.4f}, Feat.: {float(m['feat']):.4f}, "
-                      f"Con.: {float(m['con']):.4f}")
-            if state.step % args.save_every == 0:
-                save_all()
-            if args.max_step != -1 and state.step >= args.max_step:
-                done = True
-                break
-        if done:
-            break
-    save_all()
-    if world > 1:
-        torch.distributed.destroy_process_group()
-    print("Training Complete!")
+
+    def step(sel):
+        wave = torch.from_numpy(ds.chunks[sel]).to(dev)
+        amp = amp_draws(args.batch_size, gen, dev)
+        return fine_tune_step(state, ce, pe, wave, my_rows(amp, group), use_library,
+                              args.freeze_discriminator, cfg, group)
+
+    train_epochs(state, len(ds), args, dev, group, step, gan_line, save_all, args.max_step)
     return state
 
 

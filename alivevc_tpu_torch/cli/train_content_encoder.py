@@ -33,17 +33,19 @@ import numpy as np
 import torch
 
 from alivevc_tpu_torch.cli.common import (
+    host_shard,
     init_dp,
     model_line,
     require_format,
     resume_or_start,
-    steps_per_epoch,
+    train_epochs,
     write_state,
 )
+from alivevc_tpu_torch.cli.train_f0_estimator import loss_line
 from alivevc_tpu_torch.io.dataset import WaveChunkDataset
 from alivevc_tpu_torch.io.teacher import precompute_teacher_features
 from alivevc_tpu_torch.models.content_encoder import ContentEncoder
-from alivevc_tpu_torch.train.distill import distill_step, dp_distill_step, init_distill
+from alivevc_tpu_torch.train.distill import distill_step, init_distill
 
 
 def build_parser():
@@ -74,11 +76,9 @@ def main(argv=None):
         raise SystemExit("teacher features are needed: pass --teacher-features feats.npz or "
                          "--wavlm-checkpoint wavlm.pt (a local WavLM state dict; nothing is "
                          "downloaded)")
-    dev, rank, world = init_dp(args.dp, args.device)
-    if args.batch_size % world:
-        raise SystemExit(f"--dp needs a batch size divisible by the {world} ranks")
+    dev, group = init_dp(args.dp, args.device, args.batch_size)
     ds = WaveChunkDataset([args.dataset], length=args.length, max_files=args.max_data,
-                          host_shard=(rank, world) if world > 1 else None)
+                          host_shard=host_shard(group))
     print(f"Loaded {len(ds)} chunks")
     if args.teacher_features:
         feats = np.load(args.teacher_features)["features"]
@@ -96,31 +96,13 @@ def main(argv=None):
     state = resume_or_start(args.model_path, "distill", dev, start,
                             learning_rate=args.learning_rate)
 
-    def save():
-        if rank == 0:
-            write_state(args.model_path, state)
+    def step(sel):
+        wave = torch.from_numpy(ds.chunks[sel]).to(dev)
+        teacher = torch.from_numpy(np.ascontiguousarray(feats[sel], np.float32)).to(dev)
+        return distill_step(state, wave, teacher, group)
 
-    local = args.batch_size // world
-    n_steps = steps_per_epoch(len(ds), local, world, dev)
-    if n_steps == 0:
-        raise SystemExit("no full batch of audio chunks: check the dataset path, length and batch")
-    rng = np.random.default_rng(0)
-    for epoch in range(args.epoch):
-        order = rng.permutation(len(ds))
-        for s in range(n_steps):
-            sel = order[s * local:(s + 1) * local]
-            wave = torch.from_numpy(ds.chunks[sel]).to(dev)
-            teacher = torch.from_numpy(np.ascontiguousarray(feats[sel], np.float32)).to(dev)
-            step = dp_distill_step if world > 1 else distill_step
-            m = step(state, wave, teacher)
-            if rank == 0:
-                print(f"epoch {epoch} step {state.step} loss {float(m['loss']):.4f}")
-            if state.step % args.save_every == 0:
-                save()
-    save()
-    if world > 1:
-        torch.distributed.destroy_process_group()
-    print("Training Complete!")
+    train_epochs(state, len(ds), args, dev, group, step, loss_line,
+                 lambda: write_state(args.model_path, state))
     return state
 
 

@@ -16,34 +16,36 @@ optax moments, ``compat/jax_train_state.py``) or a ``.pt`` of
 models' configurations), written back in the format it came in.  As in the
 JAX package, no decoder file of its own is written: ``fine_tune -dep
 gan_state.ckpt`` and the inference CLIs read the decoder out of the state.
-``--device`` defaults to cuda.  ``--dp`` runs ``dp_gan_train_step`` over
+``--device`` defaults to cuda.  ``--dp`` runs ``gan_train_step`` over the
 torch.distributed ranks (rank and world from torchrun's environment): each
 rank loads every world-th file, takes batch / world items a step, every
-rank runs the minimum over the ranks of their step counts, every rank reads
-the state and rank 0 writes it.
+rank runs the minimum over the ranks of their step counts
+(``cli/common.py:train_epochs``), every rank reads the state and rank 0
+writes it.
 """
 
 from __future__ import annotations
 
 import argparse
 
-import numpy as np
 import torch
 
 from alivevc_tpu_torch.cli.common import (
+    host_shard,
     init_dp,
     load_params_or_init,
     model_line,
     require_format,
     resume_or_start,
-    steps_per_epoch,
+    train_epochs,
     write_state,
 )
 from alivevc_tpu_torch.config import TrainConfig
 from alivevc_tpu_torch.io.dataset import WaveChunkDataset
 from alivevc_tpu_torch.models.decoder import Decoder
 from alivevc_tpu_torch.models.discriminator import Discriminator
-from alivevc_tpu_torch.train.gan import dp_gan_train_step, gan_draws, gan_train_step, init_gan
+from alivevc_tpu_torch.train.dp import my_rows
+from alivevc_tpu_torch.train.gan import gan_draws, gan_train_step, init_gan
 
 
 def build_parser():
@@ -73,12 +75,17 @@ def train_config(args) -> TrainConfig:
                        feat_weight=args.feature_matching, content_weight=args.content)
 
 
+def gan_line(epoch: int, step: int, m) -> str:
+    """The GAN CLIs' line after each step."""
+    return (f"Step {step}, D: {float(m['loss_d']):.4f}, Adv.: {float(m['adv']):.4f}, "
+            f"Mel.: {float(m['mel']):.4f}, Feat.: {float(m['feat']):.4f}, "
+            f"Con.: {float(m['con']):.4f}")
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     require_format(args.state_path)
-    dev, rank, world = init_dp(args.dp, args.device)
-    if args.batch_size % world:
-        raise SystemExit(f"--dp needs a batch size divisible by the {world} ranks")
+    dev, group = init_dp(args.dp, args.device, args.batch_size)
     ce = load_params_or_init(args.content_encoder_path, "content_encoder", dev)
     pe = load_params_or_init(args.f0_estimator_path, "f0_estimator", dev)
     cfg = train_config(args)
@@ -90,40 +97,18 @@ def main(argv=None):
         return init_gan(Decoder(generator=gen).to(dev), Discriminator(generator=gen).to(dev), cfg)
 
     state = resume_or_start(args.state_path, "gan", dev, start, cfg=cfg)
-
-    def save():
-        if rank == 0:
-            write_state(args.state_path, state)
-
     ds = WaveChunkDataset([args.dataset], length=args.length, max_files=args.max_data,
-                          host_shard=(rank, world) if world > 1 else None)
+                          host_shard=host_shard(group))
     print(f"Loaded {len(ds)} chunks")
-    local = args.batch_size // world
-    n_steps = steps_per_epoch(len(ds), local, world, dev)
-    if n_steps == 0:
-        raise SystemExit("no full batch of audio chunks: check the dataset path, length and batch")
-    rng_np = np.random.default_rng(0)
     gen = torch.Generator().manual_seed(2)
-    for _ in range(args.epoch):
-        order = rng_np.permutation(len(ds))
-        for s in range(n_steps):
-            wave = torch.from_numpy(ds.chunks[order[s * local:(s + 1) * local]]).to(dev)
-            amp, jitter = gan_draws(args.batch_size, gen, dev)
-            if world > 1:
-                m = dp_gan_train_step(state, ce, pe, wave, amp[rank * local:(rank + 1) * local],
-                                      jitter, cfg)
-            else:
-                m = gan_train_step(state, ce, pe, wave, amp, jitter, cfg)
-            if rank == 0:
-                print(f"Step {state.step}, D: {float(m['loss_d']):.4f}, Adv.: {float(m['adv']):.4f}, "
-                      f"Mel.: {float(m['mel']):.4f}, Feat.: {float(m['feat']):.4f}, "
-                      f"Con.: {float(m['con']):.4f}")
-            if state.step % args.save_every == 0:
-                save()
-    save()
-    if world > 1:
-        torch.distributed.destroy_process_group()
-    print("Training Complete!")
+
+    def step(sel):
+        wave = torch.from_numpy(ds.chunks[sel]).to(dev)
+        amp, jitter = gan_draws(args.batch_size, gen, dev)
+        return gan_train_step(state, ce, pe, wave, my_rows(amp, group), jitter, cfg, group)
+
+    train_epochs(state, len(ds), args, dev, group, step, gan_line,
+                 lambda: write_state(args.state_path, state))
     return state
 
 

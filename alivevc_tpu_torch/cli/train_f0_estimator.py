@@ -19,20 +19,21 @@ from __future__ import annotations
 
 import argparse
 
-import numpy as np
 import torch
 
 from alivevc_tpu_torch.cli.common import (
+    host_shard,
     init_dp,
     model_line,
     require_format,
     resume_or_start,
-    steps_per_epoch,
+    train_epochs,
     write_state,
 )
 from alivevc_tpu_torch.io.dataset import WaveChunkDataset
 from alivevc_tpu_torch.models.f0_estimator import F0Estimator
-from alivevc_tpu_torch.train.f0 import dp_f0_train_step, f0_amp_draws, f0_train_step, init_f0_train
+from alivevc_tpu_torch.train.dp import my_rows
+from alivevc_tpu_torch.train.f0 import f0_amp_draws, f0_train_step, init_f0_train
 
 
 def build_parser():
@@ -51,14 +52,17 @@ def build_parser():
     return p
 
 
+def loss_line(epoch: int, step: int, m) -> str:
+    """The F0 and distillation CLIs' line after each step."""
+    return f"epoch {epoch} step {step} loss {float(m['loss']):.4f}"
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     require_format(args.model_path)
-    dev, rank, world = init_dp(args.dp, args.device)
-    if args.batch_size % world:
-        raise SystemExit(f"--dp needs a batch size divisible by the {world} ranks")
+    dev, group = init_dp(args.dp, args.device, args.batch_size)
     ds = WaveChunkDataset([args.dataset], length=args.length, max_files=args.max_data,
-                          with_f0=True, host_shard=(rank, world) if world > 1 else None)
+                          with_f0=True, host_shard=host_shard(group))
     print(f"Loaded {len(ds)} chunks (WORLD F0 labels precomputed)")
 
     def start():
@@ -67,36 +71,16 @@ def main(argv=None):
                              args.learning_rate)
 
     state = resume_or_start(args.model_path, "f0", dev, start, learning_rate=args.learning_rate)
-
-    def save():
-        if rank == 0:
-            write_state(args.model_path, state)
-
-    local = args.batch_size // world
-    n_steps = steps_per_epoch(len(ds), local, world, dev)
-    if n_steps == 0:
-        raise SystemExit("no full batch of audio chunks: check the dataset path, length and batch")
-    rng_np = np.random.default_rng(0)
     gen = torch.Generator().manual_seed(1)
-    for epoch in range(args.epoch):
-        order = rng_np.permutation(len(ds))
-        for s in range(n_steps):
-            sel = order[s * local:(s + 1) * local]
-            wave = torch.from_numpy(ds.chunks[sel]).to(dev)
-            f0 = torch.from_numpy(ds.f0[sel]).to(dev)
-            amp = f0_amp_draws(args.batch_size, gen, dev)
-            if world > 1:
-                m = dp_f0_train_step(state, wave, f0, amp[rank * local:(rank + 1) * local])
-            else:
-                m = f0_train_step(state, wave, f0, amp)
-            if rank == 0:
-                print(f"epoch {epoch} step {state.step} loss {float(m['loss']):.4f}")
-            if state.step % args.save_every == 0:
-                save()
-    save()
-    if world > 1:
-        torch.distributed.destroy_process_group()
-    print("Training Complete!")
+
+    def step(sel):
+        wave = torch.from_numpy(ds.chunks[sel]).to(dev)
+        f0 = torch.from_numpy(ds.f0[sel]).to(dev)
+        amp = f0_amp_draws(args.batch_size, gen, dev)
+        return f0_train_step(state, wave, f0, my_rows(amp, group), group)
+
+    train_epochs(state, len(ds), args, dev, group, step, loss_line,
+                 lambda: write_state(args.model_path, state))
     return state
 
 

@@ -5,10 +5,11 @@ teacher's feature (``io/teacher.py``), ``optax.radam`` (``train/optim.py:
 RAdam``).  On the card the spectrogram is the STFT kernel, forward only, one
 launch a step: the wave is data and carries no gradient.
 
-``dp_distill_step`` takes this rank's slice of the batch, its local
-gradients and one flat all-reduce mean of the gradients and the loss
-(``train/dp.py``): with equal slices the mean of the slices' L1 means is
-the batch's, so the update equals the dense step's on the whole batch.
+Under a process group (``group``) each rank takes its slice of the batch,
+and one flat all-reduce mean of its gradients and loss (``train/dp.py``)
+follows: with equal slices the mean of the slices' L1 means is the
+batch's, so the update equals the step's on the whole batch.  With
+``group=None`` no collective runs.
 """
 
 from __future__ import annotations
@@ -37,39 +38,23 @@ def init_distill(model: ContentEncoder, learning_rate: float = 1e-4) -> DistillS
     return DistillState(model, RAdam(model.parameters(), lr=learning_rate))
 
 
-def distill_grads(state: DistillState, wave: torch.Tensor,
-                  teacher_feature: torch.Tensor) -> Tuple[List[torch.Tensor], torch.Tensor]:
-    """wave [N, L] at 16 kHz, teacher_feature [N, L // 320, C]: (the gradient
-    of each of the model's parameters, the loss), without updating."""
+def distill_grads(state: DistillState, wave: torch.Tensor, teacher_feature: torch.Tensor,
+                  group: Optional[dist.ProcessGroup] = None
+                  ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """wave [N, L] at 16 kHz, teacher_feature [N, L // 320, C] (this rank's
+    equal slice under ``group``): (the gradient of each of the model's
+    parameters, the loss) of the whole batch, without updating."""
     out = content_encoder(state.model, spectrogram(wave))
     loss = torch.mean(torch.abs(out - teacher_feature))
-    return list(torch.autograd.grad(loss, list(state.model.parameters()))), loss.detach()
-
-
-def distill_step(state: DistillState, wave: torch.Tensor,
-                 teacher_feature: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """One update in place; returns {'loss': the pre-update loss}."""
-    grads, loss = distill_grads(state, wave, teacher_feature)
-    apply_grads(state.opt, list(state.model.parameters()), grads)
-    state.step += 1
-    return {"loss": loss}
-
-
-def dp_distill_grads(state: DistillState, wave: torch.Tensor, teacher_feature: torch.Tensor,
-                     group: Optional[dist.ProcessGroup] = None
-                     ) -> Tuple[List[torch.Tensor], torch.Tensor]:
-    """This rank's slice of the batch (equal slices on every rank): the
-    gradients and the loss of the whole batch, by one flat all-reduce mean."""
-    grads, loss = distill_grads(state, wave, teacher_feature)
-    *grads, loss = dp.all_reduce_flat([*grads, loss], mean=True, group=group)
+    grads = torch.autograd.grad(loss, list(state.model.parameters()))
+    *grads, loss = dp.all_reduce_flat([*grads, loss.detach()], mean=True, group=group)
     return grads, loss
 
 
-def dp_distill_step(state: DistillState, wave: torch.Tensor, teacher_feature: torch.Tensor,
-                    group: Optional[dist.ProcessGroup] = None) -> Dict[str, torch.Tensor]:
-    """This rank's slice of the batch; the update equals the dense step's on
-    the whole batch."""
-    grads, loss = dp_distill_grads(state, wave, teacher_feature, group)
+def distill_step(state: DistillState, wave: torch.Tensor, teacher_feature: torch.Tensor,
+                 group: Optional[dist.ProcessGroup] = None) -> Dict[str, torch.Tensor]:
+    """One update in place; returns {'loss': the pre-update loss}."""
+    grads, loss = distill_grads(state, wave, teacher_feature, group)
     apply_grads(state.opt, list(state.model.parameters()), grads)
     state.step += 1
     return {"loss": loss}

@@ -5,13 +5,14 @@ makes with ``f0_amp_draws``), cross entropy with ignore_index=0
 (unvoiced), ``optax.radam`` (``train/optim.py:RAdam``).  On the card the
 spectrogram is the STFT kernel.
 
-``dp_f0_train_step`` all-reduces both parts of the cross entropy (the NLL
-sum and the voiced count) before it divides, and sums the gradients of
-sum / global count over the ranks: it equals the dense step on the whole
-batch even when the ranks hold different voiced counts.  (The JAX
-package's shard_map form psums the loss inside the differentiated function
-and then psums the gradients again, which scales them by the number of
-devices; the port does not follow it there.)
+Under a process group (``group``) each rank takes its slice of the batch:
+the step all-reduces both parts of the cross entropy (the NLL sum and the
+voiced count) before it divides, and sums the gradients of sum / global
+count over the ranks, so it equals the step on the whole batch even when
+the ranks hold different voiced counts; with ``group=None`` no collective
+runs.  (The JAX package's shard_map form psums the loss inside the
+differentiated function and then psums the gradients again, which scales
+them by the number of devices; the port does not follow it there.)
 """
 
 from __future__ import annotations
@@ -46,28 +47,13 @@ def f0_amp_draws(n: int, generator: torch.Generator, device) -> torch.Tensor:
     return (torch.rand((n, 1), generator=generator) * 0.75 + 0.25).to(device)
 
 
-def _loss_parts(state: F0TrainState, wave: torch.Tensor, f0: torch.Tensor, amp: torch.Tensor):
+def f0_train_step(state: F0TrainState, wave: torch.Tensor, f0: torch.Tensor, amp: torch.Tensor,
+                  group: Optional[dist.ProcessGroup] = None) -> Dict[str, torch.Tensor]:
+    """wave [N, L], f0 [N, L // 320] Hz labels, amp [N, 1] (this rank's slice
+    under ``group``): one update in place; returns {'loss': the pre-update
+    loss of the whole batch}."""
     logits = f0_estimator(state.model, spectrogram(wave * amp))
-    return f0_cross_entropy_parts(logits, f0)
-
-
-def f0_train_step(state: F0TrainState, wave: torch.Tensor, f0: torch.Tensor,
-                  amp: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """wave [N, L], f0 [N, L // 320] Hz labels, amp [N, 1]: one update in
-    place; returns {'loss': the pre-update loss}."""
-    total, count = _loss_parts(state, wave, f0, amp)
-    loss = total / count.clamp(min=1)
-    params = list(state.model.parameters())
-    apply_grads(state.opt, params, torch.autograd.grad(loss, params))
-    state.step += 1
-    return {"loss": loss.detach()}
-
-
-def dp_f0_train_step(state: F0TrainState, wave: torch.Tensor, f0: torch.Tensor, amp: torch.Tensor,
-                     group: Optional[dist.ProcessGroup] = None) -> Dict[str, torch.Tensor]:
-    """This rank's slice of the batch; the update equals the dense step's on
-    the whole batch."""
-    total, count = _loss_parts(state, wave, f0, amp)
+    total, count = f0_cross_entropy_parts(logits, f0)
     sums = dp.all_reduce_flat([total.detach(), count.float()], mean=False, group=group)
     count_all = sums[1].clamp(min=1)
     params = list(state.model.parameters())

@@ -10,6 +10,10 @@ content is self-matched.  ``freeze_discriminator`` leaves the
 discriminator and its optimizer as they are (loss_d reported as 0).  All
 losses come from the parameters before the update.  The amplitude draw
 ``amp`` [N, 1] ~ U(0, 2) is a tensor the caller makes (``amp_draws``).
+Under a process group (``group``) each rank takes its slice of the batch,
+and each model's gradients and the metrics are averaged over the ranks
+(one all-reduce each, ``train/dp.py``); with ``group=None`` no collective
+runs.
 """
 
 from __future__ import annotations
@@ -76,9 +80,10 @@ def amp_draws(n: int, generator: torch.Generator, device) -> torch.Tensor:
 
 def fine_tune_grads(state: FineTuneState, ce: ContentEncoder, pe: F0Estimator,
                     wave: torch.Tensor, amp: torch.Tensor, use_library: bool = True,
-                    freeze_discriminator: bool = False, cfg: TrainConfig = TrainConfig()):
+                    freeze_discriminator: bool = False, cfg: TrainConfig = TrainConfig(),
+                    group: Optional[dist.ProcessGroup] = None):
     """(G's gradients, the tokens' gradients or None, D's gradients or None,
-    metrics) of one batch; no update."""
+    metrics) of one batch, averaged over ``group``'s ranks; no update."""
     if use_library and state.vl is None:
         raise ValueError("use_library needs a voice library in the state")
     wave = wave * amp
@@ -103,7 +108,9 @@ def fine_tune_grads(state: FineTuneState, ce: ContentEncoder, pe: F0Estimator,
         loss_d = discriminator_loss(state.disc, wave, wave_recon.detach())
         grads_d = torch.autograd.grad(loss_d, list(state.disc.parameters()))
         metrics["loss_d"] = loss_d.detach()
-    return grads_g, grads_vl, grads_d, metrics
+    grads_g, grads_vl, grads_d = (None if g is None else dp.all_reduce_flat(g, True, group)
+                                  for g in (grads_g, grads_vl, grads_d))
+    return grads_g, grads_vl, grads_d, dp.all_reduce_metrics(metrics, group)
 
 
 def apply_fine_tune_updates(state: FineTuneState, grads_g, grads_vl, grads_d,
@@ -124,24 +131,11 @@ def apply_fine_tune_updates(state: FineTuneState, grads_g, grads_vl, grads_d,
 
 def fine_tune_step(state: FineTuneState, ce: ContentEncoder, pe: F0Estimator, wave: torch.Tensor,
                    amp: torch.Tensor, use_library: bool = True, freeze_discriminator: bool = False,
-                   cfg: TrainConfig = TrainConfig()) -> Metrics:
-    """One fine-tuning step in place; returns the metrics."""
+                   cfg: TrainConfig = TrainConfig(),
+                   group: Optional[dist.ProcessGroup] = None) -> Metrics:
+    """One fine-tuning step in place (up to three optimizers step); returns
+    the metrics."""
     grads_g, grads_vl, grads_d, metrics = fine_tune_grads(
-        state, ce, pe, wave, amp, use_library, freeze_discriminator, cfg)
+        state, ce, pe, wave, amp, use_library, freeze_discriminator, cfg, group)
     apply_fine_tune_updates(state, grads_g, grads_vl, grads_d, cfg)
     return metrics
-
-
-def dp_fine_tune_step(state: FineTuneState, ce: ContentEncoder, pe: F0Estimator,
-                      wave: torch.Tensor, amp: torch.Tensor, use_library: bool = True,
-                      freeze_discriminator: bool = False, cfg: TrainConfig = TrainConfig(),
-                      group: Optional[dist.ProcessGroup] = None) -> Metrics:
-    """The data-parallel fine-tuning step on this rank's slice: each model's
-    gradients averaged over the ranks (one all-reduce per model), then up
-    to three optimizers step, as in the dense step."""
-    grads_g, grads_vl, grads_d, metrics = fine_tune_grads(
-        state, ce, pe, wave, amp, use_library, freeze_discriminator, cfg)
-    grads_g, grads_vl, grads_d = (None if g is None else dp.all_reduce_flat(g, True, group)
-                                  for g in (grads_g, grads_vl, grads_d))
-    apply_fine_tune_updates(state, grads_g, grads_vl, grads_d, cfg)
-    return dp.all_reduce_metrics(metrics, group)

@@ -25,14 +25,15 @@ parameters, so nothing accumulates in the discriminator's ``.grad``.
 On the card the decoder runs the oscillator and filter kernels through
 their ``torch.autograd.Function``s.
 
-``dp_gan_train_step`` is the JAX package's explicit data-parallel step:
-each rank differentiates its own slice (the roll crossing ranks), then one
-averaged all-reduce of G's gradients, one of D's and one of the metrics.
-Like JAX's ``pmean``, it averages per-rank losses, so it equals the dense
-step on the whole batch in every term that is a batch mean; the feature
-loss's MRD part is a sum over items (the reference's quirk,
-``models/discriminator.py``), and there the data-parallel step sees the
-mean over ranks of per-rank sums.
+With a process group (``group``) each rank takes its own slice of the
+batch, the roll crosses the ranks, and G's gradients, D's and the metrics
+are each averaged over the ranks by one all-reduce (``train/dp.py``); with
+``group=None`` the step is this process's alone and runs no collective.
+Like JAX's ``pmean``, the ranks average per-rank losses, so the step
+equals the dense step on the whole batch in every term that is a batch
+mean; the feature loss's MRD part is a sum over items (the reference's
+quirk, ``models/discriminator.py``), and there the ranks see the mean over
+ranks of per-rank sums.
 """
 
 from __future__ import annotations
@@ -130,13 +131,16 @@ def discriminator_loss(disc: Discriminator, wave: torch.Tensor, fake: torch.Tens
 
 def gan_grads(state: GanState, ce: ContentEncoder, pe: F0Estimator, wave: torch.Tensor,
               amp: torch.Tensor, jitter: torch.Tensor, cfg: TrainConfig = TrainConfig(),
-              roll: Optional[Callable[[torch.Tensor], torch.Tensor]] = None):
+              roll: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+              group: Optional[dist.ProcessGroup] = None):
     """(G's gradients, D's gradients, metrics) of one batch, from the
-    parameters as they stand; no update.  ``roll`` replaces the batch roll
-    of the pseudo-cross-speaker match (the data-parallel step rolls across
-    ranks)."""
+    parameters as they stand; no update.  ``wave`` [N, L] and ``amp``
+    [N, 1] are this rank's slice under ``group`` (``jitter`` the same on
+    every rank), whose mean gradients and metrics come back.  ``roll``
+    replaces the batch roll of the pseudo-cross-speaker match (by default
+    ``dp.global_roll`` over ``group``)."""
     if roll is None:
-        roll = lambda x: torch.roll(x, 1, 0)  # noqa: E731
+        roll = lambda x: dp.global_roll(x, group)  # noqa: E731
     dec, disc = state.dec, state.disc
     wave = wave * amp
     content, f0 = frozen_features(ce, pe, wave)
@@ -154,7 +158,8 @@ def gan_grads(state: GanState, ce: ContentEncoder, pe: F0Estimator, wave: torch.
     grads_d = torch.autograd.grad(loss_d, list(disc.parameters()))
     metrics = {k: v.detach() for k, v in metrics.items()}
     metrics["loss_d"] = loss_d.detach()
-    return grads_g, grads_d, metrics
+    return (dp.all_reduce_flat(grads_g, True, group), dp.all_reduce_flat(grads_d, True, group),
+            dp.all_reduce_metrics(metrics, group))
 
 
 def apply_updates(state: GanState, grads_g, grads_d, cfg: TrainConfig = TrainConfig()) -> None:
@@ -168,31 +173,11 @@ def apply_updates(state: GanState, grads_g, grads_d, cfg: TrainConfig = TrainCon
 
 
 def gan_train_step(state: GanState, ce: ContentEncoder, pe: F0Estimator, wave: torch.Tensor,
-                   amp: torch.Tensor, jitter: torch.Tensor,
-                   cfg: TrainConfig = TrainConfig()) -> Metrics:
-    """One GAN step in place; returns the metrics (pre-update losses)."""
-    grads_g, grads_d, metrics = gan_grads(state, ce, pe, wave, amp, jitter, cfg)
-    apply_updates(state, grads_g, grads_d, cfg)
-    return metrics
-
-
-def dp_gan_grads(state: GanState, ce: ContentEncoder, pe: F0Estimator, wave: torch.Tensor,
-                 amp: torch.Tensor, jitter: torch.Tensor, cfg: TrainConfig = TrainConfig(),
-                 group: Optional[dist.ProcessGroup] = None):
-    """This rank's slice ``wave`` [N_local, L] with its ``amp`` [N_local, 1]
-    (``jitter`` the same on every rank): the gradients and metrics averaged
-    over the ranks."""
-    grads_g, grads_d, metrics = gan_grads(state, ce, pe, wave, amp, jitter, cfg,
-                                          roll=lambda x: dp.global_roll(x, group))
-    return (dp.all_reduce_flat(grads_g, True, group), dp.all_reduce_flat(grads_d, True, group),
-            dp.all_reduce_metrics(metrics, group))
-
-
-def dp_gan_train_step(state: GanState, ce: ContentEncoder, pe: F0Estimator, wave: torch.Tensor,
-                      amp: torch.Tensor, jitter: torch.Tensor, cfg: TrainConfig = TrainConfig(),
-                      group: Optional[dist.ProcessGroup] = None) -> Metrics:
-    """The data-parallel GAN step (every rank applies the same averaged
-    gradients, so the replicas stay equal)."""
-    grads_g, grads_d, metrics = dp_gan_grads(state, ce, pe, wave, amp, jitter, cfg, group)
+                   amp: torch.Tensor, jitter: torch.Tensor, cfg: TrainConfig = TrainConfig(),
+                   group: Optional[dist.ProcessGroup] = None) -> Metrics:
+    """One GAN step in place; returns the metrics (pre-update losses).
+    Under ``group`` every rank applies the same averaged gradients, so the
+    replicas stay equal."""
+    grads_g, grads_d, metrics = gan_grads(state, ce, pe, wave, amp, jitter, cfg, group=group)
     apply_updates(state, grads_g, grads_d, cfg)
     return metrics

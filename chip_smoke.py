@@ -141,7 +141,7 @@ printing the final line:
      step on the card against the CPU at 1 x 9 600 (losses, per-module
      gradient norms); two ``fine_tune_step``s with a 512-token library (the
      kNN kernel once a step), five ``f0_train_step``s at 8 x 65 536,
-     ``generate_voice_library`` over 512 chunks; ``dp_gan_grads`` on 2 gloo
+     ``generate_voice_library`` over 512 chunks; ``gan_grads`` on 2 gloo
      ranks on the one card against the same semantics computed densely; the
      ``train_decoder`` and ``train_f0_estimator`` CLIs on synthetic WAVs.
      The phase must finish within 90 s.
@@ -153,7 +153,7 @@ printing the final line:
      of the default content encoder at 16 x 65 536 after a warm-up (ms/step,
      peak memory, the STFT kernel exactly once a step and nothing else, one
      step profiled); one step's loss and per-module gradient norms against
-     the CPU at 2 x 65 536; ``dp_distill_grads`` on 2 gloo ranks on the one
+     the CPU at 2 x 65 536; ``distill_grads`` on 2 gloo ranks on the one
      card against the dense gradients (the worst tensor); the
      ``train_content_encoder`` CLI for 2 steps with ``--wavlm-checkpoint``
      and with ``--teacher-features``, then ``inference -cep`` on the
@@ -2127,14 +2127,14 @@ def dp_reference(ce, f0m, dec, disc, wave, amp, jitter):
 
 def train_rank(rank: int, world: int, tmp: str) -> None:
     """A spawned rank of phase 8's data-parallel check: gloo on cuda:0, this
-    rank's half of the batch through ``dp_gan_grads``; rank 0 writes the
+    rank's half of the batch through ``gan_grads`` under the group; rank 0 writes the
     averaged gradients and metrics to tmp/train0.pt."""
     import os
 
     import torch
     import torch.distributed as dist
     from alivevc_tpu_torch.parallel import init_distributed
-    from alivevc_tpu_torch.train.gan import dp_gan_grads, gan_draws, init_gan
+    from alivevc_tpu_torch.train.gan import gan_draws, gan_grads, init_gan
 
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2145,7 +2145,8 @@ def train_rank(rank: int, world: int, tmp: str) -> None:
         wave, _ = train_batch(2 * world, TRAIN_LEN, SEED + 30)
         amp, jitter = gan_draws(2 * world, torch.Generator().manual_seed(SEED + 31), DEV)
         sl = slice(2 * rank, 2 * rank + 2)
-        g, d, m = dp_gan_grads(init_gan(dec, disc), ce, f0m, wave[sl], amp[sl], jitter)
+        g, d, m = gan_grads(init_gan(dec, disc), ce, f0m, wave[sl], amp[sl], jitter,
+                            group=dist.group.WORLD)
         torch.cuda.synchronize()
         if rank == 0:
             torch.save({"g": [x.cpu() for x in g], "d": [x.cpu() for x in d],
@@ -2155,7 +2156,7 @@ def train_rank(rank: int, world: int, tmp: str) -> None:
 
 
 def run_train_dp(card):
-    """Phase 8, step 6: ``dp_gan_train_step``'s gradients on 2 gloo ranks on
+    """Phase 8, step 6: ``gan_train_step``'s gradients on 2 gloo ranks on
     the one card (batch 2 each) against the same semantics computed densely
     (the mean of the two halves' gradients, the roll crossing them), and its
     metrics against the dense step at batch 4 (every one but 'feat', whose
@@ -2194,7 +2195,7 @@ def run_train_dp(card):
     m_err = max(abs(got["m"][k] - float(dense_m[k])) / max(abs(float(dense_m[k])), 1e-12)
                 for k in ("loss_d", "mel", "con", "adv"))
     dt = time.perf_counter() - t0
-    print(f"train dp [{card}]: dp_gan_grads on {TRAIN_RANKS} gloo ranks on one card (batch 2 each, "
+    print(f"train dp [{card}]: gan_grads on {TRAIN_RANKS} gloo ranks on one card (batch 2 each, "
           f"{TRAIN_LEN} samples): gradients vs the two halves' mean, worst tensor's rel err: G "
           f"{g['rel_err']:.3e} at {g['tensor']} (max |grad| {g['max_abs_grad']:.3e}); D "
           f"{d['rel_err']:.3e} at {d['tensor']} (max |grad| {d['max_abs_grad']:.3e}) (<= "
@@ -2462,14 +2463,14 @@ def distill_target(n: int, seed: int):
 
 def distill_rank(rank: int, world: int, tmp: str) -> None:
     """A spawned rank of phase 9's dp check: gloo on cuda:0, this rank's
-    slice of the batch through ``dp_distill_grads``; rank 0 writes the
+    slice of the batch through ``distill_grads`` under the group; rank 0 writes the
     gradients and the loss to tmp/distill0.pt."""
     import os
 
     import torch
     import torch.distributed as dist
     from alivevc_tpu_torch.parallel import init_distributed
-    from alivevc_tpu_torch.train.distill import dp_distill_grads, init_distill
+    from alivevc_tpu_torch.train.distill import distill_grads, init_distill
 
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2480,7 +2481,8 @@ def distill_rank(rank: int, world: int, tmp: str) -> None:
         teacher = distill_target(DISTILL_N, SEED + 51)
         per = DISTILL_N // world
         sl = slice(rank * per, (rank + 1) * per)
-        g, loss = dp_distill_grads(init_distill(distill_student()), wave[sl], teacher[sl])
+        g, loss = distill_grads(init_distill(distill_student()), wave[sl], teacher[sl],
+                                dist.group.WORLD)
         torch.cuda.synchronize()
         if rank == 0:
             torch.save({"g": [x.cpu() for x in g], "loss": float(loss)}, os.path.join(tmp, "distill0.pt"))
@@ -2540,8 +2542,8 @@ def distill_dense_readings(state, names, wave_seed: int, target_seed: int):
 
 
 def finish_distill_dp(card, procs, t0, tmp):
-    """Phase 9: ``dp_distill_grads`` (the gradients ``dp_distill_step``
-    applies) on 2 gloo ranks on the one card, 8 x 65 536 each, against the
+    """Phase 9: ``distill_grads`` under the group (the gradients
+    ``distill_step`` applies) on 2 gloo ranks on the one card, 8 x 65 536 each, against the
     halves' mean, the dense step on the whole batch of 16, and the dense
     step with the halves' L1 signs (``distill_dense_readings``, which also
     reads the last three over the other batches of ``DISTILL_DP_BATCHES``
@@ -2589,7 +2591,7 @@ def finish_distill_dp(card, procs, t0, tmp):
               f"with the halves' signs {at(r['mean_vs_signed'])} (<= {DISTILL_SIGNED_TOL:.0e}); control, "
               f"one half alone (no all-reduce): vs dense {at(r['control_vs_dense'])} (> "
               f"{DISTILL_DENSE_TOL:.0e}), vs the halves' mean {at(r['control_vs_mean'])}")
-    print(f"distill dp [{card}]: dp_distill_grads on {DISTILL_RANKS} gloo ranks on one card "
+    print(f"distill dp [{card}]: distill_grads on {DISTILL_RANKS} gloo ranks on one card "
           f"({DISTILL_N // DISTILL_RANKS} x {DISTILL_LEN} each, seeds {DISTILL_DP_BATCHES[0]}): worst "
           f"tensor's max abs err / its max vs the two halves' mean {at(w)} (max |grad| "
           f"{w['max_abs_grad']:.3e}; <= {DISTILL_DP_TOL:.0e}); vs the dense step at {DISTILL_N} {at(wd)} "

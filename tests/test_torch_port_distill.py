@@ -11,9 +11,9 @@ with the CPU's readings: the loss 1e-5 relative (4.2e-7); the gradients
 steps 1e-6 abs (3.7e-9; RAdam's first steps are lr * m_hat, linear in the
 gradient).
 
-``dp_distill_grads`` and ``dp_distill_step`` on 2 gloo ranks
-(``tests/torch_port_ranks.py:run_distill_rank``) against the dense step on
-the whole batch: the gradients 1e-5 of each tensor's largest entry
+``distill_grads`` and ``distill_step`` given a group of 2 gloo ranks
+(``tests/torch_port_ranks.py:run_distill_rank``) against the same step
+alone on the whole batch: the gradients 1e-5 of each tensor's largest entry
 (measured 3.8e-7), the losses 1e-6 relative, the parameters after each of
 two steps 1e-7 abs (measured 3.7e-9).  The JAX package's own gate for its
 dp step is rtol 2e-4 / atol 2e-5.

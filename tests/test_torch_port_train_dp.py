@@ -1,8 +1,9 @@
-"""The data-parallel training steps (``dp_gan_train_step``,
-``dp_fine_tune_step``, ``dp_f0_train_step``) on 2 spawned gloo ranks
-(``tests/torch_port_ranks.py:run_train_rank``, no JAX in the workers),
-against the port's dense steps on the whole batch with the same draws,
-computed here while the ranks work.
+"""The training steps under a process group (``gan_grads``,
+``gan_train_step``, ``fine_tune_step``, ``f0_train_step``, each given the
+group) on 2 spawned gloo ranks (``tests/torch_port_ranks.py:
+run_train_rank``, no JAX in the workers), against the same steps alone
+(``group=None``) on the whole batch with the same draws, computed here
+while the ranks work.
 
 What each holds to:
   * the roll crosses ranks: rank j's first row is rank j-1's last;
@@ -20,7 +21,11 @@ What each holds to:
     entries more than lr / 2 apart at most 0.5 % of all;
   * the F0 step, with the voiced frames spread unevenly over the ranks:
     loss 1e-6 relative and parameters 1e-7 abs of the dense step's (both
-    parts of the cross entropy are summed before the division).
+    parts of the cross entropy are summed before the division);
+  * in a gloo group of one rank (``run_one_rank``), two steps of each
+    trainer (GAN, fine-tuning, F0, distillation) leave the parameters, the
+    optimizer moments and the step count bit-equal to two steps alone: the
+    collectives of one rank are exact.
 """
 
 import copy
@@ -55,7 +60,9 @@ def _disc(disc, kw):
 
 
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
+def inputs(tmp_path_factory):
+    """(the directory of ``train_inputs.pt``, (ce, f0m, dec, disc, vl), the
+    inputs it holds)."""
     tmp = str(tmp_path_factory.mktemp("train_ranks"))
     _, (ce, f0m, dec, disc) = train_models(0)
     vl = VoiceLibrary(tc.VoiceLibraryConfig(**VL_KW), generator=torch.Generator().manual_seed(3))
@@ -66,11 +73,21 @@ def runs(tmp_path_factory):
     f0 = 60.0 + 240.0 * torch.rand(4, 20, generator=g)
     f0[2:, 3:15] = 0.0                          # rank 1 holds fewer voiced frames
     f0_amp = tf0.f0_amp_draws(4, g, "cpu")
+    teacher = 0.1 * torch.randn(4, 20, CE_KW["output_channels"], generator=g)
     spec = {"ce_kw": CE_KW, "f0_kw": F0_KW, "dec_kw": DEC_KW, "disc_kw": DISC_KW, "mpd_kw": MPD_KW,
             "vl_kw": VL_KW, "ce": ce.state_dict(), "f0": f0m.state_dict(), "dec": dec.state_dict(),
             "disc": disc.state_dict(), "vl": vl.state_dict(), "wave": wave, "amp": amp,
-            "jitter": jitter, "f0_wave": f0_wave, "f0_hz": f0, "f0_amp": f0_amp}
+            "jitter": jitter, "f0_wave": f0_wave, "f0_hz": f0, "f0_amp": f0_amp,
+            "teacher": teacher}
     torch.save(spec, os.path.join(tmp, "train_inputs.pt"))
+    return tmp, (ce, f0m, dec, disc, vl), spec
+
+
+@pytest.fixture(scope="module")
+def runs(inputs):
+    tmp, (ce, f0m, dec, disc, vl), spec = inputs
+    wave, amp, jitter = spec["wave"], spec["amp"], spec["jitter"]
+    f0_wave, f0, f0_amp = spec["f0_wave"], spec["f0_hz"], spec["f0_amp"]
     ctx = multiprocessing.get_context("spawn")
     procs = [ctx.Process(target=torch_port_ranks.run_train_rank, args=(r, WORLD, tmp))
              for r in range(WORLD)]
@@ -111,6 +128,20 @@ def runs(tmp_path_factory):
     got = [torch.load(os.path.join(tmp, f"train_rank{r}.pt"), weights_only=False)
            for r in range(WORLD)]
     return got, want
+
+
+@pytest.fixture(scope="module")
+def one_rank(inputs):
+    tmp, _, _ = inputs
+    p = multiprocessing.get_context("spawn").Process(target=torch_port_ranks.run_one_rank,
+                                                    args=(tmp,))
+    p.start()
+    p.join(JOIN_S)
+    if p.is_alive():
+        p.kill()
+        p.join(10)
+    assert p.exitcode == 0, p.exitcode
+    return torch.load(os.path.join(tmp, "one_rank.pt"), weights_only=False)
 
 
 def _close(got, want, tol):
@@ -178,3 +209,13 @@ def test_dp_f0_step_equals_dense(runs):
         assert abs(float(g["f0_metrics"]["loss"]) - loss) <= 1e-6 * loss
         for k, v in want["f0"].items():
             assert np.abs(n(g["f0"][k]) - n(v)).max() <= 1e-7, k
+
+
+@pytest.mark.parametrize("trainer", ["gan", "fine_tune", "f0", "distill"])
+def test_one_rank_group_equals_alone(one_rank, trainer):
+    alone, alone_step = one_rank["alone"][trainer]
+    grouped, grouped_step = one_rank["group"][trainer]
+    assert grouped_step == alone_step == 2
+    assert alone.keys() == grouped.keys()
+    for k, v in alone.items():
+        assert torch.equal(grouped[k], v), k

@@ -132,53 +132,118 @@ def train_models(spec, disc_kw):
 
 
 def run_train_rank(rank: int, world: int, tmp: str) -> None:
-    """Rank ``rank`` of the data-parallel training steps: this rank's slice
-    of ``tmp/train_inputs.pt``'s batches through ``dp_gan_grads`` (with and
-    without the MRD), ``dp_gan_train_step``, ``dp_fine_tune_step`` and
-    ``dp_f0_train_step``; writes ``tmp/train_rank<rank>.pt``."""
+    """Rank ``rank`` of the training steps under a process group: this
+    rank's slice of ``tmp/train_inputs.pt``'s batches through ``gan_grads``
+    (with and without the MRD), ``gan_train_step``, ``fine_tune_step`` and
+    ``f0_train_step``; writes ``tmp/train_rank<rank>.pt``."""
     from alivevc_tpu_torch.parallel import init_distributed
     from alivevc_tpu_torch.train import dp
-    from alivevc_tpu_torch.train.f0 import dp_f0_train_step, init_f0_train
-    from alivevc_tpu_torch.train.fine_tune import dp_fine_tune_step, init_fine_tune
-    from alivevc_tpu_torch.train.gan import dp_gan_grads, dp_gan_train_step, init_gan
+    from alivevc_tpu_torch.train.f0 import f0_train_step, init_f0_train
+    from alivevc_tpu_torch.train.fine_tune import fine_tune_step, init_fine_tune
+    from alivevc_tpu_torch.train.gan import gan_grads, gan_train_step, init_gan
 
     torch.set_num_threads(1)
     spec = torch.load(os.path.join(tmp, "train_inputs.pt"), weights_only=False)
     init_distributed("gloo", f"file://{tmp}/train_rendezvous", world, rank)
+    group = dist.group.WORLD
     try:
-        mine = lambda x: x[rank * (x.shape[0] // world):(rank + 1) * (x.shape[0] // world)]  # noqa: E731
-        out = {"roll": dp.global_roll(mine(torch.arange(8.0)[:, None]))}
+        mine = lambda x: dp.my_rows(x, group)  # noqa: E731
+        out = {"roll": dp.global_roll(mine(torch.arange(8.0)[:, None]), group)}
         wave, amp, jitter = spec["wave"], spec["amp"], spec["jitter"]
         for name, disc_kw in (("mpd", spec["mpd_kw"]), ("mrd", spec["disc_kw"])):
             ce, f0m, dec, disc, _ = train_models(spec, disc_kw)
             state = init_gan(dec, disc)
-            out[f"gan_{name}"] = dp_gan_grads(state, ce, f0m, mine(wave), mine(amp), jitter)
+            out[f"gan_{name}"] = gan_grads(state, ce, f0m, mine(wave), mine(amp), jitter,
+                                           group=group)
         ce, f0m, dec, disc, vl = train_models(spec, spec["mpd_kw"])
         state = init_gan(dec, disc)
-        dp_gan_train_step(state, ce, f0m, mine(wave), mine(amp), jitter)
+        gan_train_step(state, ce, f0m, mine(wave), mine(amp), jitter, group=group)
         out["gan_step"] = {k: v.clone() for k, v in state.dec.state_dict().items()}
         ce, f0m, dec, disc, vl = train_models(spec, spec["mpd_kw"])
         state = init_fine_tune(dec, disc, vl)
-        out["fine_tune_metrics"] = dp_fine_tune_step(state, ce, f0m, mine(wave), mine(amp))
+        out["fine_tune_metrics"] = fine_tune_step(state, ce, f0m, mine(wave), mine(amp),
+                                                  group=group)
         out["fine_tune"] = {"dec": state.dec.state_dict(), "vl": state.vl.state_dict()}
         state = init_f0_train(f0m)
-        out["f0_metrics"] = dp_f0_train_step(state, mine(spec["f0_wave"]), mine(spec["f0_hz"]),
-                                             mine(spec["f0_amp"]))
+        out["f0_metrics"] = f0_train_step(state, mine(spec["f0_wave"]), mine(spec["f0_hz"]),
+                                          mine(spec["f0_amp"]), group)
         out["f0"] = state.model.state_dict()
         torch.save(out, os.path.join(tmp, f"train_rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
 
 
+def train_states(spec, group):
+    """Two steps of each trainer on ``spec``'s whole batch under ``group``
+    (None: this process alone): {trainer: (the state's tensors, the
+    step count)}."""
+    from alivevc_tpu_torch import config as tc
+    from alivevc_tpu_torch.models.content_encoder import ContentEncoder
+    from alivevc_tpu_torch.train import distill, f0, fine_tune, gan
+
+    def tensors(*modules_and_opts):
+        out = {}
+        for i, x in enumerate(modules_and_opts):
+            if isinstance(x, torch.optim.Optimizer):
+                for j, st in enumerate(x.state.values()):
+                    out.update({f"{i}.{j}.{k}": torch.as_tensor(v).clone()
+                                for k, v in st.items()})
+            else:
+                out.update({f"{i}.{k}": v.clone() for k, v in x.state_dict().items()})
+        return out
+
+    wave, amp, jitter = spec["wave"], spec["amp"], spec["jitter"]
+    got = {}
+    ce, f0m, dec, disc, _ = train_models(spec, spec["disc_kw"])
+    st = gan.init_gan(dec, disc)
+    for _ in range(2):
+        gan.gan_train_step(st, ce, f0m, wave, amp, jitter, group=group)
+    got["gan"] = (tensors(st.dec, st.disc, st.opt_g, st.opt_d), st.step)
+    ce, f0m, dec, disc, vl = train_models(spec, spec["mpd_kw"])
+    st = fine_tune.init_fine_tune(dec, disc, vl)
+    for _ in range(2):
+        fine_tune.fine_tune_step(st, ce, f0m, wave, amp, group=group)
+    got["fine_tune"] = (tensors(st.dec, st.disc, st.vl, st.opt_g, st.opt_d, st.opt_vl), st.step)
+    st = f0.init_f0_train(f0m)
+    for _ in range(2):
+        f0.f0_train_step(st, spec["f0_wave"], spec["f0_hz"], spec["f0_amp"], group)
+    got["f0"] = (tensors(st.model, st.opt), st.step)
+    student = ContentEncoder(tc.ContentEncoderConfig(**spec["ce_kw"]))
+    student.load_state_dict(spec["ce"])
+    st = distill.init_distill(student)
+    teacher = spec["teacher"]
+    for _ in range(2):
+        distill.distill_step(st, spec["f0_wave"], teacher, group)
+    got["distill"] = (tensors(st.model, st.opt), st.step)
+    return got
+
+
+def run_one_rank(tmp: str) -> None:
+    """Each trainer's two steps alone (``group=None``) and inside a gloo
+    group of one rank, from ``tmp/train_inputs.pt``; writes
+    ``tmp/one_rank.pt`` {'alone': ..., 'group': ...}."""
+    from alivevc_tpu_torch.parallel import init_distributed
+
+    torch.set_num_threads(1)
+    spec = torch.load(os.path.join(tmp, "train_inputs.pt"), weights_only=False)
+    out = {"alone": train_states(spec, None)}
+    init_distributed("gloo", f"file://{tmp}/one_rank_rendezvous", 1, 0)
+    try:
+        out["group"] = train_states(spec, dist.group.WORLD)
+        torch.save(out, os.path.join(tmp, "one_rank.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
 def run_distill_rank(rank: int, world: int, tmp: str) -> None:
     """Rank ``rank`` of the data-parallel distillation step: this rank's
-    slice of ``tmp/distill_inputs.pt``'s batch through ``dp_distill_grads``,
-    then ``dp_distill_step`` twice; writes ``tmp/distill_rank<rank>.pt`` (the
+    slice of ``tmp/distill_inputs.pt``'s batch through ``distill_grads``,
+    then ``distill_step`` twice, under the process group; writes ``tmp/distill_rank<rank>.pt`` (the
     gradients, the losses, and the parameters after each step)."""
     from alivevc_tpu_torch import config as tc
     from alivevc_tpu_torch.models.content_encoder import ContentEncoder
     from alivevc_tpu_torch.parallel import init_distributed
-    from alivevc_tpu_torch.train.distill import dp_distill_grads, dp_distill_step, init_distill
+    from alivevc_tpu_torch.train.distill import distill_grads, distill_step, init_distill
 
     torch.set_num_threads(1)
     spec = torch.load(os.path.join(tmp, "distill_inputs.pt"), weights_only=False)
@@ -189,10 +254,12 @@ def run_distill_rank(rank: int, world: int, tmp: str) -> None:
         state = init_distill(ce)
         per = spec["wave"].shape[0] // world
         mine = slice(rank * per, (rank + 1) * per)
-        out = {"grads": dp_distill_grads(state, spec["wave"][mine], spec["teacher"][mine]),
+        group = dist.group.WORLD
+        out = {"grads": distill_grads(state, spec["wave"][mine], spec["teacher"][mine], group),
                "loss": [], "params": []}
         for _ in range(2):
-            out["loss"].append(dp_distill_step(state, spec["wave"][mine], spec["teacher"][mine])["loss"])
+            out["loss"].append(distill_step(state, spec["wave"][mine], spec["teacher"][mine],
+                                            group)["loss"])
             out["params"].append({k: v.clone() for k, v in state.model.state_dict().items()})
         torch.save(out, os.path.join(tmp, f"distill_rank{rank}.pt"))
     finally:

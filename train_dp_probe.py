@@ -1,7 +1,7 @@
 """Probe of chip_smoke.py's data-parallel training check (phase 8, step 6),
 on one CUDA card: ``python3 train_dp_probe.py [--seeds N]``.
 
-``dp_gan_grads`` runs on 2 gloo ranks on the one card (batch 2 each, 38 400
+``gan_grads`` runs on 2 gloo ranks on the one card, given their group (batch 2 each, 38 400
 samples, full width, TF32 off), over N batches (seeds 30, 40, ... from
 chip_smoke's SEED).  Against each batch's ranks the main process computes
 two references:
@@ -50,7 +50,7 @@ def rank_main(rank: int, tmp: str, seeds) -> None:
     import torch
     import torch.distributed as dist
     from alivevc_tpu_torch.parallel import init_distributed
-    from alivevc_tpu_torch.train.gan import dp_gan_grads, init_gan
+    from alivevc_tpu_torch.train.gan import gan_grads, init_gan
 
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -62,7 +62,8 @@ def rank_main(rank: int, tmp: str, seeds) -> None:
         for seed in seeds:
             wave, amp, jitter = batch(seed)
             sl = slice(2 * rank, 2 * rank + 2)
-            g, d, _ = dp_gan_grads(init_gan(dec, disc), ce, f0m, wave[sl], amp[sl], jitter)
+            g, d, _ = gan_grads(init_gan(dec, disc), ce, f0m, wave[sl], amp[sl], jitter,
+                                group=dist.group.WORLD)
             out.append({"g": [x.cpu() for x in g], "d": [x.cpu() for x in d]})
         torch.cuda.synchronize()
         if rank == 0:
