@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels for Hopper (``csrc/``), each beside its plain
 PyTorch version: STFT magnitude, cosine top-k (with row exclusion and the
 packed extraction), the Chebyshev, full-formant and streaming harmonic
-sources, and one filter U-Net up level.  ``LAUNCHES`` counts the launches on the card.
+sources, one filter U-Net up level, and one ResBlock conv of kNN-VC's
+HiFi-GAN vocoder.  ``LAUNCHES`` counts the launches on the card.
 
 The kernel API mirrors ``alivevc_tpu/kernels/__init__.py``: ``knn_topk``,
 ``match_features``, ``stft_magnitude`` and ``harmonic_source_formants``.

@@ -43,7 +43,7 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 NATIVE = PKG / "native"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("stft", "knn", "knn_carried", "oscillator", "filter")
+SOURCES = ("stft", "knn", "knn_carried", "oscillator", "filter", "hifigan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -56,7 +56,7 @@ LAUNCHES: Dict[str, int] = {"stft": 0, "knn": 0, "oscillator": 0, "filter_level"
                             "filter_narrow": 0, "filter_wide": 0,
                             "knn_packed": 0, "oscillator_formants": 0, "knn_merge": 0,
                             "knn_carried": 0, "knn_carried_packed": 0, "knn_prep": 0,
-                            "oscillator_stream": 0}
+                            "oscillator_stream": 0, "hifigan_conv": 0}
 
 # the profiler span each kernel ``Function``'s backward recomputes its
 # plain version in (``plain_vjp``; chip_smoke.py reads the device time under it)

@@ -8,9 +8,14 @@ family: WavLM features [N, T, 1 024] -> 16 kHz waveform [N, 320 T].
 
 The state dict has the published module names with weight norm removed
 (kNN-VC calls ``remove_weight_norm`` before inference), so each conv holds a
-plain ``weight``.  Plain ``F.conv1d`` / ``F.conv_transpose1d`` on the
-channels-first layout the convolutions take; the caller chooses the math
-(``device.float32_math`` in the fp32 mode).
+plain ``weight``.  ``lin_pre``, ``conv_pre``, the transposed convs and
+``conv_post`` are plain ``F.conv1d`` / ``F.conv_transpose1d`` on the
+channels-first layout they take; the caller chooses their math
+(``device.float32_math`` in the fp32 mode).  The ResBlocks of a stage run
+channels last, [N, T, C], one ``kernels/hifigan.py:hifigan_conv`` a conv
+(the leaky ReLU before it, the residual and the stack mean after it
+inside the call; 3xTF32 on the card), between one layout change after the
+transposed conv and one before the next.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from alivevc_tpu_torch.config import HiFiGANConfig
+from alivevc_tpu_torch.kernels.hifigan import hifigan_conv
 
 
 def _padding(k: int, dilation: int = 1) -> int:
@@ -61,10 +67,20 @@ def _conv(conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
     return F.conv1d(x, conv.weight, conv.bias, padding=conv.padding, dilation=conv.dilation)
 
 
-def _resblock(m: _ResBlock1, x: torch.Tensor, slope: float) -> torch.Tensor:
-    for c1, c2 in zip(m.convs1, m.convs2):
-        x = x + _conv(c2, F.leaky_relu(_conv(c1, F.leaky_relu(x, slope)), slope))
-    return x
+def _resblocks(blocks, x: torch.Tensor, slope: float) -> torch.Tensor:
+    """The mean of a stage's ResBlock1 stacks on x [N, T, C]: each pair
+    x + c2(leaky(c1(leaky(x)))), the stacks' sum taken by the last conv of
+    each, in the order ((rb0 + rb1) + rb2) / 3 (three stacks)."""
+    acc = None
+    for s, m in enumerate(blocks):
+        h, pairs = x, list(zip(m.convs1, m.convs2))
+        for p, (c1, c2) in enumerate(pairs):
+            y = hifigan_conv(h, c1, slope)
+            last = p == len(pairs) - 1
+            h = hifigan_conv(y, c2, slope, res=h, acc=acc if last else None,
+                             stack=(s, len(blocks)) if last else None)
+        acc = h
+    return acc
 
 
 def hifigan(m: HiFiGAN, feats: torch.Tensor) -> torch.Tensor:
@@ -78,10 +94,7 @@ def hifigan(m: HiFiGAN, feats: torch.Tensor) -> torch.Tensor:
     for i, up in enumerate(m.ups):
         x = F.conv_transpose1d(F.leaky_relu(x, slope), up.weight, up.bias, stride=up.stride,
                                padding=up.padding)
-        blocks = m.resblocks[i * kernels:(i + 1) * kernels]
-        xs = _resblock(blocks[0], x, slope)
-        for b in blocks[1:]:
-            xs = xs + _resblock(b, x, slope)
-        x = xs / kernels
+        x = _resblocks(m.resblocks[i * kernels:(i + 1) * kernels], x.transpose(1, 2).contiguous(), slope)
+        x = x.transpose(1, 2).contiguous()                                # [N, C, T]
     x = _conv(m.conv_post, F.leaky_relu(x))                               # slope 0.01
     return torch.tanh(x)[:, 0]

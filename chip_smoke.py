@@ -50,7 +50,20 @@ printing the final line:
      through both forms on one draw ("A/B" rows).  The kNN-VC cell's
      retrieval has rows of its own, "(kNN-VC)": 1 024 features, 370 and
      1 240 queries against 23 947 rows, 'high', and the merge and prep at
-     370 queries, each held to its plain version.  Every kNN row also
+     370 queries, each held to its plain version.  The kNN-VC vocoder's
+     ResBlock convs (``csrc/hifigan.cu``) have a row a stage, "(kNN-VC
+     vocoder)": the stage's 18 convs (3 stacks x 3 dilations x 2) at C =
+     256, 128, 64, 32 on the cell's mean file (370 frames: 3 700 to
+     118 400 rows), the stack mean included, against the same stage
+     through ``hifigan_conv_plain``, with cuDNN's float32 convs and their
+     leaky, residual and stack passes channels first as the library call
+     (what the vocoder ran before; the port no longer calls it).  Then the
+     cell's whole path, ``KnnVCConverter.convert`` at full width (WavLM-Large
+     to layer 6, 'high' retrieval over 23 947 x 1 024 rows, the vocoder;
+     weights from the seed) on one 7.4 s file, its counters zeroed before
+     and read after: ``hifigan_conv`` 72 launches, the two-pass kNN kernels
+     each launched, and six convolutions inside ``knnvc.vocoder``
+     (conv_pre, four transposed convs, conv_post).  Every kNN row also
      records ``kernel_ms``, its form's kernels alone (torch.profiler),
      ``library_norm_ms``, ``matmul`` + ``topk`` with the normalisation of
      both operands (the function's whole work; ``library_ms`` starts from
@@ -210,6 +223,7 @@ import statistics
 import subprocess
 import sys
 import time
+from unittest import mock
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, float32 outside
 # the tensor cores, bf16 and TF32 on the tensor cores.
@@ -230,6 +244,7 @@ SHARD_TIMEOUT_S = 600
 SEED = 0
 KNNVC_ROWS = 23_947             # offline-knnvc-libri's matching set: 480 s of speech, WavLM's frames
 KNNVC_QUERIES = (370, 1_240)    # the frames of its mean (7.4 s) and longest (~25 s) files
+KNNVC_MEAN_S = 7.4              # its mean file, seconds at 16 kHz (370 frames)
 OFFLINE_KERNELS = ("stft", "knn_prep", "knn", "knn_merge", "oscillator", "filter_level", "filter_narrow",
                    "filter_wide")
 SHARDED_KERNELS = ("knn_prep", "knn", "knn_merge", "oscillator", "filter_level", "filter_narrow", "filter_wide")
@@ -542,6 +557,134 @@ def check_knn_wide():
     rows.append(check_knn_merge(gen, KNNVC_ROWS, "high", ls=KNNVC_QUERIES[0], dim=1024, suffix=" (kNN-VC)"))
     rows.append(check_knn_prep(gen, KNNVC_ROWS, "high", ls=KNNVC_QUERIES[0], dim=1024, suffix=" (kNN-VC)"))
     return rows
+
+
+HIFIGAN_STAGES = ((256, 3_700), (128, 29_600), (64, 59_200), (32, 118_400))   # C, rows at 370 frames
+HIFIGAN_TOL = 1e-4   # tests/test_torch_port_gpu.py's, of max(1, the plain stage's peak)
+
+
+def check_hifigan_stages():
+    """The kNN-VC vocoder's ResBlocks, a stage a row: ``models/hifigan.py:
+    _resblocks`` (18 kernel launches) against the same convs through
+    ``hifigan_conv_plain``, the library call the channels-first cuDNN
+    composition the vocoder ran before.  The bound: each conv's 3xTF32
+    operations at 495 / 3 TFLOP/s, or its bytes (x and out, the residual
+    for the second of a pair, the running sum for the last conv of every
+    stack past the first) at the card's memory rate, the larger, summed.
+    Weights at nn.Conv1d's initial range, from a generator of their own."""
+    import torch
+    import torch.nn.functional as F
+    from alivevc_tpu_torch.config import HiFiGANConfig
+    from alivevc_tpu_torch.kernels import hifigan as kh
+    from alivevc_tpu_torch.models import hifigan as mh
+
+    cfg = HiFiGANConfig()
+    slope, stacks = cfg.lrelu_slope, len(cfg.resblock_kernel_sizes)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    with torch.random.fork_rng(devices=[]):   # the modules' initial draws leave the global generator as it was
+        torch.manual_seed(SEED + 25)
+        stages = [[mh._ResBlock1(c, k, d).cuda().eval()
+                   for k, d in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes)] for c, _ in HIFIGAN_STAGES]
+    rows = []
+    for (c, length), blocks in zip(HIFIGAN_STAGES, stages):
+        x = torch.randn(1, length, c, generator=gen, device="cuda")
+        xc = x.transpose(1, 2).contiguous()
+
+        def plain_conv(x, conv, slope, res=None, acc=None, stack=None):
+            return kh.hifigan_conv_plain(x, conv.weight, conv.bias, conv.dilation[0], slope, res, acc, stack)
+
+        def plain():
+            with mock.patch.object(mh, "hifigan_conv", plain_conv):
+                return mh._resblocks(blocks, x, slope)
+
+        def library_call():   # the channels-first composition on cuDNN's float32 convs
+            def conv(m, v):
+                return F.conv1d(v, m.weight, m.bias, padding=m.padding, dilation=m.dilation)
+            xs = None
+            for b in blocks:
+                h = xc
+                for c1, c2 in zip(b.convs1, b.convs2):
+                    h = h + conv(c2, F.leaky_relu(conv(c1, F.leaky_relu(h, slope)), slope))
+                xs = h if xs is None else xs + h
+            return xs / stacks
+
+        got = mh._resblocks(blocks, x, slope)
+        want = plain()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+        need(err <= HIFIGAN_TOL, f"hifigan_conv C={c}: err {err} > {HIFIGAN_TOL}")
+        bounds = []
+        for s, (k, dils) in enumerate(zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes)):
+            for p in range(len(dils)):
+                # c1 reads x and writes out; c2 reads the residual too, and the last of a stack
+                # past the first the running sum
+                for arrays in (2, 3 + (p == len(dils) - 1 and s > 0)):
+                    bounds.append(bound_ms(arrays * length * c * 4, 2 * length * k * c * c, PEAK_TF32 / 3))
+        kinds = sorted({by for _, by in bounds})
+        rows.append({
+            "name": "hifigan_conv", "variant": f"[1, {length}, {c}] 18 convs f32 (kNN-VC vocoder)",
+            "max_abs_err": err, "tol": HIFIGAN_TOL,
+            "ms": cuda_ms(lambda: mh._resblocks(blocks, x, slope)),
+            "plain_ms": cuda_ms(plain, 2),
+            "library_ms": cuda_ms(library_call),
+            "bound_ms": sum(b for b, _ in bounds), "bound_by": " and ".join(kinds),
+            "grid": [kh.conv_plan(1, length, c, k, 1, kh.sm_count(0)) for k in cfg.resblock_kernel_sizes],
+        })
+    return rows
+
+
+def run_knnvc_path(card):
+    """The kNN-VC cell's path at full width: ``KnnVCConverter.convert``
+    (WavLM-Large to layer 6, the 4-NN mean in 'high' over a ``KNNVC_ROWS``
+    x 1 024 matching set, the vocoder), weights and matching set from the
+    seed, on one 16 kHz file of the cell's mean length.  The first convert
+    warms up; the counters are zeroed just before the second and read just
+    after, under the profiler: ``hifigan_conv`` must launch 72 times (4
+    stages x 3 stacks x 3 dilations x 2 convs), the two-pass kNN kernels
+    each at least once, and inside ``knnvc.vocoder`` the profiler must see
+    six convolutions (conv_pre, the four transposed convs, conv_post) and no
+    other.  Returns the counts."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from alivevc_tpu_torch.config import HiFiGANConfig
+    from alivevc_tpu_torch.infer.offline import KnnVC, KnnVCConverter
+    from alivevc_tpu_torch.kernels import LAUNCHES, reset_launches
+    from alivevc_tpu_torch.models.hifigan import HiFiGAN
+    from alivevc_tpu_torch.models.wavlm import WAVLM_LARGE, WavLM
+    from alivevc_tpu_torch.utils.profiling import PREFIX
+
+    with torch.random.fork_rng(devices=[0]):    # the other phases draw as before
+        torch.manual_seed(SEED + 26)
+        with torch.device("cuda"):
+            model = KnnVC(WavLM(WAVLM_LARGE).eval(), HiFiGAN(HiFiGANConfig()).eval(), 6)
+            mset = torch.randn(KNNVC_ROWS, 1024)
+    conv = KnnVCConverter(model, mset, device="cuda")
+    wave = request_wave(KNNVC_MEAN_S, np.random.default_rng(SEED + 26))
+    conv.convert(wave, 16_000)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = conv.convert(wave, 16_000)
+    dt = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    events = prof.events()
+    spans = [e.time_range for e in events if e.name == PREFIX + "knnvc.vocoder"]
+    need(len(spans) == 1, f"kNN-VC path: {len(spans)} knnvc.vocoder spans, expected 1")
+    convs = sum(e.name == "aten::convolution" and spans[0].start <= e.time_range.start <= spans[0].end
+                for e in events)
+    print(f"kNN-VC path [{card}]: KnnVCConverter.convert of {KNNVC_MEAN_S} s at 16 kHz, WavLM-Large to "
+          f"layer 6, {KNNVC_ROWS} x 1024 matching set 'high': {dt:.3f} s wall (profiled); launches {launches}; "
+          f"convolutions inside knnvc.vocoder {convs} (expected 6)")
+    need(out.shape == wave.shape and bool(np.isfinite(out).all()),
+         f"kNN-VC path: output {out.shape}, finite {bool(np.isfinite(out).all())}")
+    need(launches["hifigan_conv"] == 72, f"kNN-VC path: hifigan_conv launched {launches['hifigan_conv']} times, "
+                                         f"expected 72")
+    need(all(launches[k] > 0 for k in ("knn_prep", "knn", "knn_merge")), f"kNN-VC path: launches {launches}")
+    need(convs == 6, f"kNN-VC path: {convs} convolutions inside knnvc.vocoder, expected 6")
+    return launches
 
 
 def check_oscillator(gen):
@@ -3373,6 +3516,9 @@ REPLACES = {
     "oscillator_stream": ("alivevc_tpu_torch/csrc/oscillator.cu (osc_stream_chain_kernel + osc_stream_kernel)",
                           "none: the JAX package's streaming source is plain jnp.cumsum "
                           "(alivevc_tpu/models/decoder.py:139)"),
+    "hifigan_conv": ("alivevc_tpu_torch/csrc/hifigan.cu (hifigan_conv_kernel)",
+                     "none: cuDNN's float32 convs of the kNN-VC vocoder's ResBlocks (the JAX package has no "
+                     "kNN-VC); launched by phase 2's kNN-VC convert, 72 a call, and by no phase below"),
 }
 
 
@@ -3392,8 +3538,8 @@ def kernels_line(rows, launches):
     packed kNN at the 100 352-row library; the carried kNN form at the
     streaming hop, 'high', and its packed kernel at 512 rows); every measured variant, the
     streaming hop's and the training Functions' included, is listed under 'variants'.  Launches
-    are summed over the paths driven (phases 3, 4 with both ranks, 5, 6, 7 with both ranks, 8, 9,
-    10 with its deterministic sub-run, 11)."""
+    are summed over the paths driven (phase 2's kNN-VC convert, phases 3, 4 with both ranks, 5, 6,
+    7 with both ranks, 8, 9, 10 with its deterministic sub-run, 11)."""
     out = []
     for name, (source, replaces) in REPLACES.items():
         mine = [r for r in rows if r["name"] == name]
@@ -3522,10 +3668,13 @@ def main() -> int:
     for lib_rows in (512, LIB_ROWS):
         rows.append(check_knn(gen, lib_rows, "default", extraction="packed"))
     rows.extend(check_knn_wide())
+    rows.extend(check_hifigan_stages())
     rows.append(check_oscillator(gen))
     rows.append(check_formants(gen))
     rows.extend(check_filter_levels(gen, dec))
     print_rows(rows, card)
+    torch.cuda.empty_cache()
+    knnvc_launches = run_knnvc_path(card)
     torch.cuda.empty_cache()
     print(f"phase 2 done at {time.perf_counter() - t_start:.1f} s")
 
@@ -3591,7 +3740,7 @@ def main() -> int:
         chain_launches, chain = run_cli_chain(card)
     print(f"phase 11 done at {time.perf_counter() - t_start:.1f} s; report {json.dumps(chain)}")
 
-    total = {k: launches[k] + sharded_launches[k] + api_launches[k] + rt_launches[k]
+    total = {k: knnvc_launches[k] + launches[k] + sharded_launches[k] + api_launches[k] + rt_launches[k]
              + halo_launches[k] + train_launches[k] + distill_launches[k] + resume_launches[k]
              + chain_launches[k] for k in launches}
     print(json.dumps(kernels_line(rows, total)))

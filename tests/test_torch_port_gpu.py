@@ -30,7 +30,11 @@ The sharded path: 2 gloo ranks on one card against 1 rank,
 identical 'highest' index sets and the waveform within 1e-4 (float32 sums
 of the k rows split over the shards, in another order).  The offline driver:
 bit-equal to the frozen NumPy driver it replaced (the same batches and
-element-wise float32 operations).
+element-wise float32 operations).  kNN-VC's vocoder conv (3xTF32 against
+cuDNN's float32 conv in another summation order): 1e-4 of max(1, the
+plain output's peak) a conv (it reads up to 2.3e-5; the plain version on
+TF32-rounded operands reads 2.8e-4 to 4.1e-4), and the whole vocoder's
+waveform within 1e-5 of its peak (1.2e-6; TF32 operands 3.7e-4).
 """
 
 import multiprocessing
@@ -1805,3 +1809,130 @@ def test_offline_driver_keeps_the_file_on_the_card_on_card():
     err = float(np.abs(got - want).max())
     print(f"driver against the frozen driver: max gap {err}, the frozen driver's own {gap}")
     assert err <= gap, (err, gap)
+
+
+# kNN-VC's vocoder (HiFiGANConfig): each stage's channels, and its length at
+# the cell's mean file (370 frames: x 10, 80, 160, 320) and at its longest (1 250)
+HIFIGAN_STAGES = ((256, 3_700, 12_500), (128, 29_600, 100_000), (64, 59_200, 200_000), (32, 118_400, 400_000))
+HIFIGAN_FORMS = {"plain": None, "residual": None, "stack_first": (0, 3), "stack_middle": (1, 3),
+                 "stack_last": (2, 3)}
+HIFIGAN_TOL = 1e-4       # of max(1, the plain output's peak)
+HIFIGAN_WAVE_TOL = 1e-5  # the whole generator's waveform, of its peak
+
+
+def _hifigan_conv_case(g, n, length, c, k, d, form):
+    """The kernel and the plain version's conv on operands rounded to TF32
+    (one pass: x and the weights), each against the plain version, over
+    max(1, its peak)."""
+    from alivevc_tpu_torch.kernels import hifigan as kh
+
+    x = torch.randn(n, length, c, generator=g, device="cuda")
+    bound = (k * c) ** -0.5                        # nn.Conv1d's initial range
+    w = (2 * torch.rand(c, c, k, generator=g, device="cuda") - 1) * bound
+    b = (2 * torch.rand(c, generator=g, device="cuda") - 1) * bound
+    res = None if form == "plain" else torch.randn(n, length, c, generator=g, device="cuda")
+    acc = torch.randn(n, length, c, generator=g, device="cuda")
+    stack = HIFIGAN_FORMS[form]
+    hi, lo = kh.split_tf32(w.permute(0, 2, 1).reshape(c, -1))
+    got = kh.hifigan_conv_cuda(x, hi, lo, b, k, d, 0.1, res, acc.clone(), stack)
+    want = kh.hifigan_conv_plain(x, w, b, d, 0.1, res, acc.clone(), stack)
+    tf32 = kh.hifigan_conv_plain(kh.split_tf32(x)[0], kh.split_tf32(w)[0], b, d, 0.1, res, acc.clone(), stack)
+    scale = max(1.0, float(want.abs().max()))
+    return max_err(got, want) / scale, max_err(tf32, want) / scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [s[0] for s in HIFIGAN_STAGES])
+def test_hifigan_conv_edges_on_card(c):
+    """On the card: the ResBlock1 conv kernel against its plain version
+    (cuDNN's float32 conv, TF32 off) at every (taps, dilation) of the
+    vocoder's stage of C channels, in each epilogue form, at lengths
+    shorter than the taps' halo (5), than a tile (40), not a multiple of 64
+    (321, two files) and the cell's longest file.  3xTF32 against float32
+    in another summation order reads ~2e-5 of the peak; one pass of TF32
+    (10 mantissa bits) reads ~1e-3, and must fail the same tolerance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; on the card run this file with --noconftest -m gpu")
+    from alivevc_tpu_torch.device import float32_math
+
+    g = torch.Generator(device="cuda").manual_seed(c)
+    longest = {s[0]: s[2] for s in HIFIGAN_STAGES}[c]
+    forms = list(HIFIGAN_FORMS)
+    errs, i = [], 0
+    with float32_math():       # the plain conv in float32 (TF32 off), as the vocoder runs
+        for k in (3, 7, 11):
+            for d in (1, 3, 5):
+                for n, length in ((2, 5), (1, 40), (2, 321), (1, longest)):
+                    for form in (forms if length < 1000 else forms[i % len(forms):][:1]):
+                        errs.append((*_hifigan_conv_case(g, n, length, c, k, d, form), (k, d, n, length, form)))
+                    i += 1
+    worst, worst_tf32 = max(errs), max(e[1] for e in errs)
+    print(f"hifigan conv C={c}: worst {worst}, one-pass TF32 worst {worst_tf32:.3e}, "
+          f"least {min(e[1] for e in errs):.3e}")
+    assert worst[0] <= HIFIGAN_TOL < worst_tf32
+
+
+@pytest.mark.gpu
+def test_hifigan_kernel_path_matches_the_plain_path_on_card(monkeypatch):
+    """On the card: the whole vocoder at full width on a file of the cell's
+    mean length (370 frames) launches the conv kernel 72 times (4 stages x
+    3 stacks x 3 dilations x 2 convs) and runs six convolutions besides
+    (conv_pre, the four transposed convs, conv_post); its waveform is the
+    plain path's (each ResBlock conv through ``hifigan_conv_plain``) within
+    1e-5 of its peak (the kernel path reads ~1e-6), which the plain path on
+    TF32-rounded operands (~4e-4) does not meet."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; on the card run this file with --noconftest -m gpu")
+    from torch.profiler import ProfilerActivity, profile
+
+    from alivevc_tpu_torch.config import HiFiGANConfig
+    from alivevc_tpu_torch.device import float32_math
+    from alivevc_tpu_torch.kernels import _lib
+    from alivevc_tpu_torch.kernels import hifigan as kh
+    from alivevc_tpu_torch.models import hifigan as mh
+
+    torch.manual_seed(0)
+    m = mh.HiFiGAN(HiFiGANConfig()).cuda().eval()
+    feats = torch.randn(1, 370, 1024, generator=torch.Generator(device="cuda").manual_seed(1), device="cuda")
+    with torch.no_grad(), float32_math():
+        mh.hifigan(m, feats)
+        _lib.reset_launches()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            got = mh.hifigan(m, feats)
+        assert _lib.LAUNCHES["hifigan_conv"] == 72
+        assert sum(e.name == "aten::convolution" for e in prof.events()) == 6
+
+        def plain(x, conv, slope, res=None, acc=None, stack=None, tf32=False):
+            w = kh.split_tf32(conv.weight)[0] if tf32 else conv.weight
+            x = kh.split_tf32(x)[0] if tf32 else x
+            return kh.hifigan_conv_plain(x, w, conv.bias, conv.dilation[0], slope, res, acc, stack)
+
+        monkeypatch.setattr(mh, "hifigan_conv", plain)
+        want = mh.hifigan(m, feats)
+        monkeypatch.setattr(mh, "hifigan_conv", lambda *a, **kw: plain(*a, **kw, tf32=True))
+        tf32 = mh.hifigan(m, feats)
+    peak = float(want.abs().max())
+    err, err_tf32 = max_err(got, want) / peak, max_err(tf32, want) / peak
+    print(f"hifigan on the card: waveform peak {peak:.3e}, kernel path {err:.3e}, one-pass TF32 {err_tf32:.3e}")
+    assert got.shape == (1, 370 * 320) and err <= HIFIGAN_WAVE_TOL < err_tf32
+
+
+@pytest.mark.gpu
+def test_hifigan_conv_refuses_what_the_kernel_does_not_take_on_card():
+    """The wrapper raises on a float64 or a non-contiguous input, and on C
+    that is no multiple of 32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; on the card run this file with --noconftest -m gpu")
+    from alivevc_tpu_torch.kernels import hifigan as kh
+
+    x = torch.randn(1, 100, 64, device="cuda")
+    w = torch.randn(64, 64, 3, device="cuda") / 14
+    hi, lo = kh.split_tf32(w.permute(0, 2, 1).reshape(64, -1))
+    b = torch.zeros(64, device="cuda")
+    with pytest.raises(TypeError):
+        kh.hifigan_conv_cuda(x.double(), hi, lo, b, 3, 1, 0.1)
+    with pytest.raises(ValueError):
+        kh.hifigan_conv_cuda(x.transpose(1, 2).contiguous().transpose(1, 2), hi, lo, b, 3, 1, 0.1)
+    with pytest.raises(ValueError):
+        kh.hifigan_conv_cuda(x[..., :48].contiguous(), hi[:48, :144].contiguous(), lo[:48, :144].contiguous(),
+                             b[:48].contiguous(), 3, 1, 0.1)
