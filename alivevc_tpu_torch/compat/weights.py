@@ -18,7 +18,7 @@ the five kinds to their modules and rules.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, NamedTuple
+from typing import Callable, Dict, Mapping, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -519,15 +519,18 @@ def wavlm_state(params) -> StateDict:
     return sd
 
 
-def wavlm_config(sd: Mapping[str, np.ndarray], stable_layer_norm: bool = False):
-    """The widths of a Hugging Face WavLM state dict (either weight-norm
-    form): layers by count, hidden width from the feature projection, heads
-    from ``gru_rel_pos_const``, the conv encoder's widths and taps, the
-    positional conv's taps and groups from its v, the bucket count, and the
-    conv norms' form ("layer" where the second conv has a norm too).  The
-    strides, the bucket distance and the norms' eps are not in the weights
-    and keep their defaults; pre-LN and post-LN layers hold the same keys,
-    so ``stable_layer_norm`` is given."""
+def wavlm_config(sd: Mapping[str, np.ndarray], stable_layer_norm: bool = False,
+                 num_heads: Optional[int] = None):
+    """The widths of a Hugging Face WavLM or HuBERT state dict (either
+    weight-norm form): layers by count, hidden width from the feature
+    projection, heads from ``gru_rel_pos_const``, the conv encoder's widths
+    and taps, the positional conv's taps and groups from its v, the bucket
+    count, and the conv norms' form ("layer" where the second conv has a norm
+    too).  A state dict without the gate's keys is HuBERT's: no relative
+    position bias, and its head count is not in the weights, so
+    ``num_heads`` gives it.  The strides, the bucket distance and the norms'
+    eps are not in the weights and keep their defaults; pre-LN and post-LN
+    layers hold the same keys, so ``stable_layer_norm`` is given."""
     from alivevc_tpu_torch.models.wavlm import WavLMConfig
 
     n_conv = _count(sd, "feature_extractor.conv_layers.{}.")
@@ -537,10 +540,13 @@ def wavlm_config(sd: Mapping[str, np.ndarray], stable_layer_norm: bool = False):
         v = sd[f"{_WAVLM_POS}.weight_v"]                     # [C, C / groups, k]
     hidden = sd["feature_projection.projection.weight"].shape[0]
     d = WavLMConfig()
+    gate = sd.get("encoder.layers.0.attention.gru_rel_pos_const")
+    if gate is None and num_heads is None:
+        raise ValueError("a state dict without relative position bias (HuBERT) needs num_heads")
     return WavLMConfig(
         hidden_size=hidden,
         num_layers=_count(sd, "encoder.layers.{}."),
-        num_heads=sd["encoder.layers.0.attention.gru_rel_pos_const"].shape[1],
+        num_heads=gate.shape[1] if gate is not None else num_heads,
         intermediate_size=sd["encoder.layers.0.feed_forward.intermediate_dense.weight"].shape[0],
         conv_dim=tuple(w.shape[0] for w in convs),
         conv_kernel=tuple(w.shape[2] for w in convs),
@@ -548,7 +554,9 @@ def wavlm_config(sd: Mapping[str, np.ndarray], stable_layer_norm: bool = False):
         conv_bias="feature_extractor.conv_layers.0.conv.bias" in sd,
         num_conv_pos_embeddings=v.shape[2],
         num_conv_pos_embedding_groups=hidden // v.shape[1],
-        num_buckets=sd["encoder.layers.0.attention.rel_attn_embed.weight"].shape[0],
+        num_buckets=sd["encoder.layers.0.attention.rel_attn_embed.weight"].shape[0] if gate is not None
+        else d.num_buckets,
         feat_extract_norm="layer" if "feature_extractor.conv_layers.1.layer_norm.weight" in sd else "group",
         do_stable_layer_norm=stable_layer_norm,
+        relative_position_bias=gate is not None,
     )

@@ -112,6 +112,83 @@ class HiFiGANConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class NsfGeneratorConfig:
+    """RVC's source-filter generator ``GeneratorNSF``
+    (infer/lib/infer_pack/models.py) at 40 kHz (configs/v1/40k.json): the
+    prior's 192 channels at 100 frames a second -> x400 upsampling in four
+    transposed convs, each followed by the source through its noise conv and
+    the mean of three ResBlock1 stacks; a sine source of the frame-rate F0
+    (``SourceModuleHnNSF``, harmonic_num 0) and the speaker's conditioning."""
+
+    initial_channel: int = 192
+    upsample_initial_channel: int = 512
+    upsample_rates: Tuple[int, ...] = (10, 10, 2, 2)
+    upsample_kernel_sizes: Tuple[int, ...] = (16, 16, 4, 4)
+    resblock_kernel_sizes: Tuple[int, ...] = (3, 7, 11)
+    resblock_dilation_sizes: Tuple[Tuple[int, ...], ...] = ((1, 3, 5), (1, 3, 5), (1, 3, 5))
+    gin_channels: int = 256
+    sample_rate: int = 40_000
+    sine_amp: float = 0.1
+    noise_std: float = 0.003
+    lrelu_slope: float = 0.1
+
+    @property
+    def hop_length(self) -> int:
+        return math.prod(self.upsample_rates)     # output samples a frame: 400
+
+
+@dataclasses.dataclass(frozen=True)
+class RvcConfig:
+    """RVC v2's synthesizer ``SynthesizerTrnMs768NSFsid`` at inference: the
+    prior ``enc_p`` (TextEncoder768: 768-wide content + a 256-bin pitch
+    embedding, 6 post-LN layers of VITS relative-position attention, window
+    10), the reversed flow (4 mean-only coupling layers of 3 gated WaveNet
+    layers), the speaker table ``emb_g`` and the generator."""
+
+    phone_channels: int = 768
+    inter_channels: int = 192
+    hidden_channels: int = 192
+    filter_channels: int = 768
+    n_heads: int = 2
+    n_layers: int = 6
+    kernel_size: int = 3
+    window_size: int = 10
+    pitch_bins: int = 256
+    flow_kernel_size: int = 5
+    flow_dilation_rate: int = 1
+    flow_layers: int = 3
+    n_flows: int = 4
+    gin_channels: int = 256
+    spk_embed_dim: int = 109
+    noise_scale: float = 0.66666
+    generator: NsfGeneratorConfig = NsfGeneratorConfig()
+
+
+@dataclasses.dataclass(frozen=True)
+class RvcInferenceConfig:
+    """RVC's inference settings (infer/modules/vc/pipeline.py, configs/
+    config.py in float32): 160-sample frames at 16 kHz; a file over
+    ``x_max`` s is cut near every ``x_center`` s at the quietest frame within
+    ``x_query`` s, each segment converted with ``x_pad`` s of context on each
+    side; the 5th-order 48 Hz Butterworth high-pass; k = 8 retrieval blended
+    at ``index_rate``; ``protect`` for unvoiced frames; the pitch bins' range."""
+
+    window: int = 160
+    x_pad: int = 1
+    x_query: int = 6
+    x_center: int = 38
+    x_max: int = 41
+    highpass_order: int = 5
+    highpass_hz: float = 48.0
+    k: int = 8
+    index_rate: float = 0.75
+    protect: float = 0.33
+    sid: int = 0
+    f0_min: float = 50.0
+    f0_max: float = 1100.0
+
+
+@dataclasses.dataclass(frozen=True)
 class DiscriminatorConfig:
     """MPD + MRD GAN discriminators (module/discriminator.py:86-174)."""
 

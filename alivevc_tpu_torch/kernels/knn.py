@@ -55,6 +55,14 @@ Row exclusion, in every mode (the sharded path's shard padding):
 With fewer than k rows left, the missing places hold value -inf and index
 ``SENTINEL``.
 
+L2 mode (``normalize=False``; ``l2_topk``): the operands as they are (row
+scales of one in the prep launch), and the penalty ``l2_penalty(library)`` =
+-1/2 |x|^2, so the tile ranks q.x - |x|^2 / 2 = (|q|^2 - |q - x|^2) / 2:
+the order of increasing squared L2 distance, ties to the smallest index.  It
+takes the two-pass form at any library size (the carried form normalises
+inside its own first launch), so ``knn_topk`` and ``knn_topk_cuda`` have
+no such mode.
+
 ``extraction='packed'`` (``knn_pallas.py:_knn_kernel_fast``/``_pack_topk``)
 applies only to 'default' with no exclusion and k <= 8, and falls back to
 the exact extraction otherwise, as ``knn_pallas.py:323-329`` does.  Scores
@@ -108,13 +116,23 @@ def normalize_rows(x: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch
     return torch.mul(x, row_scales(x), out=torch.empty(x.shape, dtype=dtype, device=x.device))
 
 
-def prep_operands(source: torch.Tensor, library: torch.Tensor, precision: str):
-    """Normalised operands in the mode's type: bf16 for 'default' (the
-    float32 product rounded once as it is stored), float32 otherwise."""
+def prep_operands(source: torch.Tensor, library: torch.Tensor, precision: str, normalize: bool = True):
+    """Normalised operands (as they are in the L2 mode) in the mode's type:
+    bf16 for 'default' (the float32 product rounded once as it is stored),
+    float32 otherwise."""
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}")
     dt = torch.bfloat16 if precision == "default" else torch.float32
+    if not normalize:
+        return source.float().to(dt), library.float().to(dt)
     return normalize_rows(source, dt), normalize_rows(library, dt)
+
+
+def l2_penalty(library: torch.Tensor) -> torch.Tensor:
+    """[Lr] float32 -|x|^2 / 2 of the library's rows: the L2 mode's penalty,
+    computed once a library."""
+    x = library.float()
+    return (x * x).sum(dim=1) * -0.5
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -180,13 +198,13 @@ def packed_keys(sims: torch.Tensor) -> torch.Tensor:
 
 def knn_topk_plain(source: torch.Tensor, library: torch.Tensor, k: int = 4,
                    precision: str = "default", valid_rows=None, penalty=None,
-                   extraction: str = "auto", q_chunk: int = 1024):
+                   extraction: str = "auto", q_chunk: int = 1024, normalize: bool = True):
     """(values [Ls, k] float32, indices [Ls, k] int64): the scores of the
     mode's operands computed in float32, plus ``penalty``, rows past
     ``valid_rows`` masked, exact top-k per query (or top-k of the packed
     keys)."""
     packed = uses_packed(precision, k, valid_rows, penalty, extraction)
-    src, lib = prep_operands(source, library, precision)
+    src, lib = prep_operands(source, library, precision, normalize)
     lr = lib.shape[0]
     lib_t = lib.float().t()
     excluded = None
@@ -217,13 +235,14 @@ def prep_width(d: int, precision: str) -> int:
     return -(-d // mult) * mult
 
 
-def knn_prep_plain(source: torch.Tensor, library: torch.Tensor, precision: str):
+def knn_prep_plain(source: torch.Tensor, library: torch.Tensor, precision: str, normalize: bool = True):
     """The prep launch's plain version: both operands normalised in float32
-    (``normalize_rows``), columns zero-padded to ``prep_width``, as bf16
-    [rows, dp] for 'default' or as TF32 planes [2, rows, dp] (hi =
-    ``tf32_round(x)``, lo = ``tf32_round(x - hi)``) for 'high'/'highest'."""
+    (``normalize_rows``; as they are in the L2 mode), columns zero-padded to
+    ``prep_width``, as bf16 [rows, dp] for 'default' or as TF32 planes [2,
+    rows, dp] (hi = ``tf32_round(x)``, lo = ``tf32_round(x - hi)``) for
+    'high'/'highest'."""
     out = []
-    for x in prep_operands(source, library, precision):
+    for x in prep_operands(source, library, precision, normalize):
         x = F.pad(x.float(), (0, prep_width(x.shape[1], precision) - x.shape[1]))
         if precision == "default":
             out.append(x.to(torch.bfloat16))
@@ -521,12 +540,13 @@ def _exclusion_args(valid_rows, penalty, device: torch.device, lr: int):
     return vr_ptr, lv, pen_ptr, keep
 
 
-def knn_prep_cuda(source: torch.Tensor, library: torch.Tensor, precision: str, rows: Optional[int] = None):
+def knn_prep_cuda(source: torch.Tensor, library: torch.Tensor, precision: str, rows: Optional[int] = None,
+                  normalize: bool = True):
     """The prep launch (``csrc/knn.cu:knn_prep``): ``knn_prep_plain``'s
     planes of the source and of the library's first ``rows`` rows (all by
     default), computed on the card.  Each row's scale is ``row_scales``'s,
-    as in the plain version; the kernel multiplies, casts or splits, and
-    pads.  One count of 'knn_prep'."""
+    as in the plain version (one in the L2 mode); the kernel multiplies,
+    casts or splits, and pads.  One count of 'knn_prep'."""
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}")
     rows = library.shape[0] if rows is None else rows
@@ -537,7 +557,11 @@ def knn_prep_cuda(source: torch.Tensor, library: torch.Tensor, precision: str, r
     if lib.device != src.device or lib.shape[1] != src.shape[1]:
         raise ValueError(f"source {tuple(src.shape)} and library {tuple(lib.shape)} must share "
                          "one device and one width")
-    scale_q, scale_l = row_scales(source), row_scales(library)[:rows]
+    if normalize:
+        scale_q, scale_l = row_scales(source), row_scales(library)[:rows]
+    else:
+        scale_q = torch.ones((src.shape[0], 1), dtype=torch.float32, device=src.device)
+        scale_l = torch.ones((rows, 1), dtype=torch.float32, device=src.device)
     ls, lr, d = src.shape[0], lib.shape[0], src.shape[1]
     dp = prep_width(d, precision)
     if precision == "default":
@@ -556,7 +580,7 @@ def knn_prep_cuda(source: torch.Tensor, library: torch.Tensor, precision: str, r
 
 def knn_topk_launch(source: torch.Tensor, library: torch.Tensor, k: int = 4,
                     precision: str = "default", valid_rows=None, penalty=None,
-                    extraction: str = "auto"):
+                    extraction: str = "auto", normalize: bool = True):
     """The two-pass form's launches with the merge's inputs and outputs: (out
     values, out indices, candidate values, candidate indices), the
     candidates [Ls, chunks, kk] (each chunk's top kk, kk = 4 or 8) and the
@@ -571,7 +595,7 @@ def knn_topk_launch(source: torch.Tensor, library: torch.Tensor, k: int = 4,
     packed = uses_packed(precision, k, valid_rows, penalty, extraction)
     vr_ptr, lr, pen_ptr, _keep = _exclusion_args(valid_rows, penalty, source.device, library.shape[0])
     # rows past a host count never rank: they are not prepared
-    q, lb = knn_prep_cuda(source, library, precision, rows=lr)
+    q, lb = knn_prep_cuda(source, library, precision, rows=lr, normalize=normalize)
     ls, dp = q.shape[-2], q.shape[-1]
     kk = 4 if k <= 4 else 8
     plan = twopass_plan(ls, lr, precision, k, packed, _sm_count(q.get_device()))
@@ -600,6 +624,19 @@ def knn_topk(source: torch.Tensor, library: torch.Tensor, k: int = 4,
         return knn_topk_cuda(source, library, k, precision, valid_rows, penalty, extraction,
                              route_rows=route_rows)
     return knn_topk_plain(source, library, k, precision, valid_rows, penalty, extraction)
+
+
+def l2_topk(source: torch.Tensor, library: torch.Tensor, penalty: torch.Tensor, k: int = 8,
+            precision: str = "high"):
+    """The k library rows nearest source [Ls, D] by L2 distance, ties to the
+    smallest index: (scores q.x - |x|^2 / 2 [Ls, k] float32, indices [Ls, k]
+    int64), ``penalty`` being ``l2_penalty(library)``.  On CUDA tensors the
+    two-pass launches at any library size, the plain version on CPU
+    tensors."""
+    if _lib.route(source) == "cuda":
+        out_v, out_i, _, _ = knn_topk_launch(source, library, k, precision, penalty=penalty, normalize=False)
+        return out_v[:, :k], out_i[:, :k].long()
+    return knn_topk_plain(source, library, k, precision, penalty=penalty, normalize=False)
 
 
 def match_features(source: torch.Tensor, library: torch.Tensor, k: int = 4,

@@ -1,6 +1,7 @@
 """WavLM: the content encoder's distillation teacher (``microsoft/wavlm-base-plus``,
-module/hubert.py:6-22; ``alivevc_tpu/models/wavlm.py``), and kNN-VC's
-content model (``microsoft/wavlm-large``, ``WAVLM_LARGE``).
+module/hubert.py:6-22; ``alivevc_tpu/models/wavlm.py``), kNN-VC's content
+model (``microsoft/wavlm-large``, ``WAVLM_LARGE``), and, as a variant of the
+same code, RVC's content model HuBERT-base (``HUBERT_BASE``).
 
 A 7-layer conv feature encoder, the feature projection, a weight-normed
 grouped conv positional embedding, and transformer layers with WavLM's gated
@@ -17,7 +18,13 @@ biases, pre-LN layers (``WavLMEncoderLayerStableLayerNorm``) and the
 encoder's LayerNorm after the last layer, which no returned hidden state
 carries: ``hidden_states[i]`` is layer i's output as it leaves the layer.
 
-The module's ``state_dict()`` has Hugging Face ``WavLMModel``'s key names,
+HuBERT (``relative_position_bias=False``; fairseq's ``hubert_base.pt``, Hugging
+Face ``HubertModel(HubertConfig())``) is the Base+ form without the gated
+relative position bias: plain scaled dot-product attention, no gate
+parameters, no bucket table.
+
+The module's ``state_dict()`` has Hugging Face ``WavLMModel``'s key names
+(``HubertModel``'s for HuBERT),
 with the positional conv in ``torch.nn.utils.parametrizations.weight_norm``
 form (``parametrizations.weight.original0`` = g [1, 1, k], ``original1`` =
 v [C, C / groups, k]); ``import_wavlm`` also reads the older ``weight_g`` /
@@ -66,12 +73,16 @@ class WavLMConfig:
     layer_norm_eps: float = 1e-5
     feat_extract_norm: str = "group"      # "group" | "layer"
     do_stable_layer_norm: bool = False    # pre-LN layers
+    relative_position_bias: bool = True   # WavLM's gated bias; False: HuBERT
 
 
 # microsoft/wavlm-large config.json; conv_bias as recalled, not read from the file
 # (import_wavlm takes it from a checkpoint's keys)
 WAVLM_LARGE = WavLMConfig(hidden_size=1024, num_layers=24, num_heads=16, intermediate_size=4096,
                           conv_bias=True, feat_extract_norm="layer", do_stable_layer_norm=True)
+
+# fairseq hubert_base.pt (Hugging Face HubertConfig()'s defaults): RVC v2's content model
+HUBERT_BASE = WavLMConfig(relative_position_bias=False)
 
 
 # ---------------------------------------------------------------------------
@@ -126,6 +137,8 @@ class _Attention(nn.Module):
         self.v_proj = nn.Linear(d, d)
         self.q_proj = nn.Linear(d, d)
         self.out_proj = nn.Linear(d, d)
+        if not cfg.relative_position_bias:
+            return
         self.gru_rel_pos_linear = nn.Linear(d // h, 8)
         self.gru_rel_pos_const = nn.Parameter(torch.ones(1, h, 1, 1))
         if has_rel_embed:
@@ -216,13 +229,19 @@ def _pos_conv(m: _PosConv, x: torch.Tensor, cfg: WavLMConfig) -> torch.Tensor:
     return gelu(y)
 
 
-def _attention(m: _Attention, x: torch.Tensor, position_bias: torch.Tensor,
+def _attention(m: _Attention, x: torch.Tensor, position_bias: Optional[torch.Tensor],
                cfg: WavLMConfig) -> torch.Tensor:
-    """Gated relative-position-bias self-attention.  position_bias [H, T, T]."""
+    """Gated relative-position-bias self-attention, position_bias [H, T, T];
+    without a bias (HuBERT), plain scaled dot-product attention."""
     n, t, d = x.shape
     h = cfg.num_heads
     hd = d // h
     heads = lambda y: y.reshape(n, t, h, hd).transpose(1, 2)   # noqa: E731  [N, H, T, hd]
+    if position_bias is None:
+        q, k, v = heads(m.q_proj(x)), heads(m.k_proj(x)), heads(m.v_proj(x))
+        with span("wavlm.attention"):
+            out = torch.softmax(q @ k.transpose(-1, -2) / math.sqrt(hd), dim=-1) @ v
+        return m.out_proj(out.transpose(1, 2).reshape(n, t, d))
     # the gate reads the unprojected hidden state, head by head
     proj = m.gru_rel_pos_linear(heads(x)).reshape(n, h, t, 2, 4).sum(-1)   # [N, H, T, 2]
     gate_a, gate_b = torch.sigmoid(proj).chunk(2, dim=-1)                  # [N, H, T, 1]
@@ -234,7 +253,7 @@ def _attention(m: _Attention, x: torch.Tensor, position_bias: torch.Tensor,
     return m.out_proj(out.transpose(1, 2).reshape(n, t, d))
 
 
-def _encoder_layer(m: _EncoderLayer, x: torch.Tensor, position_bias: torch.Tensor,
+def _encoder_layer(m: _EncoderLayer, x: torch.Tensor, position_bias: Optional[torch.Tensor],
                    cfg: WavLMConfig) -> torch.Tensor:
     """A post-LN layer (Base+), or with ``do_stable_layer_norm`` a pre-LN one
     (Large), whose gate reads the normed input."""
@@ -250,7 +269,8 @@ def wavlm_hidden_states(m: WavLM, wave: torch.Tensor,
                         upto: Optional[int] = None) -> List[torch.Tensor]:
     """wave [N, L] -> the hidden states [N, T', hidden]: the encoder's input
     and each layer's output (``WavLMModel(..., output_hidden_states=True)
-    .hidden_states``, 13 for the default config), or the first ``upto + 1``
+    .hidden_states``, 13 for the default config; HuBERT's last is
+    ``HubertModel``'s ``last_hidden_state``), or the first ``upto + 1``
     of them; layers past ``upto`` do not run.  In the stable (Large) form
     none is normed by the encoder's final LayerNorm, which Hugging Face
     applies to the last state of a full run alone."""
@@ -260,9 +280,11 @@ def wavlm_hidden_states(m: WavLM, wave: torch.Tensor,
     x = x + _pos_conv(m.encoder.pos_conv_embed, x, cfg)
     if not cfg.do_stable_layer_norm:
         x = m.encoder.layer_norm(x)
-    t = x.shape[1]
-    buckets = torch.from_numpy(rel_buckets_np(t, t, cfg.num_buckets, cfg.max_distance)).to(x.device)
-    position_bias = m.encoder.layers[0].attention.rel_attn_embed(buckets).permute(2, 0, 1)
+    position_bias = None
+    if cfg.relative_position_bias:
+        t = x.shape[1]
+        buckets = torch.from_numpy(rel_buckets_np(t, t, cfg.num_buckets, cfg.max_distance)).to(x.device)
+        position_bias = m.encoder.layers[0].attention.rel_attn_embed(buckets).permute(2, 0, 1)
     hidden = [x]
     for layer in m.encoder.layers[:upto]:
         x = _encoder_layer(layer, x, position_bias, cfg)
@@ -296,18 +318,20 @@ def hf_state(sd: Mapping[str, object]) -> dict:
     return {rename.get(k, k): v for k, v in sd.items() if k not in UNUSED_KEYS}
 
 
-def import_wavlm(sd: Mapping[str, object], stable_layer_norm: bool = False) -> WavLM:
+def import_wavlm(sd: Mapping[str, object], stable_layer_norm: bool = False,
+                 num_heads: Optional[int] = None) -> WavLM:
     """A ``WavLM`` on the CPU in eval mode with no gradient, from a Hugging
     Face state dict in either weight-norm form, loaded with strict key
     matching, at the widths the state dict holds (``compat/weights.py:
     wavlm_config``).  Pre-LN and post-LN layers hold the same keys, so
     ``stable_layer_norm`` (the config's ``do_stable_layer_norm``: True for
-    Large) is given, not read."""
+    Large) is given, not read.  A HuBERT state dict (no gate keys) does not
+    hold the head count either: ``num_heads`` gives it."""
     from alivevc_tpu_torch.compat.weights import wavlm_config   # it imports this module
 
     sd = hf_state(sd)
     with torch.device("meta"):      # no random initialisation: every tensor is assigned
-        m = WavLM(wavlm_config(sd, stable_layer_norm))
+        m = WavLM(wavlm_config(sd, stable_layer_norm, num_heads))
     m.load_state_dict({k: v if torch.is_tensor(v) else torch.from_numpy(np.array(v))
                        for k, v in sd.items()}, strict=True, assign=True)
     return m.eval().requires_grad_(False)

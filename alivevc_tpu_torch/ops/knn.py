@@ -10,6 +10,11 @@
 the top-k through ``kernels/knn.py`` for all windows' queries at once and
 keeps the gather-mean-alpha step in plain indexing, as the JAX package
 leaves it to XLA (knn_pallas.py:359-389).
+
+``rvc_blend`` is RVC's use of its retrieval (infer/modules/vc/pipeline.py:
+Pipeline.vc): the k = 8 index rows nearest by L2 distance (``kernels/knn.py:
+l2_topk``) weighted by their inverse squared distances, blended with the
+source by ``index_rate``.
 """
 
 from __future__ import annotations
@@ -47,3 +52,19 @@ def match_features_kernel(source: torch.Tensor, library: torch.Tensor, k: int = 
     Returns float32 [N, Ls, D]."""
     n, ls, d = source.shape
     return _match_flat(source.reshape(n * ls, d), library, k, alpha, precision).reshape(n, ls, d)
+
+
+@torch.no_grad()
+def rvc_blend(source: torch.Tensor, library: torch.Tensor, idx: torch.Tensor,
+              index_rate: float) -> torch.Tensor:
+    """RVC's blend of the rows ``idx`` [Ls, k] of library [Lr, D] for
+    source [Ls, D]: weights d_i^-2 / sum_j d_j^-2 of the rows' float32
+    squared distances d_i = |q - x_i|^2, computed from the gathered rows,
+    then ``index_rate * sum_i w_i x_i + (1 - index_rate) * q``."""
+    src = source.float()
+    rows = library[idx].float()                              # [Ls, k, D]
+    d2 = ((src[:, None, :] - rows) ** 2).sum(dim=-1)         # [Ls, k]
+    w = (1.0 / d2) ** 2
+    w = w / w.sum(dim=1, keepdim=True)
+    return (rows * w[..., None]).sum(dim=1) * index_rate + (1.0 - index_rate) * src
+

@@ -63,7 +63,21 @@ printing the final line:
      weights from the seed) on one 7.4 s file, its counters zeroed before
      and read after: ``hifigan_conv`` 72 launches, the two-pass kNN kernels
      each launched, and six convolutions inside ``knnvc.vocoder``
-     (conv_pre, four transposed convs, conv_post).  Every kNN row also
+     (conv_pre, four transposed convs, conv_post).  The RVC cell's
+     kernels have rows of their own, "(RVC)": the L2 mode of the two-pass
+     tile (operands as they are, the penalty -|x|^2 / 2, k = 8, 'high') at
+     2 150 queries against 89 513 x 768 rows, held to ``knn_topk_plain``
+     with ``normalize=False``, and its prep launch with unit row scales held
+     to ``knn_prep_plain`` bit for bit; and the ResBlock convs of one 41 s
+     segment's last generator stage, C = 32 over 1.72 M rows, held to the
+     same stage through ``hifigan_conv_plain``.  Then the RVC cell's whole
+     path, ``RvcConverter.convert`` at full width (HuBERT-base, the L2 8-NN
+     over 89 513 x 768 rows, the prior, the flow and the NSF generator;
+     weights the benchmark's draw from the seed) on a 100 s stereo take at
+     44.1 kHz, its counters zeroed before and read after: three segments,
+     so ``knn`` and ``knn_merge`` 3 launches each, ``hifigan_conv`` 216,
+     crossings 3 up and 2 down, and each of the segment's spans three
+     times.  Every kNN row also
      records ``kernel_ms``, its form's kernels alone (torch.profiler),
      ``library_norm_ms``, ``matmul`` + ``topk`` with the normalisation of
      both operands (the function's whole work; ``library_ms`` starts from
@@ -245,6 +259,10 @@ SEED = 0
 KNNVC_ROWS = 23_947             # offline-knnvc-libri's matching set: 480 s of speech, WavLM's frames
 KNNVC_QUERIES = (370, 1_240)    # the frames of its mean (7.4 s) and longest (~25 s) files
 KNNVC_MEAN_S = 7.4              # its mean file, seconds at 16 kHz (370 frames)
+RVC_INDEX_ROWS = 89_513         # offline-rvc40k-vocals' index: HuBERT's frames of 1 800 s in 3.7 s pieces
+RVC_QUERIES = 2_150             # HuBERT's frames of one 41 s segment with its 1 s of padding each side
+RVC_STAGE_ROWS = 1_720_000      # that segment's last generator stage at C = 32 (4 300 frames x 400)
+RVC_TAKE_S = 100.0              # three segments: cuts near 38 and 76 s
 OFFLINE_KERNELS = ("stft", "knn_prep", "knn", "knn_merge", "oscillator", "filter_level", "filter_narrow",
                    "filter_wide")
 SHARDED_KERNELS = ("knn_prep", "knn", "knn_merge", "oscillator", "filter_level", "filter_narrow", "filter_wide")
@@ -505,21 +523,22 @@ def check_knn_merge(gen, lib_rows, precision, ls=N_STEP * LF, valid_rows=None, s
     }
 
 
-def check_knn_prep(gen, lib_rows, precision, ls=N_STEP * LF, dim=768, suffix=""):
+def check_knn_prep(gen, lib_rows, precision, ls=N_STEP * LF, dim=768, suffix="", normalize=True):
     """The two-pass form's prep launch (``knn_prep_kernel``: both operands
-    normalised into bf16, or TF32 hi and lo planes) against its plain
-    version, ``knn_prep_plain``, plane by plane and bit for bit (tolerance
-    0): both take each row's scale from ``row_scales`` and round the
-    product once, then cast to bf16 or split; its device time alone
-    (torch.profiler).  No one PyTorch call computes it.  Bound: bytes, the
-    float32 rows read once and the planes written once."""
+    normalised, or as they are in the L2 mode, into bf16, or TF32 hi and lo
+    planes) against its plain version, ``knn_prep_plain``, plane by plane
+    and bit for bit (tolerance 0): both take each row's scale from
+    ``row_scales`` (one in the L2 mode) and round the product once, then
+    cast to bf16 or split; its device time alone (torch.profiler).  No one
+    PyTorch call computes it.  Bound: bytes, the float32 rows read once and
+    the planes written once."""
     import torch
     from alivevc_tpu_torch.kernels.knn import knn_prep_cuda, knn_prep_plain
 
     q = torch.randn(ls, dim, generator=gen, device="cuda")
     lib = torch.randn(lib_rows, dim, generator=gen, device="cuda")
-    got = knn_prep_cuda(q, lib, precision)
-    want = knn_prep_plain(q, lib, precision)
+    got = knn_prep_cuda(q, lib, precision, normalize=normalize)
+    want = knn_prep_plain(q, lib, precision, normalize=normalize)
     torch.cuda.synchronize()
     err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
     differ = sum(int((g.view(torch.int16 if g.dtype == torch.bfloat16 else torch.int32)
@@ -530,15 +549,15 @@ def check_knn_prep(gen, lib_rows, precision, ls=N_STEP * LF, dim=768, suffix="")
          f"knn prep[{precision},{lib_rows}]: {differ} values differ from the plain planes, max abs err {err}")
     nbytes = (ls + lib_rows) * dim * (4 + (2 if precision == "default" else 8))
     b, by = bound_ms(nbytes, 0.0, PEAK_F32)
-    ms = kernel_device_ms(lambda: knn_prep_cuda(q, lib, precision), ("knn_prep",))
+    ms = kernel_device_ms(lambda: knn_prep_cuda(q, lib, precision, normalize=normalize), ("knn_prep",))
     need(ms is not None, "knn prep: the profiler recorded no device time for knn_prep_kernel")
     return {
         "name": "knn_prep",
         "variant": f"prep of {ls} x {lib_rows} x {dim} {precision}{suffix}",
         "max_abs_err": err, "tol": tol,
-        "ms": cuda_ms(lambda: knn_prep_cuda(q, lib, precision)),
+        "ms": cuda_ms(lambda: knn_prep_cuda(q, lib, precision, normalize=normalize)),
         "kernel_ms": ms,
-        "plain_ms": cuda_ms(lambda: knn_prep_plain(q, lib, precision), 2),
+        "plain_ms": cuda_ms(lambda: knn_prep_plain(q, lib, precision, normalize=normalize), 2),
         "library_ms": None,
         "bound_ms": b, "bound_by": by,
     }
@@ -559,19 +578,72 @@ def check_knn_wide():
     return rows
 
 
+def check_knn_l2():
+    """The RVC cell's retrieval: the L2 mode (``l2_topk``: the operands as
+    they are, the penalty -|x|^2 / 2, k = 8, 'high') of the two-pass tile,
+    ``RVC_QUERIES`` queries near rows of an ``RVC_INDEX_ROWS`` x 768 index,
+    against ``knn_topk_plain(normalize=False)`` on the card in float32 with
+    TF32 off, as ``tests/test_torch_port_gpu.py`` holds it: scores within
+    2e-5 of the largest |q| |x|, the sets of 8 rows equal wherever the plain
+    8th and 9th scores are further apart than twice that; and its prep
+    launch with unit row scales.  The library call: ``matmul`` plus the
+    penalty and ``topk``, in float32.  A generator of its own."""
+    import torch
+    from alivevc_tpu_torch.device import float32_math
+    from alivevc_tpu_torch.kernels.knn import knn_topk_plain, l2_penalty, l2_topk
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 26)
+    ls, rows, dim = RVC_QUERIES, RVC_INDEX_ROWS, 768
+    lib = torch.randn(rows, dim, generator=gen, device="cuda")
+    q = lib[torch.randint(0, rows, (ls,), generator=gen, device="cuda")] + \
+        0.7 * torch.randn(ls, dim, generator=gen, device="cuda")
+    pen = l2_penalty(lib)
+    with float32_math():
+        v, i = l2_topk(q, lib, pen)
+        pv, pi = knn_topk_plain(q, lib, 9, "high", penalty=pen, normalize=False)
+        torch.cuda.synchronize()
+        err = float((v - pv[:, :8]).abs().max())
+        tol = 2e-5 * float(q.norm(dim=1).max() * lib.norm(dim=1).max())
+        clear = (pv[:, 7] - pv[:, 8]) > 2 * tol
+        same = (torch.sort(i, 1).values == torch.sort(pi[:, :8], 1).values).all(1)
+        bad = int((clear & ~same).sum())
+        need(err <= tol and bad == 0, f"knn L2[high,{rows}]: max abs err {err} (tol {tol}), {bad} index sets differ")
+
+        def library_call():
+            torch.topk(q @ lib.t() + pen, 8, dim=1)
+
+        # the float32 queries, rows and penalty read once, the outputs written
+        # once, the prep's planes written once and read once; 3xTF32 products
+        nbytes = (ls + rows) * dim * 4 + rows * 4 + ls * 8 * 8 + 2 * (ls + rows) * dim * 8
+        b, by = bound_ms(nbytes, 3.0 * 2.0 * ls * rows * dim, PEAK_TF32)
+        row = {
+            "name": "knn",
+            "variant": f"{ls} x {rows} x {dim} high L2 k=8 (RVC)",
+            "max_abs_err": err, "tol": tol, "index_sets_differing": bad, "near_ties": int((~clear).sum()),
+            "ms": cuda_ms(lambda: l2_topk(q, lib, pen)),
+            "kernel_ms": kernel_device_ms(lambda: l2_topk(q, lib, pen), ("knn_prep", "knn_tile", "knn_merge")),
+            "plain_ms": cuda_ms(lambda: knn_topk_plain(q, lib, 8, "high", penalty=pen, normalize=False), 2),
+            "library_ms": cuda_ms(library_call),
+            "bound_ms": b, "bound_by": by,
+        }
+    return [row, check_knn_prep(gen, rows, "high", ls=ls, suffix=" L2 (RVC)", normalize=False)]
+
+
 HIFIGAN_STAGES = ((256, 3_700), (128, 29_600), (64, 59_200), (32, 118_400))   # C, rows at 370 frames
 HIFIGAN_TOL = 1e-4   # tests/test_torch_port_gpu.py's, of max(1, the plain stage's peak)
 
 
-def check_hifigan_stages():
-    """The kNN-VC vocoder's ResBlocks, a stage a row: ``models/hifigan.py:
+def check_hifigan_stages(stages=HIFIGAN_STAGES, suffix="kNN-VC vocoder", seed=SEED + 25):
+    """The kNN-VC vocoder's ResBlocks (or ``stages``: C and rows, such as
+    the RVC generator's last stage), a stage a row: ``models/hifigan.py:
     _resblocks`` (18 kernel launches) against the same convs through
     ``hifigan_conv_plain``, the library call the channels-first cuDNN
     composition the vocoder ran before.  The bound: each conv's 3xTF32
     operations at 495 / 3 TFLOP/s, or its bytes (x and out, the residual
     for the second of a pair, the running sum for the last conv of every
     stack past the first) at the card's memory rate, the larger, summed.
-    Weights at nn.Conv1d's initial range, from a generator of their own."""
+    Weights at nn.Conv1d's initial range, from a generator of their own.
+    Both vocoders' ResBlocks take (3, 7, 11) taps at dilations (1, 3, 5)."""
     import torch
     import torch.nn.functional as F
     from alivevc_tpu_torch.config import HiFiGANConfig
@@ -580,13 +652,13 @@ def check_hifigan_stages():
 
     cfg = HiFiGANConfig()
     slope, stacks = cfg.lrelu_slope, len(cfg.resblock_kernel_sizes)
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     with torch.random.fork_rng(devices=[]):   # the modules' initial draws leave the global generator as it was
-        torch.manual_seed(SEED + 25)
-        stages = [[mh._ResBlock1(c, k, d).cuda().eval()
-                   for k, d in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes)] for c, _ in HIFIGAN_STAGES]
+        torch.manual_seed(seed)
+        blocks_at = [[mh._ResBlock1(c, k, d).cuda().eval()
+                      for k, d in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes)] for c, _ in stages]
     rows = []
-    for (c, length), blocks in zip(HIFIGAN_STAGES, stages):
+    for (c, length), blocks in zip(stages, blocks_at):
         x = torch.randn(1, length, c, generator=gen, device="cuda")
         xc = x.transpose(1, 2).contiguous()
 
@@ -622,7 +694,7 @@ def check_hifigan_stages():
                     bounds.append(bound_ms(arrays * length * c * 4, 2 * length * k * c * c, PEAK_TF32 / 3))
         kinds = sorted({by for _, by in bounds})
         rows.append({
-            "name": "hifigan_conv", "variant": f"[1, {length}, {c}] 18 convs f32 (kNN-VC vocoder)",
+            "name": "hifigan_conv", "variant": f"[1, {length}, {c}] 18 convs f32 ({suffix})",
             "max_abs_err": err, "tol": HIFIGAN_TOL,
             "ms": cuda_ms(lambda: mh._resblocks(blocks, x, slope)),
             "plain_ms": cuda_ms(plain, 2),
@@ -684,6 +756,78 @@ def run_knnvc_path(card):
                                          f"expected 72")
     need(all(launches[k] > 0 for k in ("knn_prep", "knn", "knn_merge")), f"kNN-VC path: launches {launches}")
     need(convs == 6, f"kNN-VC path: {convs} convolutions inside knnvc.vocoder, expected 6")
+    return launches
+
+
+RVC_SPANS = {"offline.convert": 1, "rvc.highpass": 1, "rvc.split": 1, "offline.step": 3, "rvc.content": 3,
+             "rvc.match": 3, "rvc.prior": 3, "rvc.vocoder": 3, "rvc.source": 3}
+
+
+def run_rvc_path(card):
+    """The RVC cell's path at full width: ``RvcConverter.convert`` (HuBERT-
+    base to layer 12, the L2 8-NN in 'high' over an ``RVC_INDEX_ROWS`` x 768
+    index, the prior, the reversed flow and the NSF generator at 40 kHz),
+    the weights the benchmark's draw (``vcbench/configs/rvc-v2-40k-fp32.json``)
+    from the seed, the index rows from the seed, on a stereo take of
+    ``RVC_TAKE_S`` s at 44.1 kHz sung by the cell's voice with its F0 curve.
+    Every draw takes a generator of its own.  The first convert warms up;
+    the counters are zeroed just before the second and read just after,
+    under the profiler: three segments, so ``knn`` and ``knn_merge`` 3
+    launches each (and no carried form), ``hifigan_conv`` 216 (3 x 72),
+    crossings 3 up and 2 down, and the spans ``RVC_SPANS`` counts.  Returns
+    the launches."""
+    import numpy as np
+    import torch
+    from pathlib import Path
+    from torch.profiler import ProfilerActivity, profile
+
+    from alivevc_tpu_torch.infer import offline
+    from alivevc_tpu_torch.infer.offline import RvcConverter
+    from alivevc_tpu_torch.kernels import LAUNCHES, reset_launches
+    from alivevc_tpu_torch.utils.profiling import PREFIX
+
+    vcbench = Path(__file__).resolve().parent / "vcbench"
+    if str(vcbench) not in sys.path:
+        sys.path.insert(0, str(vcbench))
+    import program_rvc
+    import weights
+    from reference import rvc as ref
+    from traffic.offline_rvc import sung
+
+    conf = json.loads((vcbench / "configs" / "rvc-v2-40k-fp32.json").read_text())
+    voice = json.loads((vcbench / "traffic" / "musdb_vocals_44k.json").read_text())["voice"]
+    params = weights.draw(ref.param_specs(conf["model"]), torch.Generator(device="cuda").manual_seed(SEED + 27),
+                          "cuda")
+    model, dcfg = program_rvc.build_model(conf["model"], params)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 28)
+    index = torch.randn(RVC_INDEX_ROWS, 768, generator=g, device="cuda")
+    wave, curve = sung(g, int(RVC_TAKE_S * 44_100), 44_100, voice, "cuda")
+    wave = torch.stack([0.9 * wave, 0.8 * wave]).cpu().numpy()
+    curve = curve.cpu().numpy()
+    conv = RvcConverter(model, index, dcfg, device="cuda")
+    conv.convert(wave, 44_100, f0=curve, generator=torch.Generator(device="cuda").manual_seed(SEED + 29))
+    torch.cuda.synchronize()
+    reset_launches()
+    offline.reset_crossings()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = conv.convert(wave, 44_100, f0=curve, generator=torch.Generator(device="cuda").manual_seed(SEED + 29))
+    dt = time.perf_counter() - t0
+    launches, crossings = dict(LAUNCHES), dict(offline.CROSSINGS)
+    spans = {name: sum(e.name == PREFIX + name for e in prof.events()) for name in RVC_SPANS}
+    print(f"RVC path [{card}]: RvcConverter.convert of a {RVC_TAKE_S:.0f} s stereo take at 44.1 kHz, HuBERT-base, "
+          f"L2 8-NN over {RVC_INDEX_ROWS} x 768 'high', the NSF generator at 40 kHz: {dt:.3f} s wall (profiled), "
+          f"cuts {conv.last_cuts}; launches {launches}; crossings {crossings}; spans {spans}")
+    seconds = out.shape[0] / conv.output_rate     # RVC's frames drop a few samples a segment
+    need(out.ndim == 1 and abs(seconds - RVC_TAKE_S) < 0.1 and bool(np.isfinite(out).all()),
+         f"RVC path: output {out.shape} ({seconds:.3f} s), finite {bool(np.isfinite(out).all())}")
+    need(len(conv.last_cuts) == 2, f"RVC path: cuts {conv.last_cuts}, expected 2")
+    need(launches["knn"] == 3 and launches["knn_merge"] == 3 and launches["knn_prep"] == 3
+         and launches["knn_carried"] == 0, f"RVC path: kNN launches {launches}, expected 3 two-pass calls")
+    need(launches["hifigan_conv"] == 216, f"RVC path: hifigan_conv launched {launches['hifigan_conv']} times, "
+                                          f"expected 216")
+    need(crossings == {"to_card": 3, "to_host": 2}, f"RVC path: crossings {crossings}, expected 3 up and 2 down")
+    need(spans == RVC_SPANS, f"RVC path: spans {spans}, expected {RVC_SPANS}")
     return launches
 
 
@@ -3538,7 +3682,7 @@ def kernels_line(rows, launches):
     packed kNN at the 100 352-row library; the carried kNN form at the
     streaming hop, 'high', and its packed kernel at 512 rows); every measured variant, the
     streaming hop's and the training Functions' included, is listed under 'variants'.  Launches
-    are summed over the paths driven (phase 2's kNN-VC convert, phases 3, 4 with both ranks, 5, 6,
+    are summed over the paths driven (phase 2's kNN-VC and RVC converts, phases 3, 4 with both ranks, 5, 6,
     7 with both ranks, 8, 9, 10 with its deterministic sub-run, 11)."""
     out = []
     for name, (source, replaces) in REPLACES.items():
@@ -3551,6 +3695,8 @@ def kernels_line(rows, launches):
             main = [r for r in mine if r["variant"].endswith("high (hop)")]
         elif name == "knn_carried_packed":
             main = [r for r in mine if r["variant"].startswith(f"{N_STEP * LF} x 512 x 768")]
+        elif name == "hifigan_conv":        # the kNN-VC vocoder's four stages, not the RVC stage's row
+            main = [r for r in mine if r["variant"].endswith("(kNN-VC vocoder)")]
         elif name == "oscillator_stream":   # the streaming hop's call, its only caller
             main = mine
         elif name in FILTER_ENTRIES:   # the bf16 main path's levels: all four, the narrow or the wide
@@ -3668,13 +3814,17 @@ def main() -> int:
     for lib_rows in (512, LIB_ROWS):
         rows.append(check_knn(gen, lib_rows, "default", extraction="packed"))
     rows.extend(check_knn_wide())
+    rows.extend(check_knn_l2())
     rows.extend(check_hifigan_stages())
+    rows.extend(check_hifigan_stages(((32, RVC_STAGE_ROWS),), "RVC vocoder", SEED + 26))
     rows.append(check_oscillator(gen))
     rows.append(check_formants(gen))
     rows.extend(check_filter_levels(gen, dec))
     print_rows(rows, card)
     torch.cuda.empty_cache()
     knnvc_launches = run_knnvc_path(card)
+    torch.cuda.empty_cache()
+    rvc_launches = run_rvc_path(card)
     torch.cuda.empty_cache()
     print(f"phase 2 done at {time.perf_counter() - t_start:.1f} s")
 
@@ -3740,7 +3890,7 @@ def main() -> int:
         chain_launches, chain = run_cli_chain(card)
     print(f"phase 11 done at {time.perf_counter() - t_start:.1f} s; report {json.dumps(chain)}")
 
-    total = {k: knnvc_launches[k] + launches[k] + sharded_launches[k] + api_launches[k] + rt_launches[k]
+    total = {k: knnvc_launches[k] + rvc_launches[k] + launches[k] + sharded_launches[k] + api_launches[k] + rt_launches[k]
              + halo_launches[k] + train_launches[k] + distill_launches[k] + resume_launches[k]
              + chain_launches[k] for k in launches}
     print(json.dumps(kernels_line(rows, total)))

@@ -1936,3 +1936,138 @@ def test_hifigan_conv_refuses_what_the_kernel_does_not_take_on_card():
     with pytest.raises(ValueError):
         kh.hifigan_conv_cuda(x[..., :48].contiguous(), hi[:48, :144].contiguous(), lo[:48, :144].contiguous(),
                              b[:48].contiguous(), 3, 1, 0.1)
+
+
+# RVC v2 (rvc-v2-40k-fp32): the index's rows, a 41 s segment's HuBERT frames,
+# and the rows of its last generator stage at C = 32 (4 300 frames x 400)
+RVC_INDEX_ROWS = 89_500
+RVC_QUERIES = 2_150
+RVC_STAGE_ROWS = 1_720_000
+
+
+@pytest.mark.gpu
+def test_knn_l2_mode_on_card():
+    """On the card: the L2 mode (operands as they are, the penalty -|x|^2 /
+    2, k = 8, 'high') of the two-pass tile at RVC's index (768 x 89 500
+    rows, a segment's 2 150 queries) against its plain version on the card
+    (float32 products, TF32 off): scores within 2e-5 of the largest
+    |q| |x| (3xTF32 products accumulated on the tensor cores against float32
+    in another order; it read 8e-6 of it, 7.4e-3 on scores of ~400; the
+    cosine mode's tests allow 1e-4 of unit rows), the sets of 8 rows equal
+    wherever the plain 8th and 9th scores are farther apart than twice that,
+    and those sets the 8 rows nearest by float64 L2 distance.
+    A library under 4 096 rows takes the two-pass form too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; on the card run this file with --noconftest -m gpu")
+    from alivevc_tpu_torch.device import float32_math
+    from alivevc_tpu_torch.kernels import _lib
+
+    g = torch.Generator(device="cuda").manual_seed(26)
+    with float32_math():
+        for rows, queries in ((RVC_INDEX_ROWS, RVC_QUERIES), (1_000, 300)):
+            lib = torch.randn(rows, 768, generator=g, device="cuda")
+            q = lib[torch.randint(0, rows, (queries,), generator=g, device="cuda")] + \
+                0.7 * torch.randn(queries, 768, generator=g, device="cuda")
+            pen = kknn.l2_penalty(lib)
+            _lib.reset_launches()
+            v, i = kknn.l2_topk(q, lib, pen)
+            assert _lib.LAUNCHES["knn"] == 1 and _lib.LAUNCHES["knn_carried"] == 0
+            pv, pi = kknn.knn_topk_plain(q, lib, 9, "high", penalty=pen, normalize=False)
+            tol = 2e-5 * float(q.norm(dim=1).max() * lib.norm(dim=1).max())
+            assert max_err(v, pv[:, :8]) <= tol
+            clear = (pv[:, 7] - pv[:, 8]) > 2 * tol
+            same = (torch.sort(i, 1).values == torch.sort(pi[:, :8], 1).values).all(1)
+            assert bool((same | ~clear).all()), int((~same & clear).sum())
+            d64 = torch.cdist(q[:64].double(), lib.double()).pow(2)
+            near = torch.topk(d64, 8, largest=False).indices
+            assert bool(((torch.sort(near, 1).values == torch.sort(i[:64], 1).values).all(1) | ~clear[:64]).all())
+            print(f"L2 mode {queries} x {rows}: worst score gap {max_err(v, pv[:, :8]):.3e} (tol {tol:.3e}), "
+                  f"{int((~clear).sum())} near-ties")
+
+
+@pytest.mark.gpu
+def test_hifigan_conv_at_rvc_rows_on_card():
+    """On the card: the ResBlock1 conv kernel at C = 32 over the rows of a
+    41 s RVC segment's last generator stage (1.72 M), every (taps,
+    dilation) of the stage, against its plain version, as
+    ``test_hifigan_conv_edges_on_card`` holds it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; on the card run this file with --noconftest -m gpu")
+    from alivevc_tpu_torch.device import float32_math
+
+    g = torch.Generator(device="cuda").manual_seed(32)
+    forms = list(HIFIGAN_FORMS)
+    errs = []
+    with float32_math():
+        for j, (k, d) in enumerate((k, d) for k in (3, 7, 11) for d in (1, 3, 5)):
+            errs.append(_hifigan_conv_case(g, 1, RVC_STAGE_ROWS, 32, k, d, forms[j % len(forms)]))
+    worst, worst_tf32 = max(e[0] for e in errs), max(e[1] for e in errs)
+    print(f"hifigan conv C=32 at {RVC_STAGE_ROWS} rows: worst {worst:.3e}, one-pass TF32 worst {worst_tf32:.3e}, "
+          f"least {min(e[1] for e in errs):.3e}")
+    assert worst <= HIFIGAN_TOL < worst_tf32
+
+
+@pytest.mark.gpu
+def test_rvc_converter_full_width_on_card():
+    """On the card: ``RvcConverter.convert`` of a 100 s stereo take at 44.1
+    kHz (three segments: cuts near 38 and 76 s) at the published widths,
+    seeded weights (the benchmark's draw) and an index of HuBERT's features
+    of 300 s of another voice in 3.7 s pieces (~14 900 rows):
+    three crossings up and two down, one two-pass L2 kNN call and 72 ResBlock
+    conv launches a segment, the reference's cut points, and the 40 kHz
+    output within the cell's log-mel L1 limit of the reference's on the same
+    noise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; on the card run this file with --noconftest -m gpu")
+    import json
+    import sys
+    from pathlib import Path
+
+    vcbench = Path(__file__).resolve().parent.parent / "vcbench"
+    if str(vcbench) not in sys.path:
+        sys.path.insert(0, str(vcbench))
+    import program_rvc
+    import weights
+    from reference import dsp
+    from reference import rvc as ref
+    from reference.numerics import exact_float32
+    from traffic.offline_rvc import sung
+
+    from alivevc_tpu_torch.infer import offline
+    from alivevc_tpu_torch.infer.offline import RvcConverter, build_rvc_index
+    from alivevc_tpu_torch.kernels import _lib
+
+    conf = json.loads((vcbench / "configs" / "rvc-v2-40k-fp32.json").read_text())
+    voice = json.loads((vcbench / "traffic" / "musdb_vocals_44k.json").read_text())["voice"]
+    limits = json.loads((vcbench / "checks" / "offline-rvc40k-vocals.json").read_text())["limits"]
+    m = conf["model"]
+    params = weights.draw(ref.param_specs(m), torch.Generator(device="cuda").manual_seed(1), "cuda")
+    model, dcfg = program_rvc.build_model(m, params)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    target, _ = sung(g, 300 * 16_000, 16_000, voice, "cuda")
+    pieces = [p.cpu().numpy() for p in target.split(59_200)]
+    index = build_rvc_index(model, pieces, device="cuda")
+    wave, curve = sung(g, 100 * 44_100, 44_100, voice, "cuda")
+    wave = torch.stack([0.9 * wave, 0.8 * wave]).cpu().numpy()
+    curve = curve.cpu().numpy()
+    conv = RvcConverter(model, index, dcfg, device="cuda")
+    conv.convert(wave, 44_100, f0=curve, generator=torch.Generator(device="cuda").manual_seed(3))
+    offline.reset_crossings()
+    _lib.reset_launches()
+    got = conv.convert(wave, 44_100, f0=curve, generator=torch.Generator(device="cuda").manual_seed(3))
+    torch.cuda.synchronize()
+    assert offline.CROSSINGS == {"to_card": 3, "to_host": 2}
+    assert _lib.LAUNCHES["knn"] == 3 and _lib.LAUNCHES["knn_merge"] == 3 and _lib.LAUNCHES["hifigan_conv"] == 216
+    with torch.no_grad(), exact_float32():
+        audio = ref.file_16k(wave, 44_100, "cuda")
+        cuts = ref.cuts(ref.highpass(audio, m["driver"]), m["driver"])
+        rows = ref.index_rows(ref.Precisions(), params, m, [torch.from_numpy(p).cuda() for p in pieces])
+        want = ref.pipeline(ref.Precisions(), params, m, audio, curve, rows,
+                            torch.Generator(device="cuda").manual_seed(3), "cuda", cuts)
+    assert len(cuts) == 2 and [c // 160 for c in conv.last_cuts] == [c // 160 for c in cuts]
+    assert got.shape == want.shape and np.isfinite(got).all()
+    a, b = dsp.log_mel(torch.from_numpy(np.stack([got, want])).cuda(), sr=40_000, n_fft=2048, hop=400, n_mels=125)
+    l1 = float((a - b).abs().mean())
+    print(f"RVC 100 s take: {got.shape[0]} samples at 40 kHz, mel L1 {l1:.3e} (limit {limits['mel_l1']}), "
+          f"ac rms {float(np.std(got)):.3f}, waveform gap {float(np.abs(got - want).max()):.3e}")
+    assert l1 <= limits["mel_l1"]

@@ -94,10 +94,11 @@ def test_wavlm_config_reads_the_widths(narrow):
     assert weights.wavlm_config(legacy) == twavlm.WavLMConfig(**NARROW)
     assert twavlm.WavLMConfig() == twavlm.WavLMConfig(**{
         f: getattr(jwavlm.WavLMConfig(), f) for f in jwavlm.WavLMConfig.__dataclass_fields__})
-    # the fields the JAX package lacks select the Large form; their defaults are Base+'s
+    # the fields the JAX package lacks select the Large form and HuBERT; their defaults are Base+'s
     assert set(twavlm.WavLMConfig.__dataclass_fields__) - set(jwavlm.WavLMConfig.__dataclass_fields__) == {
-        "feat_extract_norm", "do_stable_layer_norm"}
-    assert (twavlm.WavLMConfig().feat_extract_norm, twavlm.WavLMConfig().do_stable_layer_norm) == ("group", False)
+        "feat_extract_norm", "do_stable_layer_norm", "relative_position_bias"}
+    assert (twavlm.WavLMConfig().feat_extract_norm, twavlm.WavLMConfig().do_stable_layer_norm,
+            twavlm.WavLMConfig().relative_position_bias) == ("group", False, True)
 
 
 def test_matches_transformers_wavlm():
